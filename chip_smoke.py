@@ -1,36 +1,61 @@
 """GPU smoke run of kubernetes_tpu_torch: the quickest proof that the port
 builds, agrees with its plain versions and schedules on an NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare TAG=DIR] ...
 
 Phases (each prints its wall time; any failed check exits non-zero):
   1. device facts (nvidia-smi name and power limit, CUDA, nvcc, ninja);
-  2. build every CUDA source under kubernetes_tpu_torch/ops/csrc;
+  2. build every CUDA source under kubernetes_tpu_torch/ops/csrc, with
+     ptxas's registers and spills;
   3. the claims kernel against its plain torch version on the card
-     (murmur: exact; sin: the tolerance rule of tests/test_torch_kernels.py),
-     with its time per launch (median of CUDA-event timed launches);
+     (murmur: exact; sin: the tolerance rule of tests/test_torch_kernels.py)
+     on random cases and on its edges (ragged P and N, identical nodes, dead
+     pod tiles, R=2 and R=16), with its time per launch (median of
+     CUDA-event timed launches);
   4. the slice on the GPU against the slice on the CPU, at murmur and at
      sin noise: 5,000 nodes, two batches of 4,096 pods, bit-identical
-     result vectors and final state;
+     result vectors and final state; then every claims launch of the GPU
+     slice replayed on its own inputs, the kernel against itself and
+     against the plain version on the GPU and on the CPU, and the sin
+     noise of those launches compared between the GPU and the CPU;
   5. SchedulingBasic at bench shape: 5,000 nodes (32 CPU, 256Gi, 110
      pods), 49,152 pods (100m, 128Mi) in batches of 16,384 through
      TorchBatchBackend.assign;
   6. the north-star scale: 100,000 nodes, 12 batches of 16,384 (196,608
      pods: the Scheduling100k row's 200,000 cut to whole batches);
-  7. the claims kernel held against its plain version again at the inputs
-     the 100k run leaves, timed with its plain version and its bound.
+  7. the claims kernel held against its plain version again at the main
+     path's two launch shapes, the wave's (P=16,384, sin) and the compacted
+     tail's (P=512, murmur), each on the empty cluster of batch 1 (every
+     node ties: the noise prune's worst case) and on the state the 100k run
+     leaves, and at the wave shape with two alternating pod requests (the
+     kernel's general path); timed beside three bounds (below) and, at the
+     wave shape, the plain version.
 Phases 5 and 6 are the main path: the kernels' launch counts are zeroed
-just before each and read just after, and each must have launched.  The
-last two lines are a JSON line of per-kernel numbers and the device line.
-Without a CUDA device the script exits 2 and prints no result.
+just before each and read just after, and each must have launched; every
+claims launch is recorded by shape (pods, live pods, nodes, noise) with its
+time between CUDA events.  The last two lines are a JSON line of
+per-kernel numbers and the device line.  Without a CUDA device the script
+exits 2 and prints no result.
+
+--compare TAG=DIR loads the kubernetes_tpu_torch package of another
+checkout (e.g. an earlier revision, unpacked with git archive) under its
+own name, and times its claims wrapper against this one's in phase 7, in
+turns (this, other, other, this) on the same inputs, after checking that
+both return the same claims and best.
 """
 
+import argparse
+import importlib
+import importlib.util
 import json
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -38,14 +63,31 @@ import torch
 H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, FP32 outside tensor cores
 H100_FP64_OPS_PER_S = 34e12      # H100 SXM data sheet, FP64 outside tensor cores
-# operations the claims kernel spends per (pod, node) cell: the mask/cap
-# tests and R resource compares (f32) for every live pod's cell; for each
-# feasible cell the utilizations, score, noise and running max in f32
-# (murmur's integer hash counted as 14 of its 36), and for the sin noise
-# one f64 sin, counted as ~20 f64 operations
+# Operations of one claims call, counted three ways.
+#  "PR 1": the first kernel revision's definition: per live cell the mask
+#   and cap tests and R compares; per feasible cell the utilizations,
+#   score, add and running max (SCORE_OPS) and the noise.
+#  "candidates" and "required": the work the inputs need.  Per live cell
+#   the mask test; per distinct (pod request, node) pair R compares and
+#   the cap test, and where they fit the utilizations and score
+#   (PAIR_SCORE_OPS); per noisy cell the noise, add and running max.
+#   "candidates" takes the noise on every feasible cell within NOISE_MAX
+#   of its pod's best score; "required" only on the cells any exact
+#   algorithm must evaluate: those whose upper bound fl(score + NOISE_MAX)
+#   lies above the pod's answer, or equals it at a lower node index, and
+#   the answer itself.
+# The noise: f32 operations (murmur's integer hash counted as 14 of its
+# 16), and for sin one f64 sin counted as 20 f64 operations.
 FIT_OPS_BASE = 2
-SCORE_OPS = {"sin": 32, "murmur": 36}
+SCORE_OPS = 20
+MASK_OPS = 1
+PAIR_SCORE_OPS = 18
+PICK_OPS = 2
+NOISE_OPS = {"sin": 12, "murmur": 16}
 SIN_F64_OPS = {"sin": 20, "murmur": 0}
+# the largest value each noise rule returns (csrc/claims.cu NOISE_MAX)
+NOISE_MAX = {"sin": np.float32(1e-3),
+             "murmur": np.float32(16777215.0) * np.float32(0.05 / 2**24)}
 
 
 def nvidia_smi_line() -> str:
@@ -92,11 +134,13 @@ def time_cuda(fn, n: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def check_claims(kernels, args, noise, label):
+def check_claims(kernels, args, noise, label, pod_ids=None):
     """Hold the kernel against its plain version on the same inputs;
-    returns the max |best| difference over the pods with a claim."""
-    got, best = kernels.claims(*args, noise=noise)
-    want, want_best = kernels.claims_reference(*args, noise=noise)
+    returns the max |best| difference over the pods with a claim, and the
+    plain version's (claims, best)."""
+    got, best = kernels.claims(*args, noise=noise, pod_ids=pod_ids)
+    want, want_best = kernels.claims_reference(*args, noise=noise,
+                                               pod_ids=pod_ids)
     torch.cuda.synchronize()
     check(bool(((got == -1) == (want == -1)).all()),
           f"{label} {noise}: pods with no feasible node differ")
@@ -115,7 +159,8 @@ def check_claims(kernels, args, noise, label):
         idx = torch.nonzero(placed).squeeze(1)
         only[got[idx].long(), idx] = static["smask_t"][got[idx].long(), idx]
         at, at_best = kernels.claims_reference(
-            {**static, "smask_t": only}, *args[1:], noise=noise)
+            {**static, "smask_t": only}, *args[1:], noise=noise,
+            pod_ids=pod_ids)
         check(bool((at[idx] == got[idx]).all()),
               f"{label} sin: the kernel chose an infeasible node")
         gap = float((at_best[idx] - want_best[idx]).abs().max()) \
@@ -123,55 +168,188 @@ def check_claims(kernels, args, noise, label):
         check(gap <= 1e-4, f"{label} sin: choice is {gap} below the best")
     print(f"   {label} {noise}: claims agree, max |best err| {err}",
           flush=True)
-    return err
+    return err, want, want_best
 
 
-def random_claims_case(P, N, seed, dev):
-    R = 6
+def random_claims_case(P, N, seed, dev, R=6, live=0.9, identical=False,
+                       same_pods=False, dead_tiles=False):
+    """Seeded claims inputs.  identical: every node alike (all cells of a
+    pod tie on score); same_pods: every pod requests alike (the kernel's
+    shared-fit path); dead_tiles: live pods only at a few scattered
+    positions, so most pod tiles of the kernel hold none."""
     rng = np.random.default_rng(seed)
+    wide = R != 6
     req = rng.uniform(0, 4, (P, R)).astype(np.float32)
-    req[:, 3:] = 0
     alloc = rng.uniform(2, 16, (N, R)).astype(np.float32)
-    alloc[:, 3:] = 0
     used = rng.uniform(0, 4, (N, R)).astype(np.float32)
-    used[:, 3:] = 0
+    if not wide:
+        req[:, 3:] = alloc[:, 3:] = used[:, 3:] = 0
+    if identical:
+        alloc[:], used[:] = alloc[0], used[0]
+        req *= 0.3
+    if same_pods:
+        req[:] = req[0]
+    active = rng.random(P) < live
+    if dead_tiles:
+        active[:] = False
+        active[rng.choice(P, 12, replace=False)] = True
+    npods = rng.integers(0, 5, N).astype(np.float32)
+    if identical:
+        npods[:] = 1
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     from kubernetes_tpu_torch.ops import kernels
     static = kernels.prepare_static(
-        t(req), t(req), t(alloc), t(np.full(N, 110, np.float32)),
+        t(req), t(req), t(alloc), t(np.full(N, 4 if wide else 110, np.float32)),
         t(rng.random((N, P)) > 0.25))
-    return (static, t(rng.random(P) > 0.1), t(used), t(used),
-            t(rng.integers(0, 5, N).astype(np.float32)))
+    return (static, t(active), t(used), t(used), t(npods))
 
 
-def claims_bound(args, noise):
-    """(bound_ms, bound_by) for one claims call on these inputs: the bytes
-    it must move (each input read once, each output written once) over
-    HBM bandwidth, against its operations (counted for the cells this data
-    needs: every live pod's cell, plus scoring for feasible cells) over
-    the FP32 and FP64 peaks."""
+def claims_work(args, noise, answer):
+    """Counts of the work one claims call on these inputs needs: live
+    cells, feasible cells, distinct (request, node) pairs and those that
+    fit, candidate cells (feasible, score within NOISE_MAX of the pod's
+    best score) and required cells (see the operation counts above);
+    `answer` is the plain version's (claims, best) on the same inputs."""
+    from kubernetes_tpu_torch.ops import kernels
     static, active, used, used_nz, npods = args
     P, N, R = static["shape"]
-    nbytes = (static["smask_t"].numel() + 2 * P * R * 4 + P + P * 4
-              + 3 * N * R * 4 + 2 * N * 4 + P * 8)
-    feasible = 0
+    claim, best = answer
+    dev = used.device
     avail = static["alloc"] - used
     cap_ok = npods + 1.0 <= static["maxpods"]
-    step = max(1, (1 << 26) // N)
+    one = torch.ones((), device=dev)
+    nmax = torch.tensor(float(NOISE_MAX[noise]), dtype=torch.float32,
+                        device=dev)
+    node = torch.arange(N, device=dev)[None, :]
+
+    def fits(req):
+        fit = cap_ok[None, :].expand(req.shape[0], N)
+        for r in range(R):
+            fit = fit & (req[:, r, None] <= avail[None, :, r])
+        return fit
+
+    def scores(req_nz):
+        utils = []
+        for r in range(2):
+            a = static["alloc"][None, :, r]
+            u = used_nz[None, :, r] + req_nz[:, r, None]
+            utils.append(torch.where(
+                a > 0, torch.minimum(u / torch.clamp(a, min=1.0), one), one))
+        return kernels.fit_score(*utils)
+
+    live = active.bool()
+    uniq = torch.unique(torch.cat([static["req"], static["req_nz"]], 1)[live],
+                        dim=0)
+    n = {"live": int(live.sum()) * N, "pairs": uniq.shape[0] * N,
+         "pairs fit": 0, "feasible": 0, "candidates": 0, "required": 0}
+    step = max(1, (1 << 25) // N)
+    for lo in range(0, uniq.shape[0], step):
+        n["pairs fit"] += int(fits(uniq[lo:lo + step, :R]).sum())
     for lo in range(0, P, step):
         hi = min(P, lo + step)
-        fit = cap_ok[None, :] & (static["smask_t"][:, lo:hi].T != 0)
-        for r in range(R):
-            fit &= static["req"][lo:hi, r, None] <= avail[None, :, r]
-        feasible += int((fit & active[lo:hi, None]).sum())
-    live = int(active.sum())
-    ops = live * N * (FIT_OPS_BASE + R) + feasible * SCORE_OPS[noise]
+        fit = (fits(static["req"][lo:hi])
+               & (static["smask_t"][:, lo:hi].T != 0) & live[lo:hi, None])
+        score = scores(static["req_nz"][lo:hi])
+        top = torch.where(fit, score, torch.full_like(score, -3e38)).amax(1)
+        upper = score + nmax
+        b, c = best[lo:hi, None], claim[lo:hi, None]
+        n["feasible"] += int(fit.sum())
+        n["candidates"] += int((fit & (score + nmax >= top[:, None])).sum())
+        n["required"] += int((fit & ((upper > b) | ((upper == b)
+                                                     & (node <= c)))).sum())
+    return n
+
+
+def claims_bounds(args, noise, answer):
+    """{"PR 1" | "candidates" | "required": (ms, by), "cells": counts} for
+    one claims call on these inputs: the larger of the bytes it must move
+    (each input read once, each output written once) over HBM bandwidth
+    and its operations, counted three ways (above), over the FP32 and
+    FP64 peaks."""
+    static = args[0]
+    P, N, R = static["shape"]
+    nbytes = (N * P + 2 * P * R * 4 + P + P * 4 + 3 * N * R * 4 + 2 * N * 4
+              + P * 8)
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / H100_FP32_OPS_PER_S
-             + feasible * SIN_F64_OPS[noise] / H100_FP64_OPS_PER_S) * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    n = claims_work(args, noise, answer)
+
+    def bound(f32_ops, noisy):
+        t_ops = (f32_ops / H100_FP32_OPS_PER_S
+                 + noisy * SIN_F64_OPS[noise] / H100_FP64_OPS_PER_S) * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                               "bytes")
+    out = {"PR 1": bound(n["live"] * (FIT_OPS_BASE + R) + n["feasible"]
+                         * (SCORE_OPS + NOISE_OPS[noise]), n["feasible"])}
+    needed = (n["live"] * MASK_OPS + n["pairs"] * (R + 1)
+              + n["pairs fit"] * PAIR_SCORE_OPS)
+    for name in ("candidates", "required"):
+        out[name] = bound(needed + n[name] * (NOISE_OPS[noise] + PICK_OPS),
+                          n[name])
+    out["cells"] = n
+    return out
+
+
+class ClaimsRecorder:
+    """Within the block, every kernels.claims call goes through a wrapper
+    that records (pods, live pods, nodes, noise) and a pair of CUDA events
+    around the call, and with keep=True a copy of its inputs.  The launch
+    count stays the package's own (kernels.LAUNCHES)."""
+
+    def __init__(self, kernels, keep=False):
+        self.kernels, self.keep, self.rows, self.inputs = kernels, keep, [], []
+
+    def __enter__(self):
+        inner = self.inner = self.kernels.claims
+
+        def claims(static, active, used, used_nz, npods, noise="sin",
+                   pod_ids=None):
+            if self.keep:
+                self.inputs.append((
+                    {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in static.items()},
+                    *(t.clone() for t in (active, used, used_nz, npods)),
+                    noise, None if pod_ids is None else pod_ids.clone()))
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.monotonic()
+            e0.record()
+            out = inner(static, active, used, used_nz, npods, noise=noise,
+                        pod_ids=pod_ids)
+            e1.record()
+            host_ms = (time.monotonic() - t0) * 1e3
+            P, N, _R = static["shape"]
+            self.rows.append((P, N, noise, active.sum(), e0, e1, host_ms))
+            return out
+        self.kernels.claims = claims
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.claims = self.inner
+        return False
+
+    def summary(self, label, smi):
+        """Print launches and median ms per (P, N, noise)."""
+        torch.cuda.synchronize()
+        shapes = {}
+        for P, N, noise, live, e0, e1, host_ms in self.rows:
+            shapes.setdefault((P, N, noise), []).append(
+                (e0.elapsed_time(e1), int(live), host_ms))
+        out = {}
+        for (P, N, noise), rows in sorted(shapes.items(), reverse=True):
+            ms = [r[0] for r in rows]
+            live = [r[1] for r in rows]
+            out[(P, N, noise)] = (len(rows), statistics.median(ms))
+            # the events bracket the wrapper's host work too: the wave
+            # loop has just read a count, so the stream is idle meanwhile
+            print(f"   {label} claims {P}x{N} {noise}: {len(rows)} launches, "
+                  f"median {statistics.median(ms):.4f} ms, min "
+                  f"{min(ms):.4f}, max {max(ms):.4f} between events (host "
+                  f"time in the wrapper max {max(r[2] for r in rows):.4f} "
+                  f"ms); live pods {min(live)}-{max(live)} [{smi}]",
+                  flush=True)
+        return out
 
 
 class RecordingBackend:
@@ -329,7 +507,124 @@ def profile_batch(backend, cache, label, smi):
         print(f"     {ms:10.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def main() -> int:
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare", action="append", default=[],
+                    metavar="TAG=DIR",
+                    help="a checkout of another revision whose claims "
+                         "wrapper to time beside this one's")
+    return ap.parse_args(argv)
+
+
+def load_revision(tag, root):
+    """The ops.kernels module of the kubernetes_tpu_torch package under
+    `root`, imported as a package of its own (kubernetes_tpu_torch_<tag>),
+    so that its claims wrapper builds and launches its own kernel."""
+    pkg = Path(root).resolve() / "kubernetes_tpu_torch"
+    name = f"kubernetes_tpu_torch_{tag}"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops.kernels")
+
+
+def wave_shape_args(backend, P, state, dev, mixed=False):
+    """The main path's claims inputs for P SchedulingBasic pods (100m,
+    128Mi, no tolerations; with mixed=True every other pod requests 200m,
+    256Mi) against the 100k backend's nodes, with the dynamic aggregates
+    from `state`.  Returns the claims arguments and the raw inputs of
+    prepare_static."""
+    from kubernetes_tpu_torch.models.assign import static_mask_t, taint_bits
+    from kubernetes_tpu_torch.ops import kernels
+    stat = backend._static_node
+    req = torch.zeros((P, backend.caps.r), device=dev)
+    req[:, 0] = 100.0
+    req[:, 1] = 128.0 * 2**20
+    if mixed:
+        req[1::2, :2] *= 2
+    smask = static_mask_t(stat["valid"], taint_bits(stat["taint_mask"]),
+                          torch.zeros(P, dtype=torch.int32, device=dev))
+    raw = (req, req, stat["alloc"], stat["maxpods"], smask)
+    return (kernels.prepare_static(*raw),
+            torch.ones(P, dtype=torch.bool, device=dev),
+            state["used"], state["used_nz"], state["npods"]), raw
+
+
+def time_in_turns(kernels, others, args, raw, noise, pod_ids, label, smi,
+                  n=10):
+    """Each other revision's claims wrapper against this one's on the same
+    inputs, in turns (this, other, other, this), after checking that it
+    returns the same claims and best bit for bit."""
+    def ours():
+        return kernels.claims(*args, noise=noise, pod_ids=pod_ids)
+    want = [t.clone() for t in ours()]
+    for tag, other in others.items():
+        o_args = (other.prepare_static(*raw), *args[1:])
+
+        def theirs(other=other, o_args=o_args):
+            return other.claims(*o_args, noise=noise, pod_ids=pod_ids)
+        got = theirs()
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+              f"{label}: revision {tag} disagrees with this one")
+        t = [time_cuda(fn, n) for fn in (ours, theirs, theirs, ours)]
+        print(f"   {label} A/B this vs {tag}: this {t[0]:.4f} {t[3]:.4f} "
+              f"ms, {tag} {t[1]:.4f} {t[2]:.4f} ms [{smi}]", flush=True)
+
+
+def replay_launches(kernels, inputs, label, repeats=100):
+    """Every kept claims launch replayed on its own inputs: the kernel
+    `repeats` times against its own first result, and against the plain
+    version on the GPU and on the CPU, bit for bit; and, for the sin
+    launches, the noise of every (pod id, node) cell computed on the GPU
+    and on the CPU.  A replay that differs from the first result fails."""
+    cpu = torch.device("cpu")
+    runs = unsteady = 0
+    off_gpu = {"murmur": 0, "sin": 0}
+    off_cpu = {"murmur": 0, "sin": 0}
+    cells = noisy_off = 0
+    for static, active, used, used_nz, npods, noise, ids in inputs:
+        args = (static, active, used, used_nz, npods)
+        P, N, _R = static["shape"]
+        first = [t.clone() for t in kernels.claims(*args, noise=noise,
+                                                   pod_ids=ids)]
+        for _ in range(repeats):
+            got = kernels.claims(*args, noise=noise, pod_ids=ids)
+            unsteady += not all(bool(torch.equal(g, f))
+                                for g, f in zip(got, first))
+        runs += repeats
+        plain = kernels.claims_reference(*args, noise=noise, pod_ids=ids)
+        host = kernels.claims_reference(
+            {k: v.to(cpu) if torch.is_tensor(v) else v
+             for k, v in static.items()},
+            *(t.to(cpu) for t in args[1:]), noise=noise,
+            pod_ids=None if ids is None else ids.to(cpu))
+        off_gpu[noise] += int(((first[0] != plain[0])
+                               | (first[1] != plain[1])).sum())
+        off_cpu[noise] += int(((first[0].cpu() != host[0])
+                               | (first[1].cpu() != host[1])).sum())
+        if noise == "sin":
+            pid = torch.arange(P, dtype=torch.int32, device=used.device) \
+                if ids is None else ids
+            noisy_off += int((kernels.sin_noise(pid, N).cpu()
+                              != kernels.sin_noise(pid.to(cpu), N)).sum())
+            cells += P * N
+    print(f"   {label}: {len(inputs)} claims launches replayed {repeats} "
+          f"times each: {unsteady} of {runs} replays differ from the first; "
+          f"pods whose claim or best differs from the plain version on the "
+          f"GPU {off_gpu}, on the CPU {off_cpu}; sin noise cells that "
+          f"differ between the GPU and the CPU: {noisy_off} of {cells}",
+          flush=True)
+    check(unsteady == 0, f"{label}: a replayed launch differs from the "
+                         f"first on the same inputs")
+    check(off_gpu["murmur"] == 0 and off_cpu["murmur"] == 0,
+          f"{label}: murmur launches differ from the plain version")
+
+
+def main(argv=None) -> int:
+    opts = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -351,17 +646,48 @@ def main() -> int:
         t0 = time.monotonic()
         built = _build.build()
         for name, info in built.items():
-            print(f"   {name}: {info['path']} ({'cached' if info['cached'] else 'built'})")
+            print(f"   {name}: {info['path']} "
+                  f"({'cached' if info['cached'] else 'built'})")
+            entry = ""
             for line in info["log"].splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"     {line.strip()}")
+                named = re.search(r"(_Z\w+)", line)
+                if named and ("entry function" in line
+                              or "properties for" in line):
+                    entry = named.group(1)
+                # the main path's instantiations: R=6 (and the fold)
+                tpl = re.search(r"slice_kernelILi(\d+)ELi(\d+)ELb(\d)", entry)
+                what = ("fold" if "fold_kernel" in entry else tpl and
+                        f"slice R={tpl[1]} pods/thread={tpl[2]} "
+                        f"{'murmur' if tpl[3] == '1' else 'sin'}")
+                if ("registers" in line or "spill" in line) and what and (
+                        what == "fold" or tpl[1] == "6"):
+                    print(f"     {what}: {line.strip()}")
         print(f"   build {time.monotonic() - t0:.3f} s [{smi}]", flush=True)
+        others = {tag: load_revision(tag, root) for tag, root in
+                  (spec.split("=", 1) for spec in opts.compare)}
+        t0 = time.monotonic()
+        with ThreadPoolExecutor() as pool:   # one nvcc process each
+            list(pool.map(lambda k: k._kernel_lib(), others.values()))
+        if others:
+            print(f"   built {sorted(others)} in "
+                  f"{time.monotonic() - t0:.3f} s", flush=True)
 
     with Phase("3 kernel vs plain version"):
-        for P, N, seed in [(2048, 5632, 1), (2047, 5631, 2), (130, 520, 3)]:
-            args = random_claims_case(P, N, seed, dev)
+        # (P, N, seed, options): random cases, ragged P and N, identical
+        # nodes (every cell ties: prune + first index decide) with uniform
+        # and with mixed pods, dead pod tiles (a tail's shape, also at the
+        # tail's P against many slices), R at both ends
+        for P, N, seed, kw in [
+                (2048, 5632, 1, {}), (2047, 5631, 2, {}), (130, 520, 3, {}),
+                (67, 2053, 5, {}),
+                (4096, 3000, 6, {"identical": True, "same_pods": True}),
+                (1000, 3000, 7, {"identical": True}),
+                (5000, 4000, 8, {"dead_tiles": True}),
+                (512, 20000, 9, {"dead_tiles": True}),
+                (300, 1000, 10, {"R": 2}), (300, 1000, 11, {"R": 16})]:
+            args = random_claims_case(P, N, seed, dev, **kw)
             for noise in kernels.NOISE_KINDS:
-                check_claims(kernels, args, noise, f"{P}x{N}")
+                check_claims(kernels, args, noise, f"{P}x{N} {kw or ''}")
         args = random_claims_case(9, 130, 4, dev)
         nothing = ({**args[0], "smask_t": torch.zeros_like(args[0]["smask_t"])},
                    *args[1:])
@@ -376,37 +702,51 @@ def main() -> int:
                   f"[{smi}]", flush=True)
 
     with Phase("4 slice GPU vs CPU"):
-        # murmur is integer noise; the sin noise is the correctly rounded
-        # f32 sin on both devices, so both must agree bit for bit
+        # murmur is integer noise; the sin noise is f64 sin rounded to f32
+        # on both devices, so both must agree bit for bit
+        kept = []
         for noise in ("murmur", "sin"):
             runs = {}
             for device in (dev, torch.device("cpu")):
-                backend, _outs, _secs, waves, _c = drive(
-                    5000, 2, 4096, device, noise, 7,
-                    f"slice-{device.type}-{noise}")
+                with ClaimsRecorder(kernels, keep=device.type == "cuda") \
+                        as rec:
+                    backend, _outs, _secs, waves, _c = drive(
+                        5000, 2, 4096, device, noise, 7,
+                        f"slice-{device.type}-{noise}")
+                kept += rec.inputs
                 state, _ = carry.state_to_numpy(backend._state)
                 runs[device.type] = (
                     [r.get().copy() for r in backend.results], state, waves)
             g, c = runs["cuda"], runs["cpu"]
             check(len(g[0]) == len(c[0]) and all(
                 np.array_equal(a, b) for a, b in zip(g[0], c[0])),
-                f"{noise}: GPU and CPU result vectors differ")
+                f"{noise}: GPU and CPU result vectors differ: " + "; ".join(
+                    f"vector {i} slots {d[:8].tolist()} GPU {a[d[:8]].tolist()}"
+                    f" CPU {b[d[:8]].tolist()}"
+                    for i, (a, b) in enumerate(zip(g[0], c[0]))
+                    for d in [np.nonzero(a != b)[0]] if d.size))
             for k in state:
                 check(np.array_equal(g[1][k], c[1][k]),
                       f"{noise}: final state {k} differs")
             print(f"   {noise}: {len(g[0])} result vectors and the final "
                   f"state are bit-identical; waves per batch {g[2]}",
                   flush=True)
+        replay_launches(kernels, kept, "slice-cuda")
+        del kept
 
     summaries = {}
     for label, n_nodes, n_batches in (("5k", 5000, 3), ("100k", 100_000, 12)):
         with Phase(f"{'5' if label == '5k' else '6'} SchedulingBasic "
                    f"{n_nodes} nodes"):
-            kernels.claims.launches = 0
+            kernels.LAUNCHES["claims"] = 0
             torch.cuda.reset_peak_memory_stats()
-            backend, outs, secs, waves, cache = drive(
-                n_nodes, n_batches, 16384, dev, "sin", 1, label)
-            launches = kernels.claims.launches
+            with ClaimsRecorder(kernels) as rec:
+                backend, outs, secs, waves, cache = drive(
+                    n_nodes, n_batches, 16384, dev, "sin", 1, label)
+            launches = kernels.LAUNCHES["claims"]
+            by_shape = rec.summary(label, smi)
+            check(sum(c for c, _ms in by_shape.values()) == launches,
+                  f"{label}: recorded launches differ from the count")
             check(launches > 0, f"{label}: the claims kernel never launched")
             verify_placements(cache, outs, n_batches * 16384, label)
             step_ms = backend.step_ms()[1:]   # [0] is warmup's empty batch
@@ -431,35 +771,61 @@ def main() -> int:
                   f"(host wall, waits for each wave's count) {stw}; rest "
                   f"(sync, pack, decode, replay) {rest}", flush=True)
             profile_batch(backend, cache, label, smi)
-            summaries[label] = (backend, launches)
+            summaries[label] = (backend, launches, by_shape)
 
-    with Phase("7 claims at the 100k main-path inputs"):
-        backend, launches = summaries["100k"]
-        from kubernetes_tpu_torch.models.assign import static_mask_t, taint_bits
-        st, stat = backend._state, backend._static_node
-        P = 16384
-        req = torch.zeros((P, backend.caps.r), device=dev)
-        req[:, 0] = 100.0
-        req[:, 1] = 128.0 * 2**20
-        smask = static_mask_t(stat["valid"], taint_bits(stat["taint_mask"]),
-                              torch.zeros(P, dtype=torch.int32, device=dev))
-        args = (kernels.prepare_static(req, req, stat["alloc"],
-                                       stat["maxpods"], smask),
-                torch.ones(P, dtype=torch.bool, device=dev),
-                st["used"], st["used_nz"], st["npods"])
-        err = check_claims(kernels, args, "sin", "100k")
-        ms = time_cuda(lambda: kernels.claims(*args, noise="sin"), 20)
+    with Phase("7 claims at the main path's launch shapes"):
+        backend, launches, by_shape = summaries["100k"]
+        after = backend._state
+        empty = {k: torch.zeros_like(after[k])
+                 for k in ("used", "used_nz", "npods")}
+        # the tail's pods keep their original batch positions as noise keys
+        tail_ids = torch.arange(512, dtype=torch.int32, device=dev) * 32
+        errs, timed = [], {}
+        for shape, P, noise, ids, mixed in (
+                ("wave", 16384, "sin", None, False),
+                ("wave mixed", 16384, "sin", None, True),
+                ("tail", 512, "murmur", tail_ids, False)):
+            for state_name, state in (("empty cluster", empty),
+                                      ("after the 100k run", after)):
+                args, raw = wave_shape_args(backend, P, state, dev, mixed)
+                label = f"{shape} {P}x{args[0]['shape'][1]}, {state_name}"
+                err, *answer = check_claims(kernels, args, noise, label, ids)
+                errs.append(err)
+                first = [t.clone() for t in kernels.claims(
+                    *args, noise=noise, pod_ids=ids)]
+                for _ in range(5):
+                    again = kernels.claims(*args, noise=noise, pod_ids=ids)
+                    check(all(bool(torch.equal(g, f))
+                              for g, f in zip(again, first)),
+                          f"{label}: a launch differs from the first")
+                ms = time_cuda(lambda: kernels.claims(
+                    *args, noise=noise, pod_ids=ids), 20)
+                b = claims_bounds(args, noise, answer)
+                n = b["cells"]
+                print(f"   {label} {noise}: {ms:.4f} ms/launch; bound "
+                      f"{b['required'][0]:.4f} ms ({b['required'][1]}) with "
+                      f"the noise on the required cells, "
+                      f"{b['candidates'][0]:.4f} ms ({b['candidates'][1]}) "
+                      f"on the candidate cells, {b['PR 1'][0]:.4f} ms "
+                      f"({b['PR 1'][1]}) by PR 1's definition; cells live "
+                      f"{n['live']} feasible {n['feasible']} candidates "
+                      f"{n['candidates']} required {n['required']}; "
+                      f"request-node pairs {n['pairs']} ({n['pairs fit']} "
+                      f"fit) [{smi}]", flush=True)
+                timed[(shape, state_name)] = (ms, b, args)
+                if others:
+                    time_in_turns(kernels, others, args, raw, noise, ids,
+                                  label, smi)
+        ms, bounds, args = timed[("wave", "after the 100k run")]
         plain_ms = time_cuda(
             lambda: kernels.claims_reference(*args, noise="sin"), 3, warmup=1)
-        bound_ms, bound_by = claims_bound(args, "sin")
-        print(f"   100k claims: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}) [{smi}]", flush=True)
-        # the same inputs with the integer noise: what the sin costs
-        check_claims(kernels, args, "murmur", "100k")
+        print(f"   wave plain version {plain_ms:.4f} ms [{smi}]", flush=True)
+        # the wave's inputs with the integer noise: what the sin costs
+        errs.append(check_claims(kernels, args, "murmur", "wave murmur")[0])
         ms_m = time_cuda(lambda: kernels.claims(*args, noise="murmur"), 20)
-        bound_m, by_m = claims_bound(args, "murmur")
-        print(f"   100k claims murmur: {ms_m:.4f} ms/launch, bound "
-              f"{bound_m:.4f} ms ({by_m}) [{smi}]", flush=True)
+        print(f"   wave 16384 murmur, after the 100k run: {ms_m:.4f} "
+              f"ms/launch [{smi}]", flush=True)
+        bound_ms, bound_by = bounds["required"]
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     print(smi)
@@ -467,7 +833,7 @@ def main() -> int:
         "name": "claims", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/claims.cu",
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:171",
-        "launches": launches, "max_abs_err": err, "ms": ms,
+        "launches": launches, "max_abs_err": max(errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {

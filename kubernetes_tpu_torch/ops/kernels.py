@@ -11,6 +11,8 @@ and best f32[P] (NEG when none is).
 `claims()` launches the hand-written CUDA kernel (csrc/claims.cu) for CUDA
 tensors and runs `claims_reference`, the same function in plain torch, for
 CPU tensors.  On CUDA a build or launch failure raises; it never falls back.
+Each launch adds one to `LAUNCHES["claims"]`, a module-level count that a
+caller wrapping `claims` cannot move.
 
 Two noise rules, chosen by the `noise` argument:
   "sin"    - the Pallas kernel's fract(sin(gp*12.9898 + gn*78.233) *
@@ -46,6 +48,16 @@ NOISE_KINDS = ("sin", "murmur")
 _M32 = 0xFFFFFFFF
 # pods per chunk of the plain version: bounds its [chunk, N] planes
 _REF_CELLS = 1 << 25
+# the mask's row stride is P rounded up to this many bytes, so that the
+# kernel reads every pod group's bytes of a node row with one aligned
+# vector load (csrc/claims.cu)
+MASK_ALIGN = 16
+# kernel launches by kernel name, counted where each wrapper launches
+LAUNCHES = {"claims": 0}
+
+
+def mask_stride(P: int) -> int:
+    return -(-P // MASK_ALIGN) * MASK_ALIGN
 
 
 def prepare_static(req, req_nz, alloc, maxpods, smask_t):
@@ -53,17 +65,27 @@ def prepare_static(req, req_nz, alloc, maxpods, smask_t):
 
     req, req_nz f32[P, R]; alloc f32[N, R]; maxpods f32[N]; smask_t is the
     static mask node-major, [N, P], as bool or uint8 (stored as uint8: the
-    Pallas f32 [P, N] plane is 4x the bytes for the same bits)."""
+    Pallas f32 [P, N] plane is 4x the bytes for the same bits).  The stored
+    mask is [N, mask_stride(P)]: pad columns are 0 (infeasible), and the
+    rows start 16-byte aligned.  At a P that is already a multiple of 16
+    (the wave's 16,384 and the tail's 512) nothing is copied."""
     P, R = req.shape
     N = alloc.shape[0]
     if smask_t.shape != (N, P):
         raise ValueError(f"smask_t shape {tuple(smask_t.shape)} != {(N, P)}")
+    smask_t = smask_t.to(torch.uint8).contiguous()
+    ld = mask_stride(P)
+    if ld != P or smask_t.data_ptr() % MASK_ALIGN:
+        padded = torch.zeros((N, ld), dtype=torch.uint8,
+                             device=smask_t.device)
+        padded[:, :P] = smask_t
+        smask_t = padded
     return {
         "req": req.contiguous().float(),
         "req_nz": req_nz.contiguous().float(),
         "alloc": alloc.contiguous().float(),
         "maxpods": maxpods.contiguous().float(),
-        "smask_t": smask_t.to(torch.uint8).contiguous(),
+        "smask_t": smask_t,
         "shape": (P, N, R),
     }
 
@@ -188,7 +210,7 @@ def _kernel_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.claims_launch.argtypes = [p] * 10 + [i] * 4 + [p] * 5
         lib.claims_launch.restype = i
-        lib.claims_num_slices.argtypes = [i]
+        lib.claims_num_slices.argtypes = [i, i]
         lib.claims_num_slices.restype = i
         lib.claims_max_resources.restype = i
         _lib = lib
@@ -211,7 +233,7 @@ def claims(static, active, used, used_nz, npods, noise="sin",
     static comes from prepare_static; active is bool[P]; used/used_nz
     f32[N, R]; npods f32[N]; pod_ids int32[P] keys the noise (default
     arange(P)).  CPU tensors run claims_reference; CUDA tensors launch
-    csrc/claims.cu and count the launch in `claims.launches`."""
+    csrc/claims.cu and count the launch in `LAUNCHES["claims"]`."""
     _check_noise(noise)
     dev = used.device
     if dev.type == "cpu":
@@ -231,15 +253,21 @@ def claims(static, active, used, used_nz, npods, noise="sin",
     _require(static["req_nz"], "req_nz", f32, (P, R), dev)
     _require(static["alloc"], "alloc", f32, (N, R), dev)
     _require(static["maxpods"], "maxpods", f32, (N,), dev)
-    _require(static["smask_t"], "smask_t", torch.uint8, (N, P), dev)
+    _require(static["smask_t"], "smask_t", torch.uint8, (N, mask_stride(P)),
+             dev)
+    if static["smask_t"].data_ptr() % MASK_ALIGN:
+        raise ValueError("claims: smask_t must start 16-byte aligned "
+                         "(use prepare_static)")
     _require(active, "active", torch.bool, (P,), dev)
     _require(pod_ids, "pod_ids", torch.int32, (P,), dev)
     _require(used, "used", f32, (N, R), dev)
     _require(used_nz, "used_nz", f32, (N, R), dev)
     _require(npods, "npods", f32, (N,), dev)
-    S = lib.claims_num_slices(N)
-    part_best = torch.empty((S, P), dtype=f32, device=dev)
-    part_idx = torch.empty((S, P), dtype=torch.int32, device=dev)
+    # scratch rows: the node slices' partials, then the slices' shared
+    # per-pod records
+    rows = lib.claims_num_slices(P, N)
+    part_best = torch.empty((rows, P), dtype=f32, device=dev)
+    part_idx = torch.empty((rows, P), dtype=torch.int32, device=dev)
     out_claims = torch.empty(P, dtype=torch.int32, device=dev)
     out_best = torch.empty(P, dtype=f32, device=dev)
     err = lib.claims_launch(
@@ -252,8 +280,5 @@ def claims(static, active, used, used_nz, npods, noise="sin",
         out_best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"claims kernel launch failed: cudaError {err}")
-    claims.launches += 1
+    LAUNCHES["claims"] += 1
     return out_claims, out_best
-
-
-claims.launches = 0

@@ -36,9 +36,9 @@ def test_kernel_matches_plain_version(cuda, case, noise):
     can round to different f32 values in rare cells, so the tolerance rule
     of test_torch_kernels.py is what is held."""
     c = CLAIMS_CASES[case]()
-    before = kernels.claims.launches
+    before = kernels.LAUNCHES["claims"]
     got, best = run_claims(c, noise, device=cuda)
-    assert kernels.claims.launches == before + 1
+    assert kernels.LAUNCHES["claims"] == before + 1
     want, want_best = run_claims(c, noise, device=cuda,
                                  fn=kernels.claims_reference)
     if noise == "murmur":
@@ -74,3 +74,22 @@ def test_backend_matches_cpu_backend(cuda):
     on_cpu, _ = sequence(port_side(SEQ_BATCH, SEQ_CAPS, "cpu"), 2)
     assert on_gpu == on_cpu
     assert gpu_stats.get("fence_replays", 0) == 1
+
+
+def test_wrapper_rejects_misaligned_mask(cuda):
+    """The kernel reads each node row's pod bytes with aligned vector
+    loads: a mask that does not start 16-byte aligned is refused, not
+    read."""
+    c = CLAIMS_CASES["130x520"]()
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    static = kernels.prepare_static(t(c["req"]), t(c["req_nz"]), t(c["alloc"]),
+                                    t(c["maxpods"]), t(c["smask"].T))
+    mask = static["smask_t"]
+    shifted = torch.empty(mask.numel() + 1, dtype=torch.uint8,
+                          device=cuda)[1:].view(mask.shape)
+    shifted.copy_(mask)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.claims({**static, "smask_t": shifted}, t(c["active"]),
+                       t(c["used"]), t(c["used_nz"]), t(c["npods"]))

@@ -141,3 +141,21 @@ def test_pod_ids_key_the_noise():
 def test_bad_noise_rejected():
     with pytest.raises(ValueError, match="noise"):
         run_claims(random_case(8, 64), "cosine")
+
+
+@pytest.mark.parametrize("P", [67, 512, 2047])
+def test_prepare_static_pads_mask_rows(P):
+    """The stored mask's rows are P rounded up to 16 bytes, 16-byte aligned,
+    the pad columns 0 (infeasible); the plain version ignores them."""
+    c = random_case(P, 40)
+    t = torch.from_numpy
+    static = kernels.prepare_static(t(c["req"]), t(c["req_nz"]),
+                                    t(c["alloc"]), t(c["maxpods"]),
+                                    t(np.ascontiguousarray(c["smask"].T)))
+    mask = static["smask_t"]
+    assert mask.shape == (40, kernels.mask_stride(P))
+    assert kernels.mask_stride(P) % 16 == 0 and mask.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(mask[:, :P].numpy(), c["smask"].T)
+    assert not mask[:, P:].any()
+    got, _ = run_claims(c, "murmur")
+    np.testing.assert_array_equal(got, run_jax_xla_murmur(c))

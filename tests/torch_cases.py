@@ -63,10 +63,58 @@ def scalar_gate_case():
                 smask=np.ones((P, N), bool))
 
 
+def wide_case(P, N, R_, seed):
+    """random_case's distributions over R_ resource columns, all of them
+    requested, with a 4-pod cap so that full nodes appear."""
+    rng = np.random.default_rng(seed)
+    req = rng.uniform(0, 4, (P, R_)).astype(np.float32)
+    used = rng.uniform(0, 4, (N, R_)).astype(np.float32)
+    return dict(req=req, req_nz=req.copy(), active=rng.random(P) > 0.1,
+                alloc=rng.uniform(2, 16, (N, R_)).astype(np.float32),
+                used=used, used_nz=used.copy(),
+                npods=rng.integers(0, 5, N).astype(np.float32),
+                maxpods=np.full(N, 4, np.float32),
+                smask=rng.random((P, N)) > 0.25)
+
+
+def identical_nodes_case(P, N, same_pods):
+    """Every node alike, so every feasible cell of a pod ties on score and
+    the noise with the first-index rule decides; with same_pods every pod
+    requests alike too (the kernel's shared-fit path)."""
+    c = random_case(P, N)
+    c["alloc"][:, :3] = 16.0
+    c["used"][:, :3] = 1.0
+    c["used_nz"] = c["used"].copy()
+    c["npods"][:] = 1
+    if same_pods:
+        c["req"][:] = c["req"][0]
+    c["req"] *= 0.3
+    c["req_nz"] = c["req"].copy()
+    return c
+
+
+def dead_tiles_case():
+    """A compacted tail's shape: few live pods, so whole pod tiles of the
+    kernel (1,024 pods at 8 per thread) hold no live pod."""
+    c = random_case(2600, 96)
+    c["active"][:] = False
+    c["active"][[0, 3, 5, 17, 40, 1000, 2100, 2599]] = True
+    return c
+
+
 CLAIMS_CASES = {f"{P}x{N}": (lambda P=P, N=N: random_case(P, N))
                 for P, N in SHAPES}
 CLAIMS_CASES["no_feasible"] = no_feasible_case
 CLAIMS_CASES["scalar_gate"] = scalar_gate_case
+# the CUDA kernel's edges: P and N off every tile and slice multiple, ties
+# on every node (prune + first index), dead pod tiles, R at both ends
+CLAIMS_CASES["67x2053"] = lambda: random_case(67, 2053)
+CLAIMS_CASES["identical_nodes"] = lambda: identical_nodes_case(70, 900, True)
+CLAIMS_CASES["identical_nodes_mixed_pods"] = \
+    lambda: identical_nodes_case(45, 700, False)
+CLAIMS_CASES["dead_tiles"] = dead_tiles_case
+CLAIMS_CASES["r2"] = lambda: wide_case(50, 300, 2, 1)
+CLAIMS_CASES["r16"] = lambda: wide_case(37, 301, 16, 2)
 
 
 def run_claims(c, noise, device="cpu", fn=None):
