@@ -30,8 +30,28 @@ Phases (each prints its wall time; any failed check exits non-zero):
      leaves, and at the wave shape with two alternating pod requests (the
      kernel's general path); timed beside three bounds (below) and, at the
      wave shape, the plain version.
-Phases 5 and 6 are the main path: the kernels' launch counts are zeroed
-just before each and read just after, and each must have launched; every
+  a. the full (constraint) variant on the GPU against the CPU: 5,000
+     nodes in 3 zones, two batches of 1,024 pods mixing hard zone spread,
+     hostname anti-affinity, node affinity and host ports; bit-identical
+     result vectors and final state (cd_sg and cd_asg included);
+  b. TopologySpreading at its published shape: 1,000 nodes in 3 zones,
+     5,000 pods (100m, 128Mi, maxSkew 5 DoNotSchedule over zones), batch
+     8,192 (two chunks of the full variant's cap);
+  c. SchedulingPodAntiAffinity at its published shape: 5,000 nodes,
+     5,000 hostname anti-affinity pods, batch 8,192;
+  d. the north-star node count for the full variant: 100,000 nodes in 3
+     zones, two batches of 8,192 TopologySpreading pods, chunked through
+     the full_cap the card gives; then one more batch under the profiler.
+     (b)-(d) check on the host, from the returned names, that every pod
+     is placed, no status is ERROR, no node holds more than its CPU,
+     memory or 110 pods, the zone counts stay within maxSkew and no two
+     anti-affinity pods share a node, and print full_cap, waves per batch,
+     the peak of allocated device memory and its bytes per (pod, node)
+     cell.
+Phases 5 and 6 are the plain main path, (a)-(d) the full variant's: the
+kernels' launch counts are zeroed just before each and read just after;
+in 5 and 6 each kernel must have launched, in (a)-(d) none (the full
+variant reaches no hand kernel); every
 claims launch is recorded by shape (pods, live pods, nodes, noise) with its
 time between CUDA events.  The last two lines are a JSON line of
 per-kernel numbers and the device line.  Without a CUDA device the script
@@ -45,6 +65,7 @@ both return the same claims and best.
 """
 
 import argparse
+import gc
 import importlib
 import importlib.util
 import json
@@ -377,13 +398,13 @@ class RecordingBackend:
                     return batch
                 self.encoder.encode = timed_encode
 
-            def _device_step(self, staged):
+            def _device_step(self, variant, staged):
                 start = None
                 if self.device.type == "cuda":
                     start = torch.cuda.Event(enable_timing=True)
                     start.record()
                 t0 = time.monotonic()
-                res = super()._device_step(staged)
+                res = super()._device_step(variant, staged)
                 self.step_wall_s.append(time.monotonic() - t0)
                 if start is not None:
                     end = torch.cuda.Event(enable_timing=True)
@@ -391,6 +412,13 @@ class RecordingBackend:
                     self.step_events.append((start, end))
                 self.results.append(res)
                 return res
+
+            def forget_warmup(self):
+                """Drop what warmup() recorded: the lists then hold the
+                batches' steps only."""
+                for rows in (self.results, self.step_events,
+                             self.step_wall_s, self.encode_s):
+                    rows.clear()
 
             def step_ms(self):
                 torch.cuda.synchronize()
@@ -429,22 +457,21 @@ def assume(cache, infos, results):
     check(not any(errs), f"assume failed: {[e for e in errs if e][:3]}")
 
 
-def drive(n_nodes, n_batches, batch, device, noise, seed, label):
-    """The main path as a scheduler drives it: TorchBatchBackend.warmup(),
-    then per batch assign() against the cache's flatten view and the
-    bulk-assume tail.  Returns (backend, per-batch results, seconds)."""
+def drive(cache, batches, device, label, batch, **kw):
+    """A path as a scheduler drives it: TorchBatchBackend.warmup(), then
+    per batch (a list of PodInfo) assign() against the cache's flatten
+    view and the bulk-assume tail.  `kw` go to the backend.  Returns
+    (backend, per-batch results, seconds, waves)."""
     from kubernetes_tpu_torch.perf import caps_for_nodes
     t0 = time.monotonic()
-    cache = build_cluster(n_nodes, seed)
-    batches = make_batches(n_batches, batch, f"{label}{seed}")
-    backend = RecordingBackend.make(caps=caps_for_nodes(n_nodes),
-                                    batch_size=batch, device=device,
-                                    claims_noise=noise)
+    backend = RecordingBackend.make(caps=caps_for_nodes(cache.node_count()),
+                                    batch_size=batch, device=device, **kw)
     view = cache.flatten_view()
     backend.prefetch(view)
     backend.warmup()
-    print(f"   {label}: setup (cluster, pods, flatten, warmup) "
-          f"{time.monotonic() - t0:.3f} s", flush=True)
+    backend.forget_warmup()
+    print(f"   {label}: setup (flatten, warmup) {time.monotonic() - t0:.3f} "
+          f"s; full_cap {backend.full_cap}", flush=True)
     outs, secs, waves = [], [], []
     for infos in batches:
         w0 = backend.stats["waves"]
@@ -456,7 +483,7 @@ def drive(n_nodes, n_batches, batch, device, noise, seed, label):
         waves.append(backend.stats["waves"] - w0)
         assume(cache, infos, out)
         outs.append(out)
-    return backend, outs, secs, waves, cache
+    return backend, outs, secs, waves
 
 
 def verify_placements(cache, outs, n_expected, label):
@@ -479,14 +506,19 @@ def verify_placements(cache, outs, n_expected, label):
           f"max {max(counts.values())} per node", flush=True)
 
 
-def profile_batch(backend, cache, label, smi):
+def profile_batch(backend, cache, label, smi, infos=None, top=8):
     """One more batch under torch.profiler (after the main path's counts
     were read): device time by kernel name and the device's busy share of
-    the batch's wall time under the profiler."""
+    the batch's wall time under the profiler.  `infos` defaults to a batch
+    of SchedulingBasic pods.  The full step's stage ranges (record_function
+    "full.*") are printed with the device time of the kernels inside them,
+    and kept out of the kernel rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    infos = make_batches(1, backend.batch_size, f"prof-{label}")[0]
+    if infos is None:
+        infos = make_batches(1, backend.batch_size, f"prof-{label}")[0]
     view = cache.flatten_view()
+    w0 = backend.stats["waves"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -494,17 +526,208 @@ def profile_batch(backend, cache, label, smi):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     check(all(name for name, _ in out), f"{label}: profiled batch unplaced")
+    events = prof.key_averages()
     # device-side events only (kernels, copies): an aten op's row repeats
     # the time of the kernels it launched
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
+                   for e in events
                    if e.device_type != DeviceType.CPU
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("full.")), reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"   {label} profiled batch: wall {wall_ms:.3f} ms, device busy "
+    print(f"   {label} profiled batch: wall {wall_ms:.3f} ms, "
+          f"{backend.stats['waves'] - w0} waves, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{smi}]")
-    for ms, count, key in rows[:8]:
+    stages = {}
+    for e in events:
+        if e.key.startswith("full.") and e.device_type == DeviceType.CPU:
+            stages[e.key] = (e.device_time_total / 1e3, e.count,
+                             e.cpu_time_total / 1e3)
+    for key, (ms, count, cpu_ms) in sorted(stages.items()):
+        print(f"     stage {key}: device {ms:10.3f} ms in x{count} ranges "
+              f"(host {cpu_ms:.3f} ms)")
+    for ms, count, key in rows[:top]:
         print(f"     {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+
+
+# -- the full (constraint) variant: scheduler_perf's constraint workloads --
+
+ZONE = "topology.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
+ZONES = ("zone-a", "zone-b", "zone-c")
+
+
+def build_zoned_cluster(n_nodes, seed, disk_labels=False):
+    """scheduler_perf's createNodes with zones (scheduler_perf.py:514-538):
+    32 CPU, 256Gi, 110 pods, zone = zones[i % 3], hostname = the node's
+    name; with disk_labels every other node is disk=ssd."""
+    from kubernetes_tpu_torch.scheduler.cache import Cache
+    from kubernetes_tpu_torch.testing import make_node
+    cache = Cache()
+    nodes = []
+    for i in range(n_nodes):
+        name = f"node-{seed}-{i}"
+        w = (make_node(name).capacity(cpu="32", mem="256Gi", pods=110)
+             .labels(**{HOST: name}).zone(ZONES[i % 3]))
+        if disk_labels:
+            w.labels(disk="ssd" if i % 2 == 0 else "hdd")
+        nodes.append(w.build())
+    cache.add_nodes(nodes)
+    return cache
+
+
+def spread_pod(name, max_skew):
+    """TopologySpreading's pod (performance-config.yaml:36-50)."""
+    from kubernetes_tpu_torch.testing import make_pod
+    return (make_pod(name).req(cpu="100m", mem="128Mi").labels(app="spread")
+            .topology_spread(ZONE, max_skew=max_skew,
+                             match_labels={"app": "spread"}).build())
+
+
+def anti_pod(name):
+    """SchedulingPodAntiAffinity's pod (performance-config.yaml:56-71)."""
+    from kubernetes_tpu_torch.testing import make_pod
+    return (make_pod(name).req(cpu="100m", mem="128Mi").labels(app="anti")
+            .pod_affinity(HOST, {"app": "anti"}, anti=True).build())
+
+
+def mixed_pod(name, i):
+    """Phase (a)'s mix: hard zone spread, hostname anti-affinity, node
+    affinity and host ports, pod by pod."""
+    from kubernetes_tpu_torch.testing import make_pod
+    k = i % 4
+    if k == 0:
+        return spread_pod(name, 1)
+    if k == 1:
+        return anti_pod(name)
+    w = make_pod(name).req(cpu="200m", mem="256Mi")
+    if k == 2:
+        return w.node_affinity_in("disk", ["ssd"]).build()
+    return w.host_port(8000 + i % 8).build()
+
+
+def check_constraints(cache, outs, label, max_skew=None, anti=False):
+    """Zone skew of the placed pods within max_skew, and no two
+    anti-affinity pods on one node, from the returned names."""
+    from kubernetes_tpu_torch.scheduler.cache import Snapshot
+    zone = {ni.name: ni.node["metadata"]["labels"].get(ZONE)
+            for ni in cache.update_snapshot(Snapshot()).list()}
+    names = [name for out in outs for name, _st in out]
+    if max_skew is not None:
+        per_zone = {z: 0 for z in ZONES}
+        for name in names:
+            per_zone[zone[name]] += 1
+        skew = max(per_zone.values()) - min(per_zone.values())
+        check(skew <= max_skew, f"{label}: zone skew {skew} > {max_skew} "
+                                f"({per_zone})")
+        print(f"   {label}: pods per zone {per_zone}, skew {skew} <= "
+              f"{max_skew}", flush=True)
+    if anti:
+        check(len(set(names)) == len(names),
+              f"{label}: two anti-affinity pods share a node")
+        print(f"   {label}: {len(names)} anti-affinity pods on "
+              f"{len(set(names))} distinct nodes", flush=True)
+
+
+# phase -> (nodes, pods per batch) for (a); (nodes, pods per batch,
+# batches, batch size) for (b)-(d)
+FULL_SIZES = {"a": (5000, 1024), "b": (1000, 5000, 1, 8192),
+              "c": (5000, 5000, 1, 8192), "d": (100_000, 8192, 2, 8192)}
+
+
+def full_variant_phases(dev, smi, sizes=FULL_SIZES):
+    """Phases (a)-(d).  The claims count is zeroed before each and read
+    after it: the full variant reaches no hand kernel, so it stays 0."""
+    from kubernetes_tpu_torch.models import carry
+    from kubernetes_tpu_torch.ops import backend as port_backend
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.types import ERROR, PodInfo
+
+    with Phase("a full variant GPU vs CPU"):
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            kernels.LAUNCHES["claims"] = 0
+            n_nodes, batch = sizes["a"]
+            cache = build_zoned_cluster(n_nodes, 3, disk_labels=True)
+            batches = [[PodInfo(mixed_pod(f"a{b}-{i}", i))
+                        for i in range(batch)] for b in range(2)]
+            backend, outs, secs, waves = drive(
+                cache, batches, device, f"full-{device.type}", batch)
+            check(kernels.LAUNCHES["claims"] == 0,
+                  "full variant: the claims kernel launched")
+            check(all(st is None or st.code != ERROR for out in outs
+                      for _n, st in out), "full variant: ERROR status")
+            state, _ = carry.state_to_numpy(backend._state)
+            runs.append(([r.get().copy() for r in backend.results], state,
+                         waves))
+            print(f"   full-{device.type}: batch wall s "
+                  f"{[round(x, 4) for x in secs]}; waves per batch {waves}; "
+                  f"placed {sum(1 for o in outs for n, _ in o if n)} of "
+                  f"{2 * batch} [{smi}]", flush=True)
+        g, c = runs
+        check(len(g[0]) == len(c[0]) and all(
+            np.array_equal(a, b) for a, b in zip(g[0], c[0])),
+            "full variant: GPU and CPU result vectors differ: " + "; ".join(
+                f"vector {i} slots {d[:8].tolist()} GPU {a[d[:8]].tolist()}"
+                f" CPU {b[d[:8]].tolist()}"
+                for i, (a, b) in enumerate(zip(g[0], c[0]))
+                for d in [np.nonzero(a != b)[0]] if d.size))
+        for k in g[1]:
+            check(np.array_equal(g[1][k], c[1][k]),
+                  f"full variant: final state {k} differs")
+        print(f"   {len(g[0])} result vectors and the final state (cd_sg, "
+              f"cd_asg included) are bit-identical; waves per batch {g[2]}",
+              flush=True)
+        del runs, g, c, backend
+
+    for tag, label, make, skew, anti in (
+            ("b", "TopologySpreading", lambda nm: spread_pod(nm, 5), 5,
+             False),
+            ("c", "SchedulingPodAntiAffinity", anti_pod, None, True),
+            ("d", "spread-100k", lambda nm: spread_pod(nm, 5), 5, False)):
+        n_nodes, n_pods, n_batches, batch = sizes[tag]
+        with Phase(f"{tag} {label} {n_nodes} nodes"):
+            # earlier phases' backends sit in reference cycles: collect
+            # them, so the base holds only what is still live
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.LAUNCHES["claims"] = 0
+            cache = build_zoned_cluster(n_nodes, 5)
+            batches = [[PodInfo(make(f"{tag}{b}-{i}")) for i in range(n_pods)]
+                       for b in range(n_batches)]
+            backend, outs, secs, waves = drive(cache, batches, dev, label,
+                                               batch)
+            check(kernels.LAUNCHES["claims"] == 0,
+                  f"{label}: the claims kernel launched")
+            verify_placements(cache, outs, n_pods * n_batches, label)
+            check_constraints(cache, outs, label, skew, anti)
+            print(f"   {label}: batch wall s {[round(x, 4) for x in secs]}; "
+                  f"waves per batch {waves}; {backend.stats['batches']} "
+                  f"batches; step span on the CUDA stream ms "
+                  f"{[round(x, 3) for x in backend.step_ms()]} [{smi}]",
+                  flush=True)
+            peak = torch.cuda.max_memory_allocated()
+            cells = backend.full_cap * backend.caps.n_cap
+            per_cell = (peak - base) / cells
+            print(f"   {label}: full_cap {backend.full_cap}; peak allocated "
+                  f"{peak} B, {peak - base} B above the phase's start: "
+                  f"{per_cell:.3f} B per (pod, node row) cell of "
+                  f"{backend.full_cap} x {backend.caps.n_cap} (the sizing "
+                  f"rule plans {port_backend.FULL_BYTES_PER_CELL}) [{smi}]",
+                  flush=True)
+            if tag == "d":
+                # the phase whose full_cap the card's memory sizes (at
+                # 1,000 and 5,000 nodes the 4,096 ceiling binds first, and
+                # a step's bounded chunk of [rows, N] temporaries dominates)
+                check(per_cell <= port_backend.FULL_BYTES_PER_CELL,
+                      f"{label}: {per_cell:.3f} B per cell exceeds the "
+                      f"sizing rule's {port_backend.FULL_BYTES_PER_CELL}")
+                profile_batch(backend, cache, label, smi, infos=[
+                    PodInfo(spread_pod(f"prof-{i}", 5))
+                    for i in range(n_pods)], top=15)
+            del backend, cache, outs, batches
 
 
 def parse_args(argv):
@@ -710,9 +933,10 @@ def main(argv=None) -> int:
             for device in (dev, torch.device("cpu")):
                 with ClaimsRecorder(kernels, keep=device.type == "cuda") \
                         as rec:
-                    backend, _outs, _secs, waves, _c = drive(
-                        5000, 2, 4096, device, noise, 7,
-                        f"slice-{device.type}-{noise}")
+                    label = f"slice-{device.type}-{noise}"
+                    backend, _outs, _secs, waves = drive(
+                        build_cluster(5000, 7), make_batches(2, 4096, label),
+                        device, label, 4096, claims_noise=noise)
                 kept += rec.inputs
                 state, _ = carry.state_to_numpy(backend._state)
                 runs[device.type] = (
@@ -741,15 +965,17 @@ def main(argv=None) -> int:
             kernels.LAUNCHES["claims"] = 0
             torch.cuda.reset_peak_memory_stats()
             with ClaimsRecorder(kernels) as rec:
-                backend, outs, secs, waves, cache = drive(
-                    n_nodes, n_batches, 16384, dev, "sin", 1, label)
+                cache = build_cluster(n_nodes, 1)
+                backend, outs, secs, waves = drive(
+                    cache, make_batches(n_batches, 16384, f"{label}1"), dev,
+                    label, 16384, claims_noise="sin")
             launches = kernels.LAUNCHES["claims"]
             by_shape = rec.summary(label, smi)
             check(sum(c for c, _ms in by_shape.values()) == launches,
                   f"{label}: recorded launches differ from the count")
             check(launches > 0, f"{label}: the claims kernel never launched")
             verify_placements(cache, outs, n_batches * 16384, label)
-            step_ms = backend.step_ms()[1:]   # [0] is warmup's empty batch
+            step_ms = backend.step_ms()
             rate = n_batches * 16384 / sum(secs)
             print(f"   {label}: batch wall ms p50 "
                   f"{statistics.median(secs) * 1e3:.3f} max "
@@ -762,9 +988,9 @@ def main(argv=None) -> int:
                   f"{launches}; peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
                   f"[{smi}]", flush=True)
-            # host/device split per batch ([0] of each list is warmup's)
-            enc = [round(x * 1e3, 3) for x in backend.encode_s[1:]]
-            stw = [round(x * 1e3, 3) for x in backend.step_wall_s[1:]]
+            # host/device split per batch
+            enc = [round(x * 1e3, 3) for x in backend.encode_s]
+            stw = [round(x * 1e3, 3) for x in backend.step_wall_s]
             rest = [round(w * 1e3 - e - t, 3)
                     for w, e, t in zip(secs, enc, stw)]
             print(f"   {label}: per batch ms: encode {enc}; device step "
@@ -826,6 +1052,11 @@ def main(argv=None) -> int:
         print(f"   wave 16384 murmur, after the 100k run: {ms_m:.4f} "
               f"ms/launch [{smi}]", flush=True)
         bound_ms, bound_by = bounds["required"]
+
+    # the full (constraint) variant's path
+    del summaries, timed, args, raw, after, empty, backend
+    torch.cuda.empty_cache()
+    full_variant_phases(dev, smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     print(smi)

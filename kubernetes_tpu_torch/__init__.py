@@ -10,7 +10,8 @@ Package map:
   ops/flatten.py  - snapshot -> numpy tensors (copy)
   ops/kernels.py  - the claims kernel wrapper and its plain torch version
   ops/csrc/       - hand-written CUDA sources (sm_90a), built at first use
-  models/assign.py - the plain wave step in torch
+  models/assign.py - the wave step in torch: plain (claims kernel) and
+      full (selectors, ports, pins, spread, pod (anti-)affinity)
   models/carry.py  - resident state to and from the JAX package's arrays
   ops/backend.py   - TorchBatchBackend behind the BatchBackend contract
 

@@ -1,9 +1,13 @@
 """TorchBatchBackend — the bridge between the scheduler and the GPU step.
 
-Counterpart of kubernetes_tpu/ops/backend.py's TPUBatchBackend, on the
-PLAIN path: it flattens the snapshot delta into tensors (ops/flatten.py),
-runs feasibility + score + assignment on the device (models/assign.py)
-and hands back per-pod placements by node name.
+Counterpart of kubernetes_tpu/ops/backend.py's TPUBatchBackend: it
+flattens the snapshot delta into tensors (ops/flatten.py), runs
+feasibility + score + assignment on the device (models/assign.py) and
+hands back per-pod placements by node name.  A batch that uses node
+selectors or affinity, PreferNoSchedule taints, nodeName pins, host ports,
+topology spread or pod (anti-)affinity runs the FULL step variant, the
+rest the PLAIN one (claims kernel); an oversized full batch runs in chunks
+of `full_cap` pods, chaining the resident state chunk to chunk.
 
 Transport design (unchanged from the JAX backend):
   * node dynamic aggregates (used/npods/ports/domain counts) live ON DEVICE
@@ -13,6 +17,9 @@ Transport design (unchanged from the JAX backend):
     changed by EXTERNAL events (pod deleted, bind forgotten, node resized)
     ride a bounded row-patch section of the single packed upload.  A
     mismatch beyond the patch budget falls back to a full refresh.
+  * the static node arrays split in two: STATIC_CORE, which every step
+    reads, and STATIC_SEL (label/key masks, topology domains, namespace
+    masks), which only the full variant reads and which uploads lazily.
   * the pod batch is ONE 1-D f32 buffer (ints bitcast), packed into a
     pinned host staging buffer and copied to the device asynchronously;
     the result vector comes back into pinned memory behind a CUDA event
@@ -22,9 +29,8 @@ Transport design (unchanged from the JAX backend):
     on state the host never committed, and the wave is re-run from the
     mirror.
 
-Not yet ported (ROADMAP queue 1): the constraint ("full") variant — a batch
-that needs it raises NotImplementedError from dispatch — batched
-preemption, checkpoint/warm start, tracing and the wave timeline.
+Not yet ported (ROADMAP queue 1): batched preemption, checkpoint/warm
+start, batch telemetry and tracing, the wave timeline.
 """
 
 from __future__ import annotations
@@ -38,16 +44,30 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.assign import PackSpec, build_packed_assign_fn, pack_pod_batch
-from ..models.carry import STATIC_CORE
+from ..models.assign import (
+    ALL_FEATURES, PLAIN_FEATURES, PackSpec, build_packed_assign_fn,
+    pack_pod_batch,
+)
+from ..models.carry import STATIC_CORE, STATIC_SEL
 from ..scheduler.batch_backend import BatchBackend
 from ..scheduler.cache import Snapshot
 from ..scheduler.types import ERROR, SKIP, UNSCHEDULABLE, PodInfo, Status
-from .flatten import BatchEncoder, Caps, ClusterTensors, PodBatch, VocabFullError
+from .flatten import (
+    BatchEncoder, Caps, ClusterTensors, PodBatch, VocabFullError,
+    gather_pod_batch, slice_pod_batch,
+)
 
 logger = logging.getLogger(__name__)
 
 DYN_FIELDS = ("used", "used_nz", "npods", "port_mask")
+
+# the full variant's device bytes per (pod, node row) cell of one step at
+# its peak, over-estimated (models/assign.py keeps ~10 bytes a cell and a
+# bounded chunk of [rows, N] temporaries; chip_smoke.py phase (d) prints
+# the measured number), and the share of free device memory its batch cap
+# may plan for (default_full_cap)
+FULL_BYTES_PER_CELL = 24
+FULL_MEM_SHARE = 0.5
 
 # dispatch() sentinel: an earlier batch is still in flight and this batch
 # needs a refresh or a static change, which would clobber the in-flight
@@ -68,6 +88,17 @@ def _apply_static_patch(static: dict, rows, alloc_v, maxpods_v, valid_v,
     static["maxpods"][rows] = maxpods_v
     static["valid"][rows] = valid_v
     static["taint_mask"][rows] = taint_v
+
+
+def _apply_sel_patch(sel: dict, rows, label_v, key_v, dom_sg_v,
+                     dom_asg_v) -> None:
+    """Row-wise overwrite of the resident selector-side static arrays
+    (same contract as _apply_static_patch).  The namespace masks have no
+    node axis and ride full uploads only."""
+    sel["label_mask"][rows] = label_v
+    sel["key_mask"][rows] = key_v
+    sel["dom_sg"][:, rows] = dom_sg_v
+    sel["dom_asg"][:, rows] = dom_asg_v
 
 
 def decode_results(assignments, n: int, batch_size: int, escapes: set,
@@ -355,24 +386,62 @@ class _Result:
         return self.host.numpy()
 
 
+def default_full_cap(n_cap: int, device: torch.device) -> int:
+    """The full variant's batch cap (before the batch-size clamp): the
+    largest power of two in [256, 4096] whose step fits.  On CUDA the fit
+    is FULL_MEM_SHARE of the device's free memory over FULL_BYTES_PER_CELL
+    per (pod, node row) cell; on the CPU it is the JAX package's rule (an
+    11e9-byte budget at 64 bytes per cell), so both packages chunk the same
+    batches the same way."""
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        fit = int(free * FULL_MEM_SHARE / (FULL_BYTES_PER_CELL * n_cap))
+    else:
+        fit = int(11e9 / (64 * n_cap))
+    cap = 4096
+    while cap > 256 and cap > fit:
+        cap //= 2
+    return cap
+
+
 class TorchBatchBackend(ResidentHostMirror, BatchBackend):
-    """The plain scheduling step behind the BatchBackend contract, on
-    `device` (CUDA unless the caller asks for the CPU).  `claims_noise`
-    picks the main phase's tie-break rule: "sin" (the Pallas kernel's, the
-    default) or "murmur" (the XLA wave body's, bit-reproducible)."""
+    """The scheduling step behind the BatchBackend contract, on `device`
+    (CUDA unless the caller asks for the CPU).  `claims_noise` picks the
+    plain main phase's tie-break rule: "sin" (the Pallas kernel's, the
+    default) or "murmur" (the XLA wave body's, bit-reproducible); the full
+    variant always uses murmur.  `weights` overrides the spread and
+    affinity score weights.  `full_batch_cap` fixes the full variant's
+    batch cap (default: default_full_cap).  `full_main_waves` > 0 caps the
+    full step's waves and drains the leftovers through a small retry step
+    (the JAX package's KTPU_FULL_MAIN_WAVES); 0 runs every wave in the
+    main step."""
 
     STAGE_RING_MAX = 16
+    RETRY_ROUNDS_MAX = 32  # defensive bound; rounds stop at no progress
 
     def __init__(self, caps: Caps | None = None, batch_size: int = 256,
-                 k_cap: int = 1024, device=None, claims_noise: str = "sin"):
+                 k_cap: int = 1024, device=None, claims_noise: str = "sin",
+                 weights: dict[str, float] | None = None,
+                 full_batch_cap: int | None = None,
+                 full_main_waves: int = 0):
         self.device = resolve_device(device)
         self.caps = caps or Caps()
         self.batch_size = batch_size
         self.claims_noise = claims_noise
         self.tensors = ClusterTensors(self.caps)
         self.encoder = BatchEncoder(self.tensors, batch_size)
+        if full_batch_cap is None:
+            full_batch_cap = default_full_cap(self.caps.n_cap, self.device)
+        self.full_cap = min(full_batch_cap, batch_size)
+        self.full_main_waves = full_main_waves
+        self._weights = weights
         self._spec_plain: PackSpec | None = None
         self._fn_plain = None  # built lazily on first plain batch
+        self._fn_full = None   # built lazily / in warmup
+        self._spec_full: PackSpec | None = None
+        self._fn_full_small = None   # straggler retry step (lazy)
+        self._spec_full_small: PackSpec | None = None
+        self._static_sel = None   # selector-side static arrays (lazy)
         self._k_cap = k_cap
         self._f_patch = 2 * self.caps.r + 1 + self.caps.pt_cap
         self._lock = threading.Lock()
@@ -410,13 +479,30 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                       "waves_reflattened": 0, "event_patches": 0,
                       "patch_seconds": 0.0, "flatten_seconds": 0.0}
 
+    # -- namespace and PDB events ----------------------------------------
+
+    def note_namespace_event(self, event_type: str, obj, old=None) -> None:
+        """Namespace informer feed: keep the flattener's namespace-label
+        cache (namespaceSelector resolution) in sync, under the backend
+        lock, so a relabel lands between batches and the next encode sees
+        the new resolved sets."""
+        with self._lock:
+            self.tensors.note_namespace(obj, deleted=event_type == "DELETED")
+
+    def note_pdb_event(self, event_type: str, obj, old=None) -> None:
+        """PodDisruptionBudget informer feed: keeps the flattener's PDB
+        cache in sync (read by batched preemption, not yet ported)."""
+        with self._lock:
+            self.tensors.note_pdb(obj, deleted=event_type == "DELETED")
+
     # -- device sync -----------------------------------------------------
 
     def warmup(self) -> None:
-        """Build the kernel and the step, upload the static arrays and the
-        resident state, and run an all-invalid batch through the step
-        before the first real batch, so none of it lands inside the first
-        scheduling cycle."""
+        """Build the kernel and both step variants, upload the static
+        arrays and the resident state, and run an all-invalid batch
+        through each variant before the first real batch, so none of it
+        lands inside the first scheduling cycle.  An all-invalid batch
+        leaves the resident state unchanged."""
         with self._lock:
             if self._static_node is None:
                 self._upload_static()
@@ -426,15 +512,23 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             if self.device.type == "cuda":
                 from . import kernels
                 kernels._kernel_lib()  # build + load csrc/claims.cu
+            batch = self.encoder.encode([])
+            self._ensure_full()
+            runs = [("full", self._spec_full,
+                     slice_pod_batch(batch, 0, 0, self.full_cap))]
+            if self.full_main_waves:
+                self._ensure_full_small()
+                runs.append(("full_small", self._spec_full_small,
+                             slice_pod_batch(batch, 0, 0, self._retry_cap())))
             self._ensure_plain()
-            staged = self._stage_buf(self._spec_plain.total)
-            try:
-                pack_pod_batch(self.encoder.encode([]), self._spec_plain,
-                               out=staged.array)
-                # an all-invalid batch leaves the resident state unchanged
-                self._device_step(staged).get()
-            finally:
-                self._stage_pins.discard(id(staged))
+            runs.append(("plain", self._spec_plain, batch))
+            for variant, spec, b in runs:
+                staged = self._stage_buf(spec.total)
+                try:
+                    pack_pod_batch(b, spec, out=staged.array)
+                    self._device_step(variant, staged).get()
+                finally:
+                    self._stage_pins.discard(id(staged))
 
     def _stage_buf(self, total: int) -> _StagedBuffer:
         """Hand out a host staging buffer of `total` f32 slots from the
@@ -452,25 +546,70 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         self._stage_pins.add(id(sb))
         return sb
 
-    def _device_step(self, staged: _StagedBuffer) -> _Result:
-        """Run one packed batch through the device step and return the
-        result vector's handle.  Everything above this call is host
-        bookkeeping; everything below is device execution."""
+    def _device_step(self, variant: str, staged: _StagedBuffer) -> _Result:
+        """Run one packed batch through the `variant` step ("plain",
+        "full" or "full_small") and return the result vector's handle.
+        Everything above this call is host bookkeeping; everything below
+        is device execution."""
+        if variant == "plain":
+            fn, static = self._fn_plain, self._static_node
+        else:
+            self._ensure_sel()
+            fn = (self._fn_full if variant == "full"
+                  else self._ensure_full_small())
+            static = {**self._static_node, **self._static_sel}
         if self.device.type == "cuda":
             buf = staged.host.to(self.device, non_blocking=True)
             staged.uploaded = torch.cuda.Event()
             staged.uploaded.record()
         else:
             buf = staged.host
-        self._state, rd = self._fn_plain(self._state, self._static_node, buf)
+        self._state, rd = fn(self._state, static, buf)
         self._gen += 1  # the step computes the identical state.gen + 1
         return _Result(rd, self.device)
+
+    def _ensure_sel(self) -> None:
+        """Upload the selector-side static arrays if they are not resident
+        (lazy: only the full variant reads them; once resident,
+        _upload_static keeps them current)."""
+        if self._static_sel is None:
+            t = self.tensors
+            self._static_sel = {k: torch.tensor(getattr(t, k),
+                                                device=self.device)
+                                for k in STATIC_SEL}
+
+    def _ensure_full(self):
+        if self._fn_full is None:
+            self._fn_full, self._spec_full = build_packed_assign_fn(
+                self.caps, self.full_cap, self._k_cap, self._weights,
+                features=ALL_FEATURES,
+                max_waves=self.full_main_waves or None, device=self.device)
+        return self._fn_full
+
+    def _retry_cap(self) -> int:
+        # small: straggler waves serialize when every leftover claims the
+        # current-minimum spread domain, and chunk-to-chunk state chaining
+        # re-balances claims between chunks anyway
+        return min(128, self.full_cap)
+
+    def _ensure_full_small(self):
+        """The straggler retry step: the full variant at a small P with
+        the exhaustive wave budget, so capped-main leftovers drain at
+        ~(P_small/P)^2 of a main wave's [P,P] cost and the no-progress
+        fixpoint is kept."""
+        if self._fn_full_small is None:
+            self._fn_full_small, self._spec_full_small = \
+                build_packed_assign_fn(
+                    self.caps, self._retry_cap(), self._k_cap, self._weights,
+                    features=ALL_FEATURES, device=self.device)
+        return self._fn_full_small
 
     def _ensure_plain(self):
         if self._fn_plain is None:
             self._fn_plain, self._spec_plain = build_packed_assign_fn(
                 self.caps, self.batch_size, self._k_cap,
-                claims_noise=self.claims_noise, device=self.device)
+                features=PLAIN_FEATURES, claims_noise=self.claims_noise,
+                device=self.device)
         return self._fn_plain
 
     S_PATCH_MAX = 8192  # above this many dirty rows a full upload is cheaper
@@ -479,26 +618,37 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         """Sync the device's static node arrays with the host tensors: a
         full upload when forced (first upload, vocab column backfills, or
         very many dirty rows), otherwise a row-wise overwrite of the
-        resident arrays."""
+        resident arrays.  The selector-side arrays (STATIC_SEL) follow
+        only when resident: otherwise the full variant's first step
+        uploads them (_ensure_sel) — at 100k nodes they are ~140 MB that
+        the plain variant never reads."""
         t = self.tensors
         rows = t.static_dirty_rows
         full = (self._static_node is None or t.static_full
                 or len(rows) > self.S_PATCH_MAX
                 or len(rows) * 8 > self.caps.n_cap)
+
+        def dev(a):
+            return torch.tensor(a, device=self.device)
+
         if full:
-            self._static_node = {k: torch.tensor(getattr(t, k),
-                                                 device=self.device)
-                                 for k in STATIC_CORE}
+            self._static_node = {k: dev(getattr(t, k)) for k in STATIC_CORE}
+            if self._static_sel is not None:
+                self._static_sel = {k: dev(getattr(t, k))
+                                    for k in STATIC_SEL}
         elif rows:
             rows_a = np.array(sorted(rows), np.int64)
-
-            def dev(a):
-                return torch.tensor(a, device=self.device)
-
-            _apply_static_patch(self._static_node, dev(rows_a),
+            rows_t = dev(rows_a)
+            _apply_static_patch(self._static_node, rows_t,
                                 dev(t.alloc[rows_a]), dev(t.maxpods[rows_a]),
                                 dev(t.valid[rows_a]),
                                 dev(t.taint_mask[rows_a]))
+            if self._static_sel is not None:
+                _apply_sel_patch(self._static_sel, rows_t,
+                                 dev(t.label_mask[rows_a]),
+                                 dev(t.key_mask[rows_a]),
+                                 dev(t.dom_sg[:, rows_a]),
+                                 dev(t.dom_asg[:, rows_a]))
             self.stats["static_patched_rows"] = self.stats.get(
                 "static_patched_rows", 0) + len(rows)
         t.static_dirty_rows = set()
@@ -561,8 +711,9 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         FLUSH_FIRST instead: the caller must resolve the in-flight batch
         AND finish its assume tail, then call dispatch again — the dirty
         rows from this attempt are carried over so no external change is
-        lost.  A batch that needs the constraint variant raises
-        NotImplementedError."""
+        lost.  A constraint batch (one that needs the full variant) larger
+        than `full_cap` runs in chunks that chain the resident state; the
+        row patches ride the first chunk."""
         with self._lock:
             # epoch fast path: if every cache change since the last sync
             # came from this backend's own batches (bulk assume + confirm),
@@ -593,11 +744,6 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 self._carry_dirty = set()
                 results = [(None, Status(SKIP, str(e)))] * len(pod_infos)
                 return lambda: results
-            if self._needs_full(batch):
-                self._carry_dirty = dirty
-                raise NotImplementedError(
-                    "constraint variant not yet ported")
-
             n_live = len(pod_infos)
             if n_live and not batch.p_valid[:min(n_live,
                                                 self.batch_size)].any():
@@ -692,57 +838,100 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 1 if skip_sync else 0)
 
             n = len(pod_infos)
-            self.stats["plain"] = self.stats.get("plain", 0) + 1
-            self._ensure_plain()
-            staged = self._stage_buf(self._spec_plain.total)
-            pack_pod_batch(batch, self._spec_plain, patches[0], patches[1],
-                           out=staged.array)
-            pending = self._device_step(staged)
-            expect = self._gen
+            empty = (np.empty(0, np.int32),
+                     np.empty((0, self._f_patch), np.float32))
+            # chunk tuples retain the staged buffer, the variant and the
+            # expected device generation, so a fenced resolve can re-run
+            # the identical chunks from the restored state
+            chunks = []
+            if self._needs_full(batch):
+                self._ensure_full()
+                if n > self.full_cap:
+                    # oversized constraint batch: chunk through the capped
+                    # full step; the resident state chains chunk to chunk,
+                    # so intra-batch accounting stays exact
+                    spans = [(lo, min(lo + self.full_cap, n))
+                             for lo in range(0, n, self.full_cap)]
+                elif self.full_cap == self.batch_size:
+                    spans = [(0, self.batch_size)]
+                else:
+                    spans = [(0, n)]
+                p = patches
+                for lo, hi in spans:
+                    cb = (batch if hi - lo == self.batch_size
+                          else slice_pod_batch(batch, lo, hi, self.full_cap))
+                    staged = self._stage_buf(self._spec_full.total)
+                    pack_pod_batch(cb, self._spec_full, p[0], p[1],
+                                   out=staged.array)
+                    p = empty
+                    chunks.append((self._device_step("full", staged), lo, hi,
+                                   "full", staged, self._gen))
+            else:
+                self.stats["plain"] = self.stats.get("plain", 0) + 1
+                self._ensure_plain()
+                staged = self._stage_buf(self._spec_plain.total)
+                pack_pod_batch(batch, self._spec_plain, patches[0],
+                               patches[1], out=staged.array)
+                chunks.append((self._device_step("plain", staged), 0,
+                               self.batch_size, "plain", staged, self._gen))
             self.stats["batches"] += 1
             holder = object()
             self._unresolved.append(holder)
             # row->name view AT DISPATCH: a later dispatch may recycle rows,
             # so resolve() must not read the live tensors
             row_names = list(self.tensors.row_names)
+            was_full = self._needs_full(batch)
 
         def resolve() -> list[tuple[str | None, Status | None]]:
             nonlocal will_fence
             try:
                 with self._lock:
+                    assignments = np.full(self.batch_size, -1, np.int64)
                     # a fenced wave is stale BY CONSTRUCTION: start from the
                     # fence flag so the replay below is unconditional for it
-                    result = pending.get()
-                    stale = bool(will_fence) or int(result[-1]) != expect
+                    stale = bool(will_fence)
+                    raw = []
+                    for pending, _lo, _hi, _variant, _staged, expect in chunks:
+                        result = pending.get()
+                        stale = stale or int(result[-1]) != expect
+                        raw.append(result)
                     if stale:
                         # generation fence tripped: rebuild the state from
-                        # the replay mirror and re-run the retained buffer —
-                        # identical inputs against the authoritative state
+                        # the replay mirror and re-run the retained chunks
+                        # in order — identical inputs against the
+                        # authoritative state
                         if will_fence:
                             self.stats["fence_replays"] = self.stats.get(
                                 "fence_replays", 0) + 1
                         else:
                             logger.warning(
                                 "generation-stale wave (device gen "
-                                "mismatch); re-running from restored state")
+                                "mismatch); re-running %d chunk(s) from "
+                                "restored state", len(chunks))
                             self.stats["gen_stale_waves"] = self.stats.get(
                                 "gen_stale_waves", 0) + 1
                         self._restore_state_from_mirror()
-                        result = self._device_step(staged).get()
-                    assignments = result[:-2][:self.batch_size].astype(
-                        np.int64)
-                    batch_waves = int(result[-2])
+                        raw = [self._device_step(variant, staged).get()
+                               for _p, _lo, _hi, variant, staged, _e
+                               in chunks]
+                    batch_waves = 0
+                    for result, (_p, lo, hi, *_rest) in zip(raw, chunks):
+                        assignments[lo:hi] = result[:-2][:hi - lo]
+                        batch_waves += int(result[-2])
                     self.stats["waves"] += batch_waves
                     self._replay(batch, assignments)
+                    if was_full and self.full_main_waves:
+                        self._retry_stragglers(batch, assignments, n)
                     try:
                         self._unresolved.remove(holder)
                     except ValueError:  # pragma: no cover - double resolve
                         pass
             finally:
-                # the pin and the fence slot free even when the resolve
+                # the pins and the fence slot free even when the resolve
                 # fails: a fence that never cleared would wedge every
                 # future patch dispatch behind FLUSH_FIRST
-                self._stage_pins.discard(id(staged))
+                for _p, _lo, _hi, _variant, staged, _e in chunks:
+                    self._stage_pins.discard(id(staged))
                 if will_fence:
                     self._fence_pending = max(0, self._fence_pending - 1)
                     will_fence = False
@@ -754,6 +943,53 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             return out
 
         return resolve
+
+    def _retry_stragglers(self, batch, assignments: np.ndarray,
+                          n: int) -> None:
+        """Drain a capped main run's leftovers through the small retry
+        step (caller holds the lock; mutates `assignments` in place).
+        Rounds re-offer the unplaced pods in chunks of _retry_cap() until
+        a round places nothing or one chunk held them all (that chunk ran
+        the exhaustive wave budget: the fixpoint).  Retry steps chain the
+        same resident state as ordinary batches, and the mirror replay is
+        additive."""
+        self._ensure_full_small()
+        skip = set(batch.escape)
+        cap = self._retry_cap()
+        for _round in range(self.RETRY_ROUNDS_MAX):
+            left = [i for i in range(min(n, self.batch_size))
+                    if assignments[i] < 0 and i not in skip]
+            if not left:
+                return
+            one_chunk = len(left) <= cap
+            placed_this_round = 0
+            for lo in range(0, len(left), cap):
+                idx = left[lo:lo + cap]
+                rb = gather_pod_batch(batch, idx, cap)
+                staged = self._stage_buf(self._spec_full_small.total)
+                try:
+                    pack_pod_batch(rb, self._spec_full_small,
+                                   out=staged.array)
+                    res = self._device_step("full_small", staged).get()
+                    if int(res[-1]) != self._gen:
+                        # generation fence: restore from the mirror (which
+                        # already holds this batch's replays) and re-post
+                        self.stats["gen_stale_waves"] = self.stats.get(
+                            "gen_stale_waves", 0) + 1
+                        self._restore_state_from_mirror()
+                        res = self._device_step("full_small", staged).get()
+                finally:
+                    self._stage_pins.discard(id(staged))
+                self.stats["waves"] += int(res[-2])
+                sub = res[:-2]
+                self._replay(rb, sub)
+                for j, orig in enumerate(idx):
+                    if sub[j] >= 0:
+                        assignments[orig] = sub[j]
+                        placed_this_round += 1
+            self.stats["retries"] = self.stats.get("retries", 0) + 1
+            if not placed_this_round or one_chunk:
+                return
 
     def assign(self, pod_infos: Sequence[PodInfo], snapshot: Snapshot
                ) -> list[tuple[str | None, Status | None]]:

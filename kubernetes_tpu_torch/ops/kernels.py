@@ -151,6 +151,19 @@ def fit_score(ucpu, umem):
                  (1.0 - torch.abs(ucpu - umem) * 0.5) * 100.0)
 
 
+def utilizations(req_nz, alloc, used_nz):
+    """cpu and mem utilizations [rows, N] after adding each row's request:
+    min(used + request, alloc) / alloc per node, 1 where alloc is 0."""
+    one = torch.ones((), dtype=torch.float32, device=alloc.device)
+    utils = []
+    for r in range(2):
+        a = alloc[None, :, r]
+        u = used_nz[None, :, r] + req_nz[:, r, None]
+        utils.append(torch.where(
+            a > 0, torch.minimum(u / torch.clamp(a, min=1.0), one), one))
+    return utils
+
+
 def _check_noise(noise: str) -> None:
     if noise not in NOISE_KINDS:
         raise ValueError(f"noise={noise!r}: must be one of {NOISE_KINDS}")
@@ -169,7 +182,6 @@ def claims_reference(static, active, used, used_nz, npods, noise="sin",
     alloc, maxpods, smask_t = static["alloc"], static["maxpods"], static["smask_t"]
     avail = alloc - used
     cap_ok = (npods + 1.0 <= maxpods)[None, :]
-    one = torch.ones((), dtype=torch.float32, device=dev)
     claims_out = torch.empty(P, dtype=torch.int32, device=dev)
     best_out = torch.empty(P, dtype=torch.float32, device=dev)
     step = max(1, _REF_CELLS // max(N, 1))
@@ -179,14 +191,7 @@ def claims_reference(static, active, used, used_nz, npods, noise="sin",
         for r in range(R):
             fit = fit & (req[lo:hi, r, None] <= avail[None, :, r])
         mask = (smask_t[:, lo:hi].T != 0) & fit & active[lo:hi, None].bool()
-        utils = []
-        for r in range(2):
-            a = alloc[None, :, r]
-            u = used_nz[None, :, r] + req_nz[lo:hi, r, None]
-            utils.append(torch.where(
-                a > 0, torch.minimum(u / torch.clamp(a, min=1.0), one), one))
-        ucpu, umem = utils
-        score = fit_score(ucpu, umem)
+        score = fit_score(*utilizations(req_nz[lo:hi], alloc, used_nz))
         ids = pod_ids[lo:hi]
         nz = murmur_noise(ids, N) if noise == "murmur" else sin_noise(ids, N)
         masked = torch.where(mask, score + nz,

@@ -24,8 +24,8 @@ from kubernetes_tpu.ops.flatten import Caps as JaxCaps  # noqa: E402
 from kubernetes_tpu_torch.models import assign, carry  # noqa: E402
 from kubernetes_tpu_torch.ops.flatten import Caps  # noqa: E402
 from torch_cases import (  # noqa: E402
-    K_CAP, STEP_CAPS, STEP_CASES, make_step_case, run_port_step,
-    step_patches,
+    K_CAP, STEP_CAPS, STEP_CASES, make_full_case, make_step_case,
+    run_port_step, step_patches,
 )
 
 def run_jax(caps, p_cap, state, static, buf):
@@ -39,7 +39,7 @@ def run_jax(caps, p_cap, state, static, buf):
 
 
 def packed(caps, p_cap, b, with_patches):
-    spec = assign.PackSpec(caps, p_cap, K_CAP)
+    spec = assign.PackSpec(caps, p_cap, K_CAP, plain=True)
     rows, vals = step_patches(caps) if with_patches else (None, None)
     buf = assign.pack_pod_batch(b, spec, rows, vals)
     jspec = jax_assign.PackSpec(JaxCaps(**vars(caps)), p_cap, K_CAP,
@@ -103,6 +103,15 @@ def test_carry_round_trip():
         np.testing.assert_array_equal(st_np[k], state[k])
     for k in carry.STATIC_CORE:
         np.testing.assert_array_equal(stat_np[k], static[k])
+    assert set(stat_np) == set(carry.STATIC_CORE)
+    # the selector-side arrays ride along when the static dict holds them
+    _c, _s, full_static, _fb, _p = make_full_case("ns_selector")
+    _st, fstat = carry.state_from_reference(state, full_static, "cpu")
+    _st_np, fstat_np = carry.state_to_numpy(_st, fstat)
+    assert set(fstat_np) == set(carry.STATIC_CORE + carry.STATIC_SEL)
+    for k in carry.STATIC_CORE + carry.STATIC_SEL:
+        np.testing.assert_array_equal(fstat_np[k], full_static[k])
+        assert fstat_np[k].dtype == full_static[k].dtype, k
     # the port's in-place updates never write into the caller's arrays
     st["used"] += 1
     assert not np.array_equal(carry.state_to_numpy(st)[0]["used"],

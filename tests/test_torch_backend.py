@@ -8,7 +8,8 @@ plain-variant scenarios (TestResourceFit, the taint and unschedulable-node
 cases, the first randomized resource workload), and on a multi-batch sequence with pod
 deletions between batches (row patches), a node add (static patch) and a
 forced full refresh.  The port's depth-2 pipeline (dispatch k+1 before
-resolve k, a fenced wave included) equals its depth-1 run.
+resolve k, a fenced wave included) equals its depth-1 run.  The full
+(constraint) variant's scenarios are in tests/test_torch_backend_full.py.
 """
 
 import random
@@ -29,10 +30,11 @@ from torch_cases import (  # noqa: E402
     CAPS, SEQ_BATCH, SEQ_CAPS, Side, outcome, port_side, sequence,
 )
 
-def jax_side(batch_size, caps=CAPS):
+def jax_side(batch_size, caps=CAPS, **kw):
+    """The JAX package's stack; `kw` go to TPUBatchBackend."""
     return Side(jax_cache, jax_types, jax_testing,
                 jax_backend.TPUBatchBackend(JaxCaps(**caps),
-                                            batch_size=batch_size),
+                                            batch_size=batch_size, **kw),
                 jax_backend.FLUSH_FIRST)
 
 
@@ -192,15 +194,6 @@ def test_generation_fence_recovers():
     healed = run(True)
     assert healed[:2] == clean[:2]
     assert healed[2].get("gen_stale_waves", 0) == 1
-
-
-def test_constraint_batch_raises():
-    s = port_side(4)
-    s.cache.add_node(s.node("n1", cpu="4"))
-    pods = [s.testing.make_pod("sel").req(cpu="100m")
-            .node_selector(disk="ssd").build()]
-    with pytest.raises(NotImplementedError, match="constraint variant"):
-        s.backend.dispatch(s.infos(pods), s.snapshot())
 
 
 def test_empty_name_guard():

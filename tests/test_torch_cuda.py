@@ -1,5 +1,6 @@
 """kubernetes_tpu_torch on the card: the CUDA kernel against its plain
-version, and the GPU step and backend against the CPU ones.  Imports
+version, and the GPU steps (plain and full) and backend against the CPU
+ones.  Imports
 neither jax nor kubernetes_tpu, so it runs on a GPU machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -14,8 +15,9 @@ import torch
 from kubernetes_tpu_torch.models import assign
 from kubernetes_tpu_torch.ops import kernels
 from torch_cases import (
-    CLAIMS_CASES, K_CAP, SEQ_BATCH, SEQ_CAPS, STEP_CASES, make_step_case,
-    port_side, run_claims, run_port_step, sequence, step_patches,
+    CLAIMS_CASES, FULL_CASES, K_CAP, SEQ_BATCH, SEQ_CAPS, STEP_CASES,
+    make_full_case, make_step_case, port_side, run_claims,
+    run_port_full_step, run_port_step, sequence, step_patches,
 )
 
 pytestmark = pytest.mark.cuda
@@ -58,10 +60,26 @@ def test_step_matches_cpu_step(cuda, name, noise):
     n_cap, p_cap, identical, seed, with_patches = STEP_CASES[name]
     caps, state, static, b = make_step_case(n_cap, p_cap, identical, seed)
     rows, vals = step_patches(caps) if with_patches else (None, None)
-    buf = assign.pack_pod_batch(b, assign.PackSpec(caps, p_cap, K_CAP),
-                                rows, vals)
+    spec = assign.PackSpec(caps, p_cap, K_CAP, plain=True)
+    buf = assign.pack_pod_batch(b, spec, rows, vals)
     cst, cres = run_port_step(caps, p_cap, state, static, buf, noise)
     gst, gres = run_port_step(caps, p_cap, state, static, buf, noise, cuda)
+    np.testing.assert_array_equal(gres, cres)
+    for k in assign.STATE_KEYS:
+        np.testing.assert_array_equal(gst[k], cst[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(FULL_CASES))
+def test_full_step_matches_cpu_step(cuda, name):
+    """The full (constraint) step on the card equals the CPU's bit for
+    bit: result vector and every state array."""
+    caps, state, static, batch, patches = make_full_case(name)
+    rows, vals = patches if patches else (None, None)
+    spec = assign.PackSpec(caps, batch.p_cap, K_CAP)
+    buf = assign.pack_pod_batch(batch, spec, rows, vals)
+    cst, cres = run_port_full_step(caps, batch.p_cap, state, static, buf)
+    gst, gres = run_port_full_step(caps, batch.p_cap, state, static, buf,
+                                   cuda)
     np.testing.assert_array_equal(gres, cres)
     for k in assign.STATE_KEYS:
         np.testing.assert_array_equal(gst[k], cst[k], err_msg=k)

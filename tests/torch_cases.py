@@ -210,9 +210,9 @@ def run_port_step(caps, p_cap, state, static, buf, noise, device="cpu"):
     """The port's step from `state`: (state arrays, result) as numpy."""
     import torch
     from kubernetes_tpu_torch.models import assign, carry
-    fn, _spec = assign.build_packed_assign_fn(caps, p_cap, K_CAP,
-                                              claims_noise=noise,
-                                              device=device)
+    fn, _spec = assign.build_packed_assign_fn(
+        caps, p_cap, K_CAP, features=assign.PLAIN_FEATURES,
+        claims_noise=noise, device=device)
     st, stat = carry.state_from_reference(state, static, device)
     st, res = fn(st, stat, torch.from_numpy(buf).to(device))
     st_np, _ = carry.state_to_numpy(st)
@@ -258,12 +258,14 @@ class Side:
         assert not any(self.cache.assume_pods(items))
 
 
-def port_side(batch_size, caps=CAPS, device="cpu", noise="murmur"):
+def port_side(batch_size, caps=CAPS, device="cpu", noise="murmur", **kw):
+    """The port's stack; `kw` go to TorchBatchBackend (weights,
+    full_batch_cap, full_main_waves)."""
     return Side(port_cache, port_types, port_testing,
                 port_backend.TorchBatchBackend(Caps(**caps),
                                                batch_size=batch_size,
                                                device=device,
-                                               claims_noise=noise),
+                                               claims_noise=noise, **kw),
                 port_backend.FLUSH_FIRST)
 
 
@@ -319,3 +321,316 @@ def sequence(s, depth=1):
         pending = (k, resolve)
     finish(*pending)
     return [outcome(results[k]) for k in range(6)], s.backend.stats
+
+
+# -- the full (constraint) step: seeded clusters and constraint batches ----
+#
+# Nodes and pods are plain dicts built from a seed; the port's encoder
+# (ops/flatten.py, a copy of the JAX package's) turns them into the
+# resident state, the static arrays and a packed batch.  Nodes share one
+# capacity (unless the case name ends in "varied"), so the noise decides
+# among equally scored nodes.
+
+FULL_CAPS = dict(n_cap=64, l_cap=32, kl_cap=16, t_cap=8, pt_cap=8, s_cap=1,
+                 sg_cap=8, asg_cap=8, g_cap=2, kg_cap=2, c_cap=2, ns_cap=8)
+FULL_P = 48
+FULL_P_TAIL = 600           # > TAIL_P: the JAX cohort and compacted tail run
+ZONE = "topology.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
+NAMESPACES = {"team-a": {"team": "dev"}, "team-b": {"team": "dev"},
+              "team-c": {"team": "ops"}}
+
+
+def _expr(key, op, values=None):
+    e = {"key": key, "operator": op}
+    if values is not None:
+        e["values"] = list(values)
+    return e
+
+
+def _node_affinity(pod, *exprs):
+    pod["spec"].setdefault("affinity", {})["nodeAffinity"] = {
+        "requiredDuringSchedulingIgnoredDuringExecution": {
+            "nodeSelectorTerms": [{"matchExpressions": list(exprs)}]}}
+
+
+def _pod_term(pod, kind, key, match, weight=None, ns_match=None):
+    term = {"topologyKey": key, "labelSelector": {"matchLabels": match}}
+    if ns_match is not None:
+        term["namespaceSelector"] = {"matchLabels": ns_match}
+    aff = pod["spec"].setdefault("affinity", {}).setdefault(kind, {})
+    if weight is None:
+        aff.setdefault("requiredDuringSchedulingIgnoredDuringExecution",
+                       []).append(term)
+    else:
+        aff.setdefault("preferredDuringSchedulingIgnoredDuringExecution",
+                       []).append({"weight": weight, "podAffinityTerm": term})
+
+
+def _full_nodes(rng, n, testing, prefer_taints=False, varied=False):
+    out = []
+    for i in range(n):
+        cpu, mem = "16", "64Gi"
+        if varied:
+            cpu = f"{int(rng.integers(4, 33))}"
+            mem = f"{int(rng.integers(8, 129))}Gi"
+        w = (testing.make_node(f"n{i}").capacity(cpu=cpu, mem=mem,
+                                                 pods=40)
+             .zone("abc"[i % 3]).labels(**{HOST: f"n{i}"})
+             .labels(disk="ssd" if rng.random() < 0.5 else "hdd",
+                     tier="abc"[int(rng.integers(0, 3))]))
+        if rng.random() < 0.3:
+            w.labels(gpu="yes")
+        if prefer_taints:
+            for t in ("spot", "old"):
+                if rng.random() < 0.4:
+                    w.taint(t, "", "PreferNoSchedule")
+        if rng.random() < 0.05:
+            w.taint("dedicated", "db", "NoSchedule")
+        out.append(w.build())
+    return out
+
+
+def _existing(rng, testing, nodes, n, anti=False, ns=False):
+    pods = []
+    for i in range(n):
+        namespace = (str(rng.choice(list(NAMESPACES))) if ns else "default")
+        p = (testing.make_pod(f"e{i}", namespace)
+             .req(cpu=f"{int(rng.integers(1, 20)) * 50}m",
+                  mem=f"{int(rng.integers(1, 40)) * 64}Mi")
+             .labels(app=str(rng.choice(["web", "db", "cache"])))
+             .node(nodes[int(rng.integers(0, len(nodes)))]["metadata"]["name"])
+             .build())
+        if anti and rng.random() < 0.6:
+            _pod_term(p, "podAntiAffinity", HOST, {"app": "web"})
+        pods.append(p)
+    return pods
+
+
+def _case_selectors(rng, i, testing):
+    p = testing.make_pod(f"p{i}").req(cpu=f"{int(rng.integers(1, 9)) * 100}m",
+                                      mem="256Mi").build()
+    k = i % 6
+    if k == 0:
+        p["spec"]["nodeSelector"] = {"disk": "ssd"}
+    elif k == 1:
+        _node_affinity(p, _expr("tier", "In", ["a", "b"]))
+    elif k == 2:
+        _node_affinity(p, _expr("tier", "NotIn", ["c"]))
+    elif k == 3:
+        _node_affinity(p, _expr("gpu", "Exists"))
+    elif k == 4:
+        _node_affinity(p, _expr("gpu", "DoesNotExist"),
+                       _expr("disk", "In", ["hdd"]))
+    return p
+
+
+def _case_prefer(rng, i, testing):
+    w = testing.make_pod(f"p{i}").req(cpu="300m", mem="256Mi")
+    if i % 3 == 0:
+        w.toleration("spot", effect="PreferNoSchedule", operator="Exists")
+    if i % 5 == 0:
+        w.toleration("dedicated", "db", "NoSchedule")
+    return w.build()
+
+
+def _case_pin(rng, i, testing):
+    w = testing.make_pod(f"p{i}").req(cpu="2", mem="1Gi")
+    if i % 2 == 0:
+        w.node(f"n{int(rng.integers(0, 6))}")
+    return w.build()
+
+
+def _case_ports(rng, i, testing):
+    return (testing.make_pod(f"p{i}").req(cpu="100m", mem="64Mi")
+            .host_port(int(rng.choice([8080, 9090, 7070]))).build())
+
+
+def _case_spread(rng, i, testing):
+    return (testing.make_pod(f"p{i}").req(cpu="100m", mem="64Mi")
+            .labels(app="s")
+            .topology_spread(ZONE, max_skew=1, match_labels={"app": "s"})
+            .build())
+
+
+def _case_anti(rng, i, testing):
+    return (testing.make_pod(f"p{i}").req(cpu="100m", mem="64Mi")
+            .labels(app="anti")
+            .pod_affinity(HOST, {"app": "anti"}, anti=True).build())
+
+
+def _case_anti_existing(rng, i, testing):
+    w = testing.make_pod(f"p{i}").req(cpu="200m", mem="64Mi")
+    if i % 2 == 0:
+        w.labels(app="web")
+    else:
+        w.pod_affinity(HOST, {"app": "db"}, anti=True)
+    return w.build()
+
+
+def _case_affinity(rng, i, testing):
+    w = testing.make_pod(f"p{i}").req(cpu="200m", mem="64Mi")
+    if i % 3 == 0:      # self-affine group: the first needs the bootstrap
+        w.labels(app="grp").pod_affinity(ZONE, {"app": "grp"})
+    elif i % 3 == 1:    # affinity to existing pods
+        w.pod_affinity(ZONE, {"app": "db"})
+    return w.build()
+
+
+def _case_preferred(rng, i, testing):
+    p = testing.make_pod(f"p{i}").req(cpu="200m", mem="64Mi").build()
+    if i % 2 == 0:
+        _pod_term(p, "podAffinity", ZONE, {"app": "cache"},
+                  weight=int(rng.integers(1, 100)))
+    else:
+        _pod_term(p, "podAntiAffinity", HOST, {"app": "web"},
+                  weight=int(rng.integers(1, 100)))
+    return p
+
+
+def _case_spread_soft(rng, i, testing):
+    # ScheduleAnyway over zones and hosts against existing app=web pods,
+    # so the domain counts (and the spread weight) differ across nodes
+    return (testing.make_pod(f"p{i}").req(cpu="100m", mem="64Mi")
+            .labels(app="web")
+            .topology_spread(HOST if i % 2 else ZONE, max_skew=1,
+                             when="ScheduleAnyway",
+                             match_labels={"app": "web"}).build())
+
+
+def _case_scores(rng, i, testing):
+    # varied requests on varied nodes: the fit score, not the noise,
+    # decides most claims (the fused multiply-add of kernels.fit_score)
+    return (testing.make_pod(f"p{i}")
+            .req(cpu=f"{int(rng.integers(1, 40)) * 25}m",
+                 mem=f"{int(rng.integers(1, 64)) * 32}Mi")
+            .labels(app="web")
+            .topology_spread(ZONE, max_skew=3, when="ScheduleAnyway",
+                             match_labels={"app": "web"}).build())
+
+
+def _case_ns(rng, i, testing):
+    ns = str(rng.choice(list(NAMESPACES) + ["default"]))
+    p = (testing.make_pod(f"p{i}", ns).req(cpu="100m", mem="64Mi")
+         .labels(app=str(rng.choice(["web", "db"]))).build())
+    if i % 2 == 0:
+        _pod_term(p, "podAntiAffinity", HOST, {"app": "web"},
+                  ns_match={"team": "dev"})
+    else:
+        _pod_term(p, "podAffinity", ZONE, {"app": "db"},
+                  ns_match={"team": "dev"})
+    return p
+
+
+def _case_mixed(rng, i, testing):
+    maker = [_case_selectors, _case_prefer, _case_ports, _case_spread,
+             _case_anti, _case_preferred, _case_spread_soft][i % 7]
+    return maker(rng, i, testing)
+
+
+def _case_close(rng, i, testing):
+    # identical requests with a selector every node passes: the nodes'
+    # scores lie within the noise of each other (see make_full_case), so
+    # the noise and the scores' last bits decide the claims together
+    p = testing.make_pod(f"p{i}").req(cpu="100m", mem="128Mi").build()
+    _node_affinity(p, _expr("disk", "Exists"))
+    return p
+
+
+# name -> (pod builder, pods, nodes, existing pods, existing anti terms,
+#          namespaced, PreferNoSchedule taints, row patches); "varied"
+# nodes differ in capacity, "gated" namespace masks close some columns
+# (the step's namespace fold then decides, as on a stale host encoding)
+FULL_CASES = {
+    "selectors": (_case_selectors, FULL_P, 40, 0, False, False, False, False),
+    "prefer_taints": (_case_prefer, FULL_P, 40, 0, False, False, True, False),
+    "node_name_pin": (_case_pin, FULL_P, 40, 0, False, False, False, False),
+    "host_ports": (_case_ports, FULL_P, 12, 0, False, False, False, False),
+    "spread_hard_tail": (_case_spread, FULL_P_TAIL, 60, 30, False, False,
+                         False, False),
+    "anti_hostname": (_case_anti, FULL_P, 40, 0, False, False, False, False),
+    "anti_existing": (_case_anti_existing, FULL_P, 20, 24, True, False, False,
+                      False),
+    "affinity_bootstrap": (_case_affinity, FULL_P, 30, 6, False, False, False,
+                           False),
+    "preferred": (_case_preferred, FULL_P, 30, 20, False, False, False, False),
+    "spread_soft": (_case_spread_soft, FULL_P, 30, 20, False, False, False,
+                    False),
+    "ns_selector": (_case_ns, FULL_P, 20, 20, False, True, False, False),
+    "ns_selector_gated": (_case_ns, FULL_P, 20, 20, False, True, False,
+                          False),
+    "scores_varied": (_case_scores, FULL_P_TAIL, 60, 90, False, False, True,
+                      False),
+    "scores_close": (_case_close, FULL_P_TAIL, 60, 0, False, False, False,
+                     False),
+    "mixed_patched": (_case_mixed, FULL_P, 40, 10, True, False, True, True),
+}
+
+
+def make_full_case(name, seed=0):
+    """(caps, state, static, batch, patches) for FULL_CASES[name]: the
+    state and static numpy arrays from the port's ClusterTensors, the
+    batch from its BatchEncoder (no pod escapes), the row patches (or
+    None) for the buffer."""
+    from kubernetes_tpu_torch.ops.flatten import BatchEncoder, ClusterTensors
+    build, P, n_nodes, n_exist, anti, ns, prefer, patched = FULL_CASES[name]
+    rng = np.random.default_rng(sorted(FULL_CASES).index(name) * 100 + seed)
+    caps = Caps(**FULL_CAPS)
+    cache = port_cache.Cache()
+    nodes = _full_nodes(rng, n_nodes, port_testing, prefer,
+                        varied=name.endswith("varied"))
+    for n in nodes:
+        cache.add_node(n)
+    for p in _existing(rng, port_testing, nodes, n_exist, anti, ns):
+        cache.add_pod(p)
+    if name == "scores_close":   # node i holds (i+1) milli-CPU and MiB
+        for i, n in enumerate(nodes):
+            cache.add_pod(port_testing.make_pod(f"c{i}")
+                          .req(cpu=f"{i + 1}m", mem=f"{i + 1}Mi")
+                          .node(n["metadata"]["name"]).build())
+    t = ClusterTensors(caps)
+    for nm, labels in NAMESPACES.items():
+        t.note_namespace({"apiVersion": "v1", "kind": "Namespace",
+                          "metadata": {"name": nm, "labels": labels}})
+    pods = [port_types.PodInfo(build(rng, i, port_testing))
+            for i in range(P)]
+    t.update_from_snapshot_tracked(cache.flatten_view())
+    batch = BatchEncoder(t, P).encode(pods)
+    assert not batch.escape, batch.escape_reasons
+    cd_sg, cd_asg = t.domain_base_counts()
+    state = {"used": t.used.copy(), "used_nz": t.used_nz.copy(),
+             "npods": t.npods.copy(), "port_mask": t.port_mask.copy(),
+             "cd_sg": cd_sg, "cd_asg": cd_asg, "gen": np.int32(3)}
+    static = {k: getattr(t, k).copy() for k in (
+        "alloc", "maxpods", "valid", "taint_mask", "label_mask", "key_mask",
+        "dom_sg", "dom_asg", "sg_ns_mask", "asg_ns_mask")}
+    if name.endswith("gated"):
+        for k in ("sg_ns_mask", "asg_ns_mask"):
+            static[k] = (static[k] * (rng.random(static[k].shape) < 0.5)
+                         ).astype(np.float32)
+    patches = None
+    if patched:
+        rows = np.array([1, 4, 7], np.int32)
+        vals = np.zeros((3, 2 * caps.r + 1 + caps.pt_cap), np.float32)
+        vals[:, 0] = 8000
+        vals[:, caps.r] = 8000
+        vals[:, 1] = 2**33
+        vals[:, caps.r + 1] = 2**33
+        vals[:, 2 * caps.r] = 3
+        vals[0, 2 * caps.r + 1] = 1     # a host port taken on row 1
+        patches = (rows, vals)
+    return caps, state, static, batch, patches
+
+
+def run_port_full_step(caps, p_cap, state, static, buf, device="cpu",
+                       weights=None):
+    """The port's full step from `state`: (state arrays, result) numpy."""
+    import torch
+    from kubernetes_tpu_torch.models import assign, carry
+    fn, _spec = assign.build_packed_assign_fn(
+        caps, p_cap, K_CAP, weights, features=assign.ALL_FEATURES,
+        device=device)
+    st, stat = carry.state_from_reference(state, static, device)
+    st, res = fn(st, stat, torch.from_numpy(buf).to(device))
+    st_np, _ = carry.state_to_numpy(st)
+    return st_np, res.cpu().numpy()
