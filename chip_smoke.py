@@ -48,14 +48,29 @@ Phases (each prints its wall time; any failed check exits non-zero):
      anti-affinity pods share a node, and print full_cap, waves per batch,
      the peak of allocated device memory and its bytes per (pod, node)
      cell.
-Phases 5 and 6 are the plain main path, (a)-(d) the full variant's: the
-kernels' launch counts are zeroed just before each and read just after;
-in 5 and 6 each kernel must have launched, in (a)-(d) none (the full
-variant reaches no hand kernel); every
-claims launch is recorded by shape (pods, live pods, nodes, noise) with its
-time between CUDA events.  The last two lines are a JSON line of
-per-kernel numbers and the device line.  Without a CUDA device the script
-exits 2 and prints no result.
+  8. SchedulingBasic through the Scheduler: kubernetes_tpu_torch.perf.bench's
+     config (5,000 nodes, 1,000 warm-up and 50,000 measured pods, batch
+     16,384, depth 2): store, informers, queue, Scheduler with a
+     TorchBatchBackend profile, bulk assume, binder;
+  9. Scheduling100k through the Scheduler (100,000 nodes, 200,000 pods,
+     batch 16,384, depth 2);
+ 10. SchedulingBasicPaced, the latency row (5,000 nodes, 24,000 pods
+     arriving at 8,000 pods/s, batch 512, depth 12, 1 ms admission).
+     8-10 each print the bench row (pods/s, pod e2e p50/p95/p99 ms), check
+     from the store that every created pod is bound and no node holds more
+     than its CPU, memory or 110 pods, and check no ERROR status, a zero
+     escape rate and claims launches; then print the backend's counters,
+     the set-up times outside the window, and one more batch through the
+     running loop under torch.profiler (device busy time, idle share).
+Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
+8-10 the same path under the scheduler loop, (a)-(d) the full variant's:
+the kernels' launch counts are zeroed just before each and read just
+after; in 5, 6 and 8-10 each kernel must have launched, in (a)-(d) none
+(the full variant reaches no hand kernel); every claims launch of 5 and 6
+is recorded by shape (pods, live pods, nodes, noise) with its time
+between CUDA events.  The last two lines are a JSON line of per-kernel
+numbers (its launches: phases 6 and 9) and the device line.  Without a
+CUDA device the script exits 2 and prints no result.
 
 --compare TAG=DIR loads the kubernetes_tpu_torch package of another
 checkout (e.g. an earlier revision, unpacked with git archive) under its
@@ -730,6 +745,114 @@ def full_variant_phases(dev, smi, sizes=FULL_SIZES):
             del backend, cache, outs, batches
 
 
+# -- the scheduler loop: perf.bench configs through a real Scheduler -------
+
+# phase -> bench config (kubernetes_tpu_torch/perf/bench.py CONFIGS)
+LOOP_PHASES = (("8", "SchedulingBasic"), ("9", "Scheduling100k"),
+               ("10", "SchedulingBasicPaced"))
+
+
+def profile_loop_batch(cluster, batch, label, smi, top=8):
+    """One more batch of SchedulingBasic pods through the running
+    Scheduler (after the measured window and the launch count were read)
+    under torch.profiler: wall from the create to the last bind, device
+    busy time of the kernels and copies in it, and the device's idle
+    share.  The loop's threads launch the kernels; CUPTI records every
+    launch of the process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.client.clientset import PODS
+    from kubernetes_tpu_torch.perf.scheduler_perf import _default_pod
+    sched = cluster.scheduler
+    backend = sched.profiles["default-scheduler"].batch_backend
+    op = {"podNamePrefix": f"prof-{label}-"}
+    pods = [_default_pod(i, op) for i in range(batch)]
+
+    def scheduled():
+        with sched.metrics.lock:
+            return sched.metrics.schedule_attempts.get("scheduled", 0)
+
+    base, w0 = scheduled(), backend.stats["waves"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        cluster.client.create_bulk(PODS, pods)
+        deadline = t0 + 120.0
+        while scheduled() < base + batch and time.monotonic() < deadline:
+            time.sleep(0.002)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    check(scheduled() >= base + batch,
+          f"{label}: the profiled batch did not bind within 120 s")
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"   {label} profiled loop batch ({batch} pods, create to last "
+          f"bind): wall {wall_ms:.3f} ms, {backend.stats['waves'] - w0} "
+          f"waves, {sum(r[1] for r in rows)} device events, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{smi}]",
+          flush=True)
+    for ms, count, key in rows[:top]:
+        print(f"     {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def loop_phases(smi):
+    """Phases 8-10: the bench configs through perf.bench.run_config on the
+    card (store, informers, queue, Scheduler, TorchBatchBackend, binder).
+    The claims count is zeroed before each and read when the workload is
+    done; the checks read the store, not the backend.  Returns
+    {config: claims launches}."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.perf import bench
+    launches = {}
+    for num, name in LOOP_PHASES:
+        with Phase(f"{num} {name} through the Scheduler"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            kernels.LAUNCHES["claims"] = 0
+            cfg = bench.CONFIGS[name]
+
+            def after(cluster, name=name, cfg=cfg):
+                launches[name] = kernels.LAUNCHES["claims"]
+                profile_loop_batch(cluster, cfg["batch"], name, smi)
+
+            row, res = bench.run_config(name, after=after)
+            print(json.dumps(row), flush=True)
+            print(f"   {name} row measured on [{smi}]", flush=True)
+            check("error" not in res, f"{name}: {res.get('error')}")
+            check(res["stats"].get("barrier_ok"), f"{name}: barrier failed")
+            d = row["detail"]
+            placed = d["placements"]
+            print(f"   {name}: placements from the store {placed}",
+                  flush=True)
+            # the store also holds the profiled batch's pods
+            check(placed["bound"] == placed["pods"]
+                  == res["stats"]["created_pods"] + cfg["batch"],
+                  f"{name}: {placed['bound']} of {placed['pods']} pods bound "
+                  f"({res['stats']['created_pods']} created, "
+                  f"{cfg['batch']} profiled)")
+            check(placed["nodes_over_capacity"] == 0
+                  and placed["max_pods_per_node"] <= 110,
+                  f"{name}: nodes over capacity {placed['over_examples']}")
+            check(d["schedule_attempts"]["error"] == 0,
+                  f"{name}: ERROR statuses {d['schedule_attempts']}")
+            check(d.get("escape_rate") == 0.0,
+                  f"{name}: escape_rate {d.get('escape_rate')}")
+            check(launches.get(name, 0) > 0,
+                  f"{name}: the claims kernel never launched")
+            st = res["stats"]["backend_stats"]
+            print(f"   {name}: claims launches {launches[name]}; backend "
+                  f"batches {st['batches']} waves {st['waves']} flush_first "
+                  f"{st['flush_first']} waves_patched {st['waves_patched']} "
+                  f"full_refresh {st['full_refresh']}; outside the window: "
+                  f"setup {d['setup_s']} s, node creation "
+                  f"{d['create_nodes_s']} s, flatten "
+                  f"{d['flatten_before_window_s']} s [{smi}]", flush=True)
+    return launches
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[],
@@ -862,8 +985,9 @@ def main(argv=None) -> int:
         print(f"   torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)} "
               f"count {torch.cuda.device_count()}")
-        print(f"   nvcc {_build.nvcc_path()} ninja {shutil.which('ninja')}",
-              flush=True)
+        print(f"   nvcc {_build.nvcc_path()} ninja {shutil.which('ninja')}; "
+              f"PyYAML importable: "
+              f"{importlib.util.find_spec('yaml') is not None}", flush=True)
 
     with Phase("2 kernel build"):
         t0 = time.monotonic()
@@ -1058,13 +1182,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     full_variant_phases(dev, smi)
 
+    # the scheduler loop above BatchBackend
+    loop_launches = loop_phases(smi)
+
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "claims", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/claims.cu",
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:171",
-        "launches": launches, "max_abs_err": max(errs), "ms": ms,
+        "launches": launches + loop_launches["Scheduling100k"],
+        "max_abs_err": max(errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {

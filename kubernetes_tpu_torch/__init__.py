@@ -1,19 +1,30 @@
-"""kubernetes_tpu_torch — the scheduler's device half on PyTorch and CUDA.
+"""kubernetes_tpu_torch — the scheduler on PyTorch and CUDA.
 
 The counterpart of `kubernetes_tpu` (the JAX reference) for one NVIDIA
 Hopper GPU.  It imports torch and numpy, never jax and never anything of
 `kubernetes_tpu`: the host modules it needs are its own copies.
 
 Package map:
-  api/, utils/, scheduler/, testing/ - host copies: objects, quantities,
-      PodInfo/NodeInfo, Cache/Snapshot and the BatchBackend contract
+  api/, utils/, testing/ - host copies: objects, quantities, builders,
+      the per-pod host helpers (Python versions of the JAX package's
+      native ones), stage latencies, GC tuning
+  store/          - MemoryStore with watch, and the WAL it imports (copy)
+  client/         - LocalClient, informers, work queues (copy)
+  component_base/ - metrics, tracing, timeline, logs, feature gates,
+      profiling (copy, without the jax-reading census functions)
+  scheduler/      - the scheduler: cache, queue, framework, plugins,
+      preemption, extenders, config, the scheduling loop (copies) and the
+      BatchBackend contract
   ops/flatten.py  - snapshot -> numpy tensors (copy)
   ops/kernels.py  - the claims kernel wrapper and its plain torch version
   ops/csrc/       - hand-written CUDA sources (sm_90a), built at first use
   models/assign.py - the wave step in torch: plain (claims kernel) and
       full (selectors, ports, pins, spread, pod (anti-)affinity)
   models/carry.py  - resident state to and from the JAX package's arrays
-  ops/backend.py   - TorchBatchBackend behind the BatchBackend contract
+  ops/backend.py   - TorchBatchBackend behind the BatchBackend contract,
+      and make_batch_backend (the `backend:` kinds)
+  perf/            - the scheduler_perf harness (workloads as JSON) and
+      the bench entry, `python3 -m kubernetes_tpu_torch.perf.bench`
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

@@ -330,6 +330,25 @@ class ResidentHostMirror:
                 self.stats["compactions"] = self.stats.get(
                     "compactions", 0) + 1
 
+    def maintenance_snapshot(self) -> dict:
+        """Tensor-maintenance readout for the observatory: occupancy /
+        tombstone gauges plus the patched-vs-reflattened wave counters
+        (scheduler.expose_metrics incs the counter metrics by deltas)."""
+        with self._lock:
+            t = self.tensors
+            s = self.stats
+            return {
+                "row_occupancy": t.row_occupancy(),
+                "tombstone_rows": t.tombstone_count(),
+                "waves_patched": s.get("waves_patched", 0),
+                "waves_reflattened": s.get("waves_reflattened", 0),
+                "event_patches": s.get("event_patches", 0),
+                "compactions": s.get("compactions", 0),
+                "gen_stale_waves": s.get("gen_stale_waves", 0),
+                "patch_seconds": s.get("patch_seconds", 0.0),
+                "flatten_seconds": s.get("flatten_seconds", 0.0),
+            }
+
     def _restore_state_from_mirror(self) -> None:
         """Generation-fence recovery: rebuild the device wave state from
         the host replay mirror — which already includes every replay
@@ -997,3 +1016,33 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         if resolve is FLUSH_FIRST:
             raise RuntimeError("FLUSH_FIRST with no pipelined caller")
         return resolve()
+
+
+def make_batch_backend(kind: str = "tpu", caps: Caps | None = None,
+                       batch_size: int = 256,
+                       weights: dict[str, float] | None = None,
+                       k_cap: int = 1024, device=None, **kw):
+    """Construct a BatchBackend by kind — the seam the `backend:` config
+    stanza (scheduler/config.BackendPolicy) and the perf harness resolve
+    through, with the JAX package's vocabulary so one config file loads in
+    both packages:
+
+      tpu      the single-device resident step: TorchBatchBackend on
+               `device` (CUDA unless the caller names another)
+      sharded  the multi-device path (not ported: ROADMAP queue 1 item 7)
+      null     the host pipeline with the device step nulled (not
+               ported: ROADMAP queue 1 item 4)"""
+    if kind == "tpu":
+        return TorchBatchBackend(caps, batch_size=batch_size,
+                                 weights=weights, k_cap=k_cap,
+                                 device=device, **kw)
+    if kind == "sharded":
+        raise NotImplementedError(
+            "backend kind 'sharded': the multi-device path is not ported "
+            "(ROADMAP queue 1 item 7)")
+    if kind == "null":
+        raise NotImplementedError(
+            "backend kind 'null': the nulled-device backend is not ported "
+            "(ROADMAP queue 1 item 4)")
+    raise ValueError(f"unknown batch backend kind {kind!r} "
+                     "(expected tpu, sharded or null)")

@@ -1,4 +1,25 @@
-"""Bench sizing policy."""
+"""scheduler_perf harness (reference: test/integration/scheduler_perf).
+
+The workload definitions are the JAX package's performance-config.yaml,
+converted once to JSON (config/performance-config.json): the port reads
+them with the standard library, so nothing on its path needs PyYAML."""
+
+import json
+import os
+
+from .scheduler_perf import (  # noqa: F401
+    PerfCluster, ThroughputCollector, ThroughputSummary, run_named_workload,
+    run_workload, setup_cluster, wait_for_pods_scheduled,
+)
+
+_CONFIG = os.path.join(os.path.dirname(__file__), "config",
+                       "performance-config.json")
+
+
+def load_workloads(path: str | None = None) -> dict[str, dict]:
+    with open(path or _CONFIG) as f:
+        entries = json.load(f)
+    return {e["name"]: e for e in entries}
 
 
 def caps_for_nodes(n_nodes: int):

@@ -7,8 +7,10 @@ The (node, status code) lists must be identical: on tests/test_tpu_batch.py's
 plain-variant scenarios (TestResourceFit, the taint and unschedulable-node
 cases, the first randomized resource workload), and on a multi-batch sequence with pod
 deletions between batches (row patches), a node add (static patch) and a
-forced full refresh.  The port's depth-2 pipeline (dispatch k+1 before
-resolve k, a fenced wave included) equals its depth-1 run.  The full
+forced full refresh.  After that sequence, a node event patch and one
+more batch, both backends' maintenance_snapshot counters agree.  The
+port's depth-2 pipeline (dispatch k+1 before resolve k, a fenced wave
+included) equals its depth-1 run.  The full
 (constraint) variant's scenarios are in tests/test_torch_backend_full.py.
 """
 
@@ -135,6 +137,28 @@ def test_patch_refresh_sequence_matches_reference(sides):
     assert port_stats.get("static_patched_rows", 0) > 0
     assert port_stats["full_refresh"] >= 2
     assert sum(1 for b in port_out for name, _ in b if name) > 40
+
+
+def test_maintenance_snapshot_matches_reference(sides):
+    """ResidentHostMirror.maintenance_snapshot (the bench row's
+    tensor_maintenance) reports the same counters on both packages after
+    the patch/refresh sequence, a node resize fed through note_node_event
+    (an event patch) and one more batch."""
+    snaps = []
+    for s in sides(SEQ_BATCH, SEQ_CAPS):
+        sequence(s)
+        s.cache.update_node(s.node("n3", cpu="32", mem="64Gi"))
+        s.backend.note_node_event("MODIFIED", "n3", s.cache.flatten_view())
+        s.backend.assign(s.infos([s.pod("late", cpu="100m")]),
+                         s.cache.flatten_view())
+        snaps.append(s.backend.maintenance_snapshot())
+    jax_snap, port_snap = snaps
+    assert set(port_snap) == set(jax_snap)
+    for key in ("patch_seconds", "flatten_seconds"):
+        assert port_snap.pop(key) >= 0.0 and jax_snap.pop(key) >= 0.0
+    assert port_snap == jax_snap
+    assert port_snap["event_patches"] == 1
+    assert port_snap["waves_patched"] > 0 and port_snap["waves_reflattened"] > 0
 
 
 def test_depth_two_equals_depth_one():

@@ -1,6 +1,6 @@
 """kubernetes_tpu_torch on the card: the CUDA kernel against its plain
-version, and the GPU steps (plain and full) and backend against the CPU
-ones.  Imports
+version, and the GPU steps (plain and full), backend and scheduler loop
+against the CPU ones.  Imports
 neither jax nor kubernetes_tpu, so it runs on a GPU machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -15,9 +15,9 @@ import torch
 from kubernetes_tpu_torch.models import assign
 from kubernetes_tpu_torch.ops import kernels
 from torch_cases import (
-    CLAIMS_CASES, FULL_CASES, K_CAP, SEQ_BATCH, SEQ_CAPS, STEP_CASES,
-    make_full_case, make_step_case, port_side, run_claims,
-    run_port_full_step, run_port_step, sequence, step_patches,
+    CLAIMS_CASES, FULL_CASES, K_CAP, PORT_PKG, SEQ_BATCH, SEQ_CAPS,
+    STEP_CASES, make_full_case, make_step_case, pipelined_run, port_side,
+    run_claims, run_port_full_step, run_port_step, sequence, step_patches,
 )
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +111,16 @@ def test_wrapper_rejects_misaligned_mask(cuda):
     with pytest.raises(ValueError, match="aligned"):
         kernels.claims({**static, "smask_t": shifted}, t(c["active"]),
                        t(c["used"]), t(c["used_nz"]), t(c["npods"]))
+
+
+def test_loop_on_the_card_with_a_wave_deadline_equals_cpu(cuda):
+    """The scheduler loop stepped at depth 2 (a FLUSH_FIRST re-dispatch and
+    a node event patch in between) with the stuck-wave watchdog armed, so
+    every resolve() runs on a wave-resolve thread against the card: the
+    same placements as the loop on the CPU."""
+    cpu_out, _stats, _threads = pipelined_run(PORT_PKG)
+    out, stats, threads = pipelined_run(PORT_PKG, deadline=60.0,
+                                        device="cuda")
+    assert out == cpu_out
+    assert threads == {"wave-resolve"}
+    assert stats["flush_first"] >= 1 and stats["event_patches"] >= 1

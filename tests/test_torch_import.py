@@ -52,6 +52,41 @@ def test_imports_and_steps_with_jax_blocked():
     assert proc.stdout.startswith("OK"), proc.stdout
 
 
+_BLOCKED_YAML = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu", "yaml"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import kubernetes_tpu_torch.client
+import kubernetes_tpu_torch.perf.bench
+import kubernetes_tpu_torch.scheduler
+from kubernetes_tpu_torch.perf import load_workloads
+from kubernetes_tpu_torch.scheduler.config import load_config
+
+names = load_workloads()
+assert "SchedulingBasicLarge" in names and len(names) > 20, sorted(names)
+assert load_config({"backend": {"kind": "tpu"}}).backend.kind == "tpu"
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu", "yaml"))
+assert not bad, bad
+print("OK", len(names))
+"""
+
+
+def test_scheduler_and_perf_import_with_yaml_blocked():
+    """The card machine has no PyYAML: the port's scheduler, client and
+    perf harness import and read the workloads without it."""
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_YAML], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("OK"), proc.stdout
+
+
 def _imported_roots(path: pathlib.Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

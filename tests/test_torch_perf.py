@@ -1,0 +1,224 @@
+"""The port's scheduler_perf harness and bench entry on the CPU.
+
+The workload file is the JAX package's, converted to JSON; a tiny
+SchedulingBasic runs end to end through the port's Scheduler on a
+TorchBatchBackend(device="cpu") and binds what the JAX harness binds; the
+bench module prints one row in bench.py's shape; the harness branches
+that reach modules outside the port raise NotImplementedError, and the
+entry points refuse to run without a GPU unless the caller names the CPU.
+"""
+
+import copy
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from kubernetes_tpu_torch import perf as port_perf
+from kubernetes_tpu_torch.ops import backend as port_backend
+from kubernetes_tpu_torch.perf import bench
+from kubernetes_tpu_torch.store import kv
+
+ROOT = Path(__file__).resolve().parent.parent
+N_NODES, N_PODS, BATCH = 200, 1000, 256
+
+
+def tiny_basic(perf_mod):
+    """The bench's SchedulingBasic (SchedulingBasicLarge: a 1,000-pod
+    warm-up, then the measured createPods) at 200 nodes, 1,000 pods."""
+    cfg = copy.deepcopy(perf_mod.load_workloads()["SchedulingBasicLarge"])
+    for op in cfg["workloadTemplate"]:
+        if op["opcode"] == "createNodes":
+            op["count"] = N_NODES
+        elif op["opcode"] == "createPods" and op.get("collectMetrics"):
+            op["count"] = N_PODS
+    return cfg
+
+
+def test_workloads_equal_the_jax_yaml():
+    jax_perf = pytest.importorskip("kubernetes_tpu.perf")
+    ours, theirs = port_perf.load_workloads(), jax_perf.load_workloads()
+    assert list(ours) == list(theirs)
+    for name in theirs:
+        assert ours[name] == theirs[name], name
+
+
+def test_run_named_workload_binds_every_pod_on_cpu():
+    store = kv.MemoryStore()
+    summary, stats = port_perf.run_named_workload(
+        tiny_basic(port_perf),
+        caps=port_perf.caps_for_nodes(N_NODES), batch_size=BATCH,
+        pipeline_depth=2, device="cpu", store=store)
+    assert stats["barrier_ok"]
+    placed = bench.check_placements(store)
+    assert placed["pods"] == placed["bound"] == 2 * N_PODS
+    assert placed["nodes_over_capacity"] == 0
+    assert placed["max_pods_per_node"] <= 110
+    assert summary.total_pods == N_PODS
+    assert "p99_ms" in stats["e2e"]
+    assert stats["backend_stats"]["batches"] > 0
+    assert stats["escape_rate"] == 0.0
+    assert stats["schedule_attempts"]["error"] == 0
+    assert stats["tensor_maintenance"]["waves_reflattened"] >= 0
+
+
+def test_jax_harness_binds_the_same_count(monkeypatch):
+    """The JAX harness (TPUBatchBackend, KTPU_PALLAS=0) and the port's on
+    the same workload: both barriers pass and both count every measured
+    pod bound."""
+    jax_perf = pytest.importorskip("kubernetes_tpu.perf")
+    monkeypatch.setenv("KTPU_PALLAS", "0")
+    runs = {}
+    for name, perf_mod, kw in (("jax", jax_perf, {"tpu": True}),
+                               ("port", port_perf, {"device": "cpu"})):
+        summary, stats = perf_mod.run_named_workload(
+            tiny_basic(perf_mod),
+            caps=perf_mod.caps_for_nodes(N_NODES), batch_size=BATCH,
+            pipeline_depth=2, **kw)
+        runs[name] = (stats["barrier_ok"], summary.total_pods,
+                      stats["created_pods"], stats["escape_rate"])
+    assert runs["port"] == runs["jax"] == (True, N_PODS, 2 * N_PODS, 0.0)
+
+
+BENCH_KEYS = ("nodes", "pods", "batch", "wall_s", "Average", "Perc50",
+              "Perc90", "Perc99", "TotalPods", "DurationSeconds",
+              "pod_e2e_p50_ms", "pod_e2e_p95_ms", "pod_e2e_p99_ms",
+              "escape_rate", "tensor_maintenance")
+
+
+def test_bench_module_prints_one_row():
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubernetes_tpu_torch.perf.bench",
+         "--config", "SchedulingBasic", "--device", "cpu",
+         "--nodes", str(N_NODES), "--pods", str(N_PODS),
+         "--batch", str(BATCH)],
+        cwd=ROOT, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, lines
+    row = json.loads(lines[0])
+    assert row["metric"] == "scheduler_perf_throughput"
+    assert row["unit"] == "pods/s" and row["value"] > 0
+    # both are rounded from the unrounded pods/s: value to 0.1, the ratio
+    # to 0.01
+    assert abs(row["vs_baseline"] - row["value"] / 300.0) <= (
+        0.005 + 0.05 / 300.0)
+    for key in BENCH_KEYS:
+        assert key in row["detail"], key
+    assert row["detail"]["placements"]["bound"] == 2 * N_PODS
+    assert row["detail"]["escape_rate"] == 0.0
+
+
+def test_bench_host_profile_reads_threads():
+    """The bench's diagnostics: host_profile adds the sampling profiler's
+    stage seconds and each pipeline thread's CPU seconds to the row."""
+    res = bench.run_once("SchedulingBasicLarge", 50, 300, 128,
+                         depth=2, device="cpu", host_profile=True)
+    assert "error" not in res
+    cpu = res["detail"]["thread_cpu_s"]
+    assert {"MainThread", "sched-loop", "informer-pods"} <= set(cpu)
+    assert all(v >= 0.0 for v in cpu.values())
+    assert sum(res["detail"]["host_stages"].values()) > 0
+
+
+def _cfg():
+    return tiny_basic(port_perf)
+
+
+def _census_on_torch_backend():
+    """A Scheduler whose batch profile is a TorchBatchBackend, armed for
+    the census the way scheduler_from_config's profiling: stanza arms it."""
+    from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
+    from kubernetes_tpu_torch.scheduler import (Profile, Scheduler,
+                                                new_default_framework)
+    client = LocalClient(kv.MemoryStore())
+    factory = SharedInformerFactory(client)
+    backend = port_backend.make_batch_backend(
+        "tpu", port_perf.caps_for_nodes(8), batch_size=16, device="cpu")
+    sched = Scheduler(client, factory, {"default-scheduler": Profile(
+        new_default_framework(client, factory), batch_backend=backend,
+        batch_size=16)})
+    sched.configure_profiling(None, None, census=True)
+    try:
+        sched.run_device_census()
+    finally:
+        client.close()
+
+
+def _census_policy():
+    from kubernetes_tpu_torch.scheduler.config import ProfilingPolicy
+    return ProfilingPolicy(census=True)
+
+
+NOT_PORTED = {
+    "via_http": lambda: port_perf.setup_cluster(via_http=True),
+    "via_http_process": lambda: port_perf.setup_cluster(
+        via_http="process"),
+    "remote_seam": lambda: port_perf.setup_cluster(remote_seam="grpc"),
+    "null_device": lambda: port_perf.setup_cluster(null_device=True),
+    "device_flight_s": lambda: port_perf.setup_cluster(
+        device_flight_s=0.01),
+    "chaos_schedule": lambda: port_perf.setup_cluster(
+        chaos_schedule=object()),
+    "census": lambda: port_perf.setup_cluster(
+        profiling_policy=_census_policy(), device="cpu"),
+    "census_run_device_census": _census_on_torch_backend,
+    "run_named_workload_via_http": lambda: port_perf.run_named_workload(
+        _cfg(), via_http=True, device="cpu"),
+    "backend_sharded": lambda: port_backend.make_batch_backend(
+        "sharded", device="cpu"),
+    "backend_null": lambda: port_backend.make_batch_backend(
+        "null", device="cpu"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOT_PORTED))
+def test_unported_branches_raise(case):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NOT_PORTED[case]()
+
+
+def test_node_storm_opcode_raises():
+    cluster = port_perf.setup_cluster(
+        caps=port_perf.caps_for_nodes(8), batch_size=16, device="cpu")
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_perf.run_workload(cluster, [
+                {"opcode": "createNodes", "count": 2},
+                {"opcode": "nodeStorm", "seed": 1}])
+    finally:
+        cluster.shutdown()
+
+
+def test_apply_and_scaleout_raise():
+    from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
+    from kubernetes_tpu_torch.scheduler import new_scheduler
+    from kubernetes_tpu_torch.scheduler.config import ScaleOutPolicy
+    from kubernetes_tpu_torch.testing import make_pod
+    client = LocalClient(kv.MemoryStore())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        client.apply("pods", make_pod("p").build(), "tester")
+    sched = new_scheduler(client, SharedInformerFactory(client))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sched.configure_scaleout(ScaleOutPolicy(instance_count=2))
+    sched.configure_scaleout(None)
+    assert sched.scaleout is None
+
+
+NEEDS_GPU = {
+    "make_batch_backend": lambda: port_backend.make_batch_backend("tpu"),
+    "setup_cluster": lambda: port_perf.setup_cluster(),
+    "run_named_workload": lambda: port_perf.run_named_workload(_cfg()),
+    "bench": lambda: bench.main(["--config", "SchedulingBasic"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEEDS_GPU))
+def test_entry_points_default_to_cuda(case):
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NEEDS_GPU[case]()

@@ -2,8 +2,13 @@
 
 Imports neither jax nor kubernetes_tpu, so the CUDA cases
 (tests/test_torch_cuda.py) run on a machine without them; the parity tests
-feed the same inputs to the JAX package.
+feed the same inputs to the JAX package (the scheduler loop's Stack builds
+either package's control plane by name and imports it then).
 """
+
+import importlib
+import threading
+import time
 
 import numpy as np
 
@@ -634,3 +639,177 @@ def run_port_full_step(caps, p_cap, state, static, buf, device="cpu",
     st, res = fn(st, stat, torch.from_numpy(buf).to(device))
     st_np, _ = carry.state_to_numpy(st)
     return st_np, res.cpu().numpy()
+
+
+# -- the scheduler loop: one package's control plane, stepped by hand ------
+
+PORT_PKG = "kubernetes_tpu_torch"
+LOOP_CAPS = dict(n_cap=64, l_cap=64, kl_cap=32, t_cap=8, pt_cap=8, s_cap=2,
+                 sg_cap=8, asg_cap=8)
+
+
+def wait_for(predicate, timeout=30.0, interval=0.01):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(interval)
+    return False
+
+
+class Stack:
+    """One package's control plane: store, client, informers, default
+    framework and a Scheduler whose one profile holds that package's batch
+    backend (the port's on `device`, at murmur noise).  `pkg` names the
+    package; only the JAX side's tests pass "kubernetes_tpu"."""
+
+    def __init__(self, pkg, batch_size, caps=LOOP_CAPS, depth=1, device="cpu",
+                 **backend_kw):
+        def m(name):
+            return importlib.import_module(f"{pkg}.{name}")
+        self.pkg = pkg
+        self.kv, self.meta, self.testing = m("store.kv"), m("api.meta"), \
+            m("testing")
+        clientset = m("client.clientset")
+        self.NODES, self.PODS = clientset.NODES, clientset.PODS
+        client_mod, sched_mod = m("client"), m("scheduler")
+        caps = m("ops.flatten").Caps(**caps)
+        backends = m("ops.backend")
+        if pkg == "kubernetes_tpu":
+            self.backend = backends.TPUBatchBackend(
+                caps, batch_size=batch_size, **backend_kw)
+        else:
+            self.backend = backends.TorchBatchBackend(
+                caps, batch_size=batch_size, device=device,
+                claims_noise="murmur", **backend_kw)
+        self.store = self.kv.MemoryStore()
+        self.client = client_mod.LocalClient(self.store)
+        self.factory = client_mod.SharedInformerFactory(self.client)
+        fw = sched_mod.new_default_framework(self.client, self.factory)
+        self.profile = sched_mod.Profile(fw, batch_backend=self.backend,
+                                         batch_size=batch_size)
+        self.sched = sched_mod.Scheduler(
+            self.client, self.factory, {"default-scheduler": self.profile},
+            pipeline_depth=depth)
+
+    def load(self, make_nodes, make_pods):
+        """Create the objects (builders get this package's testing kit),
+        start the informers and wait until the cache holds every node and
+        the active queue every pod."""
+        nodes, pods = make_nodes(self.testing), make_pods(self.testing)
+        for n in nodes:
+            self.client.create(self.NODES, n)
+        for p in pods:
+            self.client.create(self.PODS, p)
+        self.factory.start()
+        self.factory.wait_for_cache_sync()
+        assert wait_for(lambda: self.sched.cache.node_count() == len(nodes)
+                        and self.sched.queue.stats()["active"] == len(pods))
+        return len(pods)
+
+    def node_milli_cpu(self, name):
+        """Allocatable CPU of a node as the scheduler's cache holds it."""
+        snapshot = importlib.import_module(
+            f"{self.pkg}.scheduler.cache").Snapshot()
+        ni = self.sched.cache.update_snapshot(snapshot).get(name)
+        return ni.allocatable.milli_cpu
+
+    def schedule_all(self, n):
+        """Pop the batch and schedule it (the loop thread is not running)."""
+        batch = self.sched.queue.pop_batch(n, timeout=0)
+        assert len(batch) == n
+        self.sched.schedule_batch(self.profile, batch)
+
+    def stop(self):
+        self.sched.stop()   # drains the binder worker inline
+        self.factory.stop()
+
+    def outcome(self):
+        """{pod: (nodeName, PodScheduled reason or None)} from the store."""
+        pods, _ = self.store.list(self.PODS)
+        out = {}
+        for p in pods:
+            reason = next((c.get("reason") for c in
+                           (p.get("status") or {}).get("conditions") or ()
+                           if c.get("type") == "PodScheduled"), None)
+            out[self.meta.name(p)] = (self.meta.pod_node_name(p) or None,
+                                      reason)
+        return out
+
+
+def mixed_nodes(seed, n):
+    def make(testing):
+        rng = np.random.default_rng(seed)
+        return [testing.make_node(f"n{i}")
+                .capacity(cpu=str(int(rng.integers(2, 9))),
+                          mem=f"{int(rng.integers(4, 17))}Gi",
+                          pods=int(rng.integers(8, 40))).build()
+                for i in range(n)]
+    return make
+
+
+def mixed_pods(seed, n, prefix="p"):
+    def make(testing):
+        rng = np.random.default_rng(seed)
+        return [testing.make_pod(f"{prefix}{i:04d}")
+                .req(cpu=f"{int(rng.integers(1, 9)) * 50}m",
+                     mem=f"{int(rng.integers(1, 9)) * 64}Mi").build()
+                for i in range(n)]
+    return make
+
+
+def grow_cpu(node):
+    for key in ("capacity", "allocatable"):
+        node["status"][key]["cpu"] = "64"
+    return node
+
+
+def pipelined_run(pkg, deadline=None, n_batches=4, per_batch=24,
+                  device="cpu"):
+    """n_batches batches stepped through schedule_step at depth 2; a node
+    joins after the first dispatch (the second dispatch then meets
+    FLUSH_FIRST with the first batch in flight), and a node is resized
+    after the second (the MODIFIED event reaches the backend through
+    note_node_event before the third dispatch).  With `deadline` the
+    overload watchdog resolves every wave on a wave-resolve thread.
+    Returns the outcome, the backend's stats and the names of the threads
+    resolve() ran on."""
+    s = Stack(pkg, per_batch, depth=2, device=device)
+    threads = set()
+    if pkg == PORT_PKG:
+        dispatch = s.backend.dispatch
+
+        def traced_dispatch(infos, view):
+            resolve = dispatch(infos, view)
+            if not callable(resolve):
+                return resolve
+
+            def traced():
+                threads.add(threading.current_thread().name)
+                return resolve()
+            return traced
+        s.backend.dispatch = traced_dispatch
+    if deadline is not None:
+        cfg = importlib.import_module(f"{pkg}.scheduler.config")
+        s.sched.configure_overload(cfg.OverloadPolicy(
+            engagement="always", queue_cap=0, slo_p99_ms=0.0,
+            escape_rate_threshold=0.0, wave_deadline=deadline))
+    try:
+        n = s.load(mixed_nodes(9, 10),
+                   mixed_pods(10, n_batches * per_batch))
+        late = s.testing.make_node("late").capacity(cpu="16",
+                                                     mem="32Gi").build()
+        for k in range(n_batches):
+            assert s.sched.schedule_step(timeout=0) == per_batch
+            if k == 0:
+                s.client.create(s.NODES, late)
+                assert wait_for(
+                    lambda: s.sched.cache.node_count() == 11)
+            elif k == 1:
+                s.client.guaranteed_update(s.NODES, "", "n0", grow_cpu)
+                assert wait_for(lambda: s.node_milli_cpu("n0") == 64000)
+        s.sched._flush_pending()
+        assert n == n_batches * per_batch
+    finally:
+        s.stop()
+    return s.outcome(), dict(s.backend.stats), threads
