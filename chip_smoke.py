@@ -54,23 +54,50 @@ Phases (each prints its wall time; any failed check exits non-zero):
      TorchBatchBackend profile, bulk assume, binder;
   9. Scheduling100k through the Scheduler (100,000 nodes, 200,000 pods,
      batch 16,384, depth 2);
+  e. the preemption dry-run kernel (csrc/preempt.cu) against its plain
+     torch version on the card, all seven planes bit for bit, on seeded
+     cases (ragged N of 1,000 / 5,003 / 20,000, P of 1 / 37 / 256, V of 8
+     and 16, R of 5 / 6 / 8, PAD slots, PDB bits, overflow rows, taints,
+     1-3 nomination groups, inactive pods, priorities at the clamp bounds
+     and above 2^24); then both timed at the 100k chunk shape (P=256 x
+     N=110,080) beside the bound;
+  f. TorchBatchBackend.preempt_batch at 100,000 nodes of PreemptionBasic's
+     shape (4 CPU, 32Gi) holding 4 priority-0 pods of 900m / 500Mi each
+     (400,000 residents): one wave of 1,024 priority-10 preemptors (3000m,
+     500Mi), 4 dry-run chunks of 256; every result checked by arithmetic
+     (victims on its node and of lower priority; with them evicted the
+     preemptor fits beside the wave's earlier winners there); per chunk
+     the dry run's time between CUDA events, the pull and the host
+     selection; the peak device memory; the first chunk's planes held
+     against the plain version and both timed (the kernels line's
+     numbers);
  10. SchedulingBasicPaced, the latency row (5,000 nodes, 24,000 pods
-     arriving at 8,000 pods/s, batch 512, depth 12, 1 ms admission).
-     8-10 each print the bench row (pods/s, pod e2e p50/p95/p99 ms), check
-     from the store that every created pod is bound and no node holds more
-     than its CPU, memory or 110 pods, and check no ERROR status, a zero
-     escape rate and claims launches; then print the backend's counters,
-     the set-up times outside the window, and one more batch through the
-     running loop under torch.profiler (device busy time, idle share).
+     arriving at 8,000 pods/s, batch 512, depth 12, 1 ms admission);
+ 11. PreemptionBasic through the Scheduler (its own 500 nodes, 2,000
+     low-priority pods, 500 measured preemptors; batch 1,024, depth 1);
+ 12. PreemptionDense through the Scheduler (100 nodes, 800 residents,
+     400 preemptors, four to a node).
+     8-12 each print the bench row (pods/s, pod e2e p50/p95/p99 ms), check
+     from the store that every pod left is bound (the rest are deleted
+     preemption victims) and no node holds more than its CPU, memory or 110
+     pods, and check no ERROR status, a zero escape rate and claims
+     launches; 8-10 then print the backend's counters, the set-up times
+     outside the window, and one more batch through the running loop under
+     torch.profiler (device busy time, idle share); 11-12 check that every
+     high-priority pod is bound, a preemption attempt was counted and every
+     dry-run chunk launched the preempt kernel, and print the preemption
+     waves.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
-8-10 the same path under the scheduler loop, (a)-(d) the full variant's:
-the kernels' launch counts are zeroed just before each and read just
-after; in 5, 6 and 8-10 each kernel must have launched, in (a)-(d) none
-(the full variant reaches no hand kernel); every claims launch of 5 and 6
-is recorded by shape (pods, live pods, nodes, noise) with its time
-between CUDA events.  The last two lines are a JSON line of per-kernel
-numbers (its launches: phases 6 and 9) and the device line.  Without a
-CUDA device the script exits 2 and prints no result.
+8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
+f the preemption path at the seam and 11-12 under the loop: the kernels'
+launch counts are zeroed just before each and read just after; in 5, 6
+and 8-12 the claims kernel must have launched, in (a)-(d) no kernel (the
+full variant reaches no hand kernel), in f and 11-12 the preempt kernel;
+every claims launch of 5 and 6 is recorded by shape (pods, live pods,
+nodes, noise) with its time between CUDA events.  The last two lines are
+a JSON line of per-kernel numbers (launches: claims in phases 6 and 9,
+preempt_dry_run in f, 11 and 12) and the device line.  Without a CUDA
+device the script exits 2 and prints no result.
 
 --compare TAG=DIR loads the kubernetes_tpu_torch package of another
 checkout (e.g. an earlier revision, unpacked with git archive) under its
@@ -745,11 +772,346 @@ def full_variant_phases(dev, smi, sizes=FULL_SIZES):
             del backend, cache, outs, batches
 
 
+# -- batched preemption: the dry-run kernel and preempt_batch --------------
+
+PLANES = ("cand", "viol", "highest", "psum", "nvic", "victim words",
+          "overflow_hit")
+# (P, N, V, R, G, T, seed): ragged N, P of 1 / 37 / 256, V of 8 / 16, R of
+# 5 / 6 / 8, one to three groups, taints past one 32-bit word
+DRY_RUN_CASES = [(1, 1000, 8, 5, 1, 4, 1), (37, 5003, 16, 6, 2, 31, 2),
+                 (256, 20000, 16, 8, 3, 16, 3), (256, 1000, 8, 6, 1, 40, 4),
+                 (37, 20000, 16, 5, 3, 31, 5), (1, 5003, 16, 8, 2, 16, 6),
+                 (256, 5003, 16, 6, 1, 64, 7)]
+
+
+def random_dry_run_case(P, N, V, R, G, T, seed, dev):
+    """Seeded dry-run inputs in models/preempt.py's argument order: PAD
+    slots, PDB bits, overflow rows, 0/1 taints, G groups of nominations,
+    inactive pods, and priorities at the clamp bounds and above 2^24."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    i32_max = 2**31 - 1
+    vprio = rng.integers(-5, 20, (N, V)).astype(np.int32)
+    vprio[rng.random((N, V)) < 0.1] = rng.integers(2**25, i32_max - 2)
+    vprio[rng.random((N, V)) < 0.05] = -i32_max + 1
+    vprio[rng.random((N, V)) < 0.3] = i32_max
+    prio = rng.integers(0, 25, P).astype(np.int32)
+    prio[rng.random(P) < 0.1] = rng.integers(2**25, i32_max - 1)
+    prio[rng.random(P) < 0.2] = i32_max - 1
+    args = (rng.integers(1, 9, (N, R)).astype(f) * 1000,
+            rng.integers(0, 8, (N, R)).astype(f) * 500,
+            rng.integers(0, 6, N).astype(f), rng.integers(3, 10, N).astype(f),
+            rng.random(N) < 0.9, (rng.random((N, T)) < 0.2).astype(f), vprio,
+            rng.integers(0, 6, (N, V, R)).astype(f) * 300,
+            (rng.random((N, V)) < 0.3).astype(f), rng.random(N) < 0.05,
+            (rng.integers(0, 3, (G, N, R)) * 400).astype(f),
+            rng.integers(0, 2, (G, N)).astype(f),
+            rng.integers(0, G, P).astype(np.int32),
+            (rng.integers(0, 8, (P, R)) * 400).astype(f), prio,
+            (rng.random((P, T)) < 0.3).astype(f), rng.random(P) < 0.85)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+
+
+def check_dry_run(preempt, args, label):
+    """The kernel (dry_run_planes on the card) against the plain version on
+    the same inputs, its victims packed the same way: every plane bit for
+    bit.  Returns the max |difference| over the float and int planes and
+    the kernel's planes."""
+    got = preempt.dry_run_planes(*args)
+    ref = preempt.preempt_dry_run_reference(*args)
+    want = (*ref[:5], preempt.pack_bits(ref[5])[..., 0], ref[6])
+    torch.cuda.synchronize()
+    for name, g, w in zip(PLANES, got, want):
+        check(g.dtype == w.dtype and bool(torch.equal(g, w)),
+              f"{label}: {name} differs from the plain version "
+              f"({int((g != w).sum())} cells)")
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got[1:6], want[1:6]))
+    full = preempt.preempt_dry_run(*args)
+    check(bool(torch.equal(full[5], ref[5])),
+          f"{label}: the expanded victims differ")
+    P, N = got[0].shape
+    print(f"   {label}: {P}x{N} V={args[6].shape[1]} R={args[0].shape[1]} "
+          f"G={args[10].shape[0]} T={args[5].shape[1]}: all planes "
+          f"bit-identical; candidates {int(got[0].sum())}, victims "
+          f"{int(ref[5].sum())}, overflow pods {int(got[6].sum())}",
+          flush=True)
+    return err, got
+
+
+def dry_run_bound(args, planes):
+    """(ms, bound_by, bytes, ops) for one dry-run call on these inputs: the
+    larger of its bytes (each input read once, each plane written once,
+    victims as words) over HBM bandwidth and the operations this data
+    needs over the FP32 peak (integer compares counted at that rate).  Per
+    (pod, node) cell: V eligibility compares, R+1 adds per eligible slot
+    (freed), 4R+4 for the fit test, the taint words, 3R+2 per eligible
+    slot walked (R subtracts, R adds, R compares, the slack step) and 4 per
+    victim (count, violations, priority sum, highest)."""
+    (alloc, _u, _np, _mp, _v, taint, vict_prio, _vr, _vp, _vo, nom_used,
+     _nn, _g, req, prio, _ut, _a) = args
+    P, R = req.shape
+    N, V = vict_prio.shape
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + sum(p.numel() * p.element_size() for p in planes))
+    elig = 0
+    for lo in range(0, P, 16):
+        elig += int((vict_prio[None] < prio[lo:lo + 16, None, None]).sum())
+    victims = int(planes[4].sum())
+    tw = -(-taint.shape[1] // 32)
+    ops = (P * N * (V + 4 * R + 4 + tw) + elig * (R + 1 + 3 * R + 2)
+           + victims * 4)
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes"),
+            nbytes, ops)
+
+
+def dry_run_phase(dev, smi):
+    """Phase e: the dry-run kernel against its plain version on seeded
+    cases, then both timed at the 100k chunk shape (P=256 x N=110,080)."""
+    from kubernetes_tpu_torch.models import preempt
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    with Phase("e preempt dry-run kernel vs plain version"):
+        errs = []
+        for P, N, V, R, G, T, seed in DRY_RUN_CASES:
+            args = random_dry_run_case(P, N, V, R, G, T, seed, dev)
+            errs.append(check_dry_run(preempt, args, f"case {seed}")[0])
+        caps = caps_for_nodes(100_000)
+        args = random_dry_run_case(256, caps.n_cap, caps.v_cap, caps.r, 1,
+                                   caps.t_cap, 11, dev)
+        err, planes = check_dry_run(preempt, args, "100k shape")
+        errs.append(err)
+        ms = time_cuda(lambda: preempt.dry_run_planes(*args), 20)
+        ms_full = time_cuda(lambda: preempt.preempt_dry_run(*args), 20)
+        plain_ms = time_cuda(
+            lambda: preempt.preempt_dry_run_reference(*args), 3, warmup=1)
+        (bound_ms, by), nbytes, ops = dry_run_bound(args, planes)
+        print(f"   100k shape 256x{caps.n_cap}: kernel {ms:.4f} ms (median "
+              f"of 20), with the victims expanded to bool[P,N,V] "
+              f"{ms_full:.4f} ms, plain version {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({by}: {nbytes} bytes, {ops} operations) "
+              f"[{smi}]", flush=True)
+        check(max(errs) == 0.0, f"dry run: max |err| {max(errs)}")
+        del args, planes
+
+
+def build_preempt_cluster(n_nodes, per_node, seed):
+    """PreemptionBasic's shape (performance-config.yaml:359-384): 4 CPU,
+    32Gi nodes, each holding `per_node` priority-0 pods of 900m / 500Mi,
+    added to the cache as bound pods."""
+    from kubernetes_tpu_torch.scheduler.cache import Cache
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    cache = Cache()
+    cache.add_nodes([make_node(f"node-{seed}-{i}")
+                     .capacity(cpu="4", mem="32Gi").build()
+                     for i in range(n_nodes)])
+    tpl = make_pod("tpl").req(cpu="900m", mem="500Mi").build()
+    pods = []
+    for i in range(n_nodes):
+        for k in range(per_node):
+            name = f"low-{i}-{k}"
+            pods.append({**tpl, "metadata": {**tpl["metadata"], "name": name,
+                                             "uid": f"uid-{name}"},
+                         "spec": {**tpl["spec"],
+                                  "nodeName": f"node-{seed}-{i}"}})
+    cache.confirm_or_add_pods(pods)
+    return cache
+
+
+def check_preemptions(snap, pre, results, order, label):
+    """Every result by arithmetic, along the wave's order: its victims are
+    pods of its node with lower priority than the preemptor, and with them
+    (and every earlier winner's victims there) evicted the preemptor fits
+    the node's CPU, memory and pod count with the earlier winners on that
+    node charged.  Returns (winners, victims)."""
+    evicted: dict[str, set] = {}
+    charged: dict[str, list] = {}
+    winners = victims = 0
+    for i in order:
+        if results[i] is None:
+            continue
+        node, vkeys, _viol = results[i]
+        ni = snap.get(node)
+        pods = {p.key: p for p in ni.pods}
+        for k in vkeys:
+            check(k in pods, f"{label}: victim {k} is not on {node}")
+            check(pods[k].priority < pre[i].priority,
+                  f"{label}: victim {k} is not of lower priority")
+        gone = evicted.setdefault(node, set())
+        gone.update(vkeys)
+        rest = [p for k, p in pods.items() if k not in gone]
+        cpu = sum(p.request.milli_cpu for p in rest)
+        mem = sum(p.request.memory for p in rest)
+        for c in charged.get(node, ()):
+            cpu += c.request.milli_cpu
+            mem += c.request.memory
+        count = len(rest) + len(charged.get(node, ())) + 1
+        a = ni.allocatable
+        check(cpu + pre[i].request.milli_cpu <= a.milli_cpu
+              and mem + pre[i].request.memory <= a.memory
+              and count <= a.allowed_pod_number,
+              f"{label}: {pre[i].key} does not fit {node} after eviction")
+        charged.setdefault(node, []).append(pre[i])
+        winners += 1
+        victims += len(vkeys)
+    return winners, victims
+
+
+def preempt_phase(dev, smi, n_nodes=100_000, per_node=4, n_pre=1024):
+    """Phase f: one wave of n_pre priority-10 preemptors (3000m, 500Mi)
+    through TorchBatchBackend.preempt_batch against n_nodes nodes of
+    PreemptionBasic's shape holding per_node residents each.  The preempt
+    count is zeroed just before the wave and read just after.  Returns the
+    kernel's numbers for the kernels line (its first chunk's inputs)."""
+    from kubernetes_tpu_torch.models import preempt
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.scheduler.cache import Snapshot
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+    from kubernetes_tpu_torch.testing import make_pod
+
+    class Recording(TorchBatchBackend):
+        """Times each chunk: the dry run between CUDA events (synchronised
+        after, so the pull that follows measures the copy alone), the pull
+        and the host work after it on the host clock."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.marks = []
+            self.vict_s = []
+
+        def _ensure_vict(self):
+            t0 = time.monotonic()
+            super()._ensure_vict()
+            self.vict_s.append(time.monotonic() - t0)
+
+        def _preempt_step(self, body):
+            t0 = time.monotonic()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = super()._preempt_step(body)
+            e1.record()
+            torch.cuda.synchronize()
+            self.marks.append({"start": t0, "events": (e0, e1)})
+            return out
+
+        def _pull(self, *planes):
+            t0 = time.monotonic()
+            out = super()._pull(*planes)
+            self.marks[-1]["pull_s"] = time.monotonic() - t0
+            self.marks[-1]["pulled"] = time.monotonic()
+            return out
+
+    with Phase(f"f preempt_batch {n_nodes} nodes"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        cache = build_preempt_cluster(n_nodes, per_node, 9)
+        snap = cache.update_snapshot(Snapshot())
+        t_cluster = time.monotonic() - t0
+        backend = Recording(caps=caps_for_nodes(n_nodes), batch_size=1024,
+                            device=dev)
+        backend.prefetch(cache.flatten_view())
+        t1 = time.monotonic()
+        backend.warmup()
+        t_warm = time.monotonic() - t1
+        print(f"   cluster of {n_nodes} nodes and {n_nodes * per_node} "
+              f"resident pods {t_cluster:.3f} s; warmup (build, victim "
+              f"tensors, first dry run) {t_warm:.3f} s; victim occupancy "
+              f"{backend.victim_occupancy():.4f}", flush=True)
+        pre = [PodInfo(make_pod(f"pre-{j}").priority(10)
+                       .req(cpu="3000m", mem="500Mi").build())
+               for j in range(n_pre)]
+        node_ord_of = {ni.name: i for i, ni in enumerate(snap.list())}
+        backend.marks.clear()
+        captured = []
+        inner = preempt.dry_run_planes
+
+        def capture(*args):
+            if not captured:
+                captured.append([a.clone() for a in args])
+            return inner(*args)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        backend.vict_s.clear()
+        # the interpreter's collections inside the wave (400,000 resident
+        # pods' objects are live)
+        collections = []
+
+        def on_gc(phase, info):
+            collections.append((phase, info["generation"], time.monotonic()))
+        kernels.LAUNCHES["preempt"] = 0
+        preempt.dry_run_planes = capture
+        gc.callbacks.append(on_gc)
+        try:
+            t2 = time.monotonic()
+            results, esc = backend.preempt_batch(pre, node_ord_of)
+            wall = time.monotonic() - t2
+        finally:
+            preempt.dry_run_planes = inner
+            gc.callbacks.remove(on_gc)
+        gc_ms = {}
+        for (ph0, gen, t_a), (_ph1, _g, t_b) in zip(collections[::2],
+                                                    collections[1::2]):
+            gc_ms[gen] = gc_ms.get(gen, 0.0) + (t_b - t_a) * 1e3
+        launches = kernels.LAUNCHES["preempt"]
+        peak = torch.cuda.max_memory_allocated()
+        check(launches == -(-n_pre // backend.PREEMPT_P_CAP),
+              f"preempt_batch: {launches} dry-run launches")
+        check(not esc, f"preempt_batch: escapes {esc}")
+        winners, victims = check_preemptions(
+            snap, pre, results, backend.last_wave_order, "preempt_batch")
+        check(winners == n_pre, f"preempt_batch: {winners} of {n_pre} won")
+        ends = [m["start"] for m in backend.marks[1:]] + [t2 + wall]
+        kernel_ms = [m["events"][0].elapsed_time(m["events"][1])
+                     for m in backend.marks]
+        pull_ms = [m["pull_s"] * 1e3 for m in backend.marks]
+        select_ms = [(e - m["pulled"]) * 1e3
+                     for m, e in zip(backend.marks, ends)]
+        before_ms = (backend.marks[0]["start"] - t2) * 1e3
+        busy = sum(kernel_ms) + sum(pull_ms)
+        print(f"   wave of {n_pre} preemptors: wall {wall * 1e3:.3f} ms; "
+              f"before the first chunk (gates, victim refresh, host "
+              f"copies, reprieve order) {before_ms:.3f} ms; per chunk: dry "
+              f"run between events {[round(x, 4) for x in kernel_ms]} ms, "
+              f"pull {[round(x, 3) for x in pull_ms]} ms, host selection "
+              f"{[round(x, 3) for x in select_ms]} ms; device busy (dry "
+              f"runs + pulls) {busy:.3f} ms, idle share "
+              f"{1 - busy / (wall * 1e3):.4f}; victim refresh "
+              f"{sum(backend.vict_s) * 1e3:.3f} ms; the interpreter's "
+              f"collections ms by generation {gc_ms} [{smi}]", flush=True)
+        print(f"   {winners} winners on {len({r[0] for r in results if r})} "
+              f"nodes, {victims} victims, escapes {len(esc)}, dry-run "
+              f"launches {launches}, victim occupancy "
+              f"{backend.victim_occupancy():.4f}; peak device memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+              f"above the wave's start) [{smi}]", flush=True)
+        # the first chunk's inputs: the kernel against the plain version,
+        # then both timed
+        args = captured[0]
+        err, planes = check_dry_run(preempt, args, "first chunk")
+        ms = time_cuda(lambda: preempt.dry_run_planes(*args), 20)
+        plain_ms = time_cuda(
+            lambda: preempt.preempt_dry_run_reference(*args), 3, warmup=1)
+        (bound_ms, by), nbytes, ops = dry_run_bound(args, planes)
+        print(f"   first chunk 256x{args[0].shape[0]}: kernel {ms:.4f} ms "
+              f"(median of 20), plain version {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({by}: {nbytes} bytes, {ops} operations) "
+              f"[{smi}]", flush=True)
+        del backend, cache, snap, captured, args, planes
+        return {"launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
+
+
 # -- the scheduler loop: perf.bench configs through a real Scheduler -------
 
 # phase -> bench config (kubernetes_tpu_torch/perf/bench.py CONFIGS)
 LOOP_PHASES = (("8", "SchedulingBasic"), ("9", "Scheduling100k"),
-               ("10", "SchedulingBasicPaced"))
+               ("10", "SchedulingBasicPaced"), ("11", "PreemptionBasic"),
+               ("12", "PreemptionDense"))
 
 
 def profile_loop_batch(cluster, batch, label, smi, top=8):
@@ -799,11 +1161,15 @@ def profile_loop_batch(cluster, batch, label, smi, top=8):
 
 
 def loop_phases(smi):
-    """Phases 8-10: the bench configs through perf.bench.run_config on the
+    """Phases 8-12: the bench configs through perf.bench.run_config on the
     card (store, informers, queue, Scheduler, TorchBatchBackend, binder).
-    The claims count is zeroed before each and read when the workload is
-    done; the checks read the store, not the backend.  Returns
-    {config: claims launches}."""
+    The kernels' counts are zeroed before each and read when the workload
+    is done; the checks read the store, not the backend.  8-10 then
+    profile one more batch; 11-12 (PreemptionBasic, PreemptionDense) check
+    that every measured (high-priority) pod is bound and that both kernels
+    launched.  Returns {config: {kernel: launches}}."""
+    from kubernetes_tpu_torch.api import meta
+    from kubernetes_tpu_torch.client.clientset import PODS
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.perf import bench
     launches = {}
@@ -811,12 +1177,22 @@ def loop_phases(smi):
         with Phase(f"{num} {name} through the Scheduler"):
             gc.collect()
             torch.cuda.empty_cache()
-            kernels.LAUNCHES["claims"] = 0
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
             cfg = bench.CONFIGS[name]
+            preempting = name.startswith("Preemption")
+            high = {}
 
-            def after(cluster, name=name, cfg=cfg):
-                launches[name] = kernels.LAUNCHES["claims"]
-                profile_loop_batch(cluster, cfg["batch"], name, smi)
+            def after(cluster, name=name, cfg=cfg, preempting=preempting):
+                launches[name] = dict(kernels.LAUNCHES)
+                if preempting:
+                    pods, _ = cluster.store.list(PODS)
+                    hp = [p for p in pods
+                          if (p["spec"].get("priority") or 0) > 0]
+                    high.update(count=len(hp), bound=sum(
+                        1 for p in hp if meta.pod_node_name(p)))
+                else:
+                    profile_loop_batch(cluster, cfg["batch"], name, smi)
 
             row, res = bench.run_config(name, after=after)
             print(json.dumps(row), flush=True)
@@ -827,12 +1203,11 @@ def loop_phases(smi):
             placed = d["placements"]
             print(f"   {name}: placements from the store {placed}",
                   flush=True)
-            # the store also holds the profiled batch's pods
+            created = res["stats"]["created_pods"]
             check(placed["bound"] == placed["pods"]
-                  == res["stats"]["created_pods"] + cfg["batch"],
+                  == created - placed["deleted"],
                   f"{name}: {placed['bound']} of {placed['pods']} pods bound "
-                  f"({res['stats']['created_pods']} created, "
-                  f"{cfg['batch']} profiled)")
+                  f"({created} created, {placed['deleted']} deleted)")
             check(placed["nodes_over_capacity"] == 0
                   and placed["max_pods_per_node"] <= 110,
                   f"{name}: nodes over capacity {placed['over_examples']}")
@@ -840,11 +1215,32 @@ def loop_phases(smi):
                   f"{name}: ERROR statuses {d['schedule_attempts']}")
             check(d.get("escape_rate") == 0.0,
                   f"{name}: escape_rate {d.get('escape_rate')}")
-            check(launches.get(name, 0) > 0,
+            counts = launches.get(name, {})
+            check(counts.get("claims", 0) > 0,
                   f"{name}: the claims kernel never launched")
             st = res["stats"]["backend_stats"]
-            print(f"   {name}: claims launches {launches[name]}; backend "
-                  f"batches {st['batches']} waves {st['waves']} flush_first "
+            if preempting:
+                check(high.get("count") == row["detail"]["pods"]
+                      == high.get("bound"),
+                      f"{name}: high-priority pods {high}")
+                check(d.get("preemption_attempts", 0) > 0,
+                      f"{name}: no preemption attempt")
+                # every dry-run chunk of a wave is one launch (warmup's
+                # all-inactive chunk is one more)
+                check(counts.get("preempt", 0)
+                      >= st.get("preempt_chunks", 0) > 0,
+                      f"{name}: preempt launches {counts} for "
+                      f"{st.get('preempt_chunks', 0)} dry-run chunks")
+                print(f"   {name}: {high['bound']} of {high['count']} "
+                      f"high-priority pods bound; {placed['deleted']} "
+                      f"victims deleted; preemption attempts "
+                      f"{d['preemption_attempts']}; preemption waves "
+                      f"{st.get('preempt_waves', 0)} in "
+                      f"{st.get('preempt_chunks', 0)} dry-run chunks; "
+                      f"{d['Average']} pods/s, pod e2e p99 "
+                      f"{d.get('pod_e2e_p99_ms')} ms [{smi}]", flush=True)
+            print(f"   {name}: launches {counts}; backend batches "
+                  f"{st['batches']} waves {st['waves']} flush_first "
                   f"{st['flush_first']} waves_patched {st['waves_patched']} "
                   f"full_refresh {st['full_refresh']}; outside the window: "
                   f"setup {d['setup_s']} s, node creation "
@@ -1001,14 +1397,17 @@ def main(argv=None) -> int:
                 if named and ("entry function" in line
                               or "properties for" in line):
                     entry = named.group(1)
-                # the main path's instantiations: R=6 (and the fold)
+                # the main path's instantiations: R=6 (and the fold), the
+                # dry run's R bound 8
                 tpl = re.search(r"slice_kernelILi(\d+)ELi(\d+)ELb(\d)", entry)
+                dry = re.search(r"dry_run_kernelILi(\d+)E", entry)
                 what = ("fold" if "fold_kernel" in entry else tpl and
                         f"slice R={tpl[1]} pods/thread={tpl[2]} "
                         f"{'murmur' if tpl[3] == '1' else 'sin'}")
-                if ("registers" in line or "spill" in line) and what and (
-                        what == "fold" or tpl[1] == "6"):
-                    print(f"     {what}: {line.strip()}")
+                if ("registers" in line or "spill" in line) and (
+                        (what and (what == "fold" or tpl[1] == "6"))
+                        or (dry and dry[1] == "8")):
+                    print(f"     {what or 'dry run R<=8'}: {line.strip()}")
         print(f"   build {time.monotonic() - t0:.3f} s [{smi}]", flush=True)
         others = {tag: load_revision(tag, root) for tag, root in
                   (spec.split("=", 1) for spec in opts.compare)}
@@ -1182,6 +1581,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     full_variant_phases(dev, smi)
 
+    # batched preemption: the dry-run kernel, then preempt_batch at 100k
+    dry_run_phase(dev, smi)
+    pre = preempt_phase(dev, smi)
+
     # the scheduler loop above BatchBackend
     loop_launches = loop_phases(smi)
 
@@ -1191,10 +1594,19 @@ def main(argv=None) -> int:
         "name": "claims", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/claims.cu",
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:171",
-        "launches": launches + loop_launches["Scheduling100k"],
+        "launches": launches + loop_launches["Scheduling100k"]["claims"],
         "max_abs_err": max(errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "preempt_dry_run", "route": "cuda",
+        "source": "kubernetes_tpu_torch/ops/csrc/preempt.cu",
+        "replaces": "kubernetes_tpu/models/preempt.py:124",
+        "launches": (pre["launches"]
+                     + loop_launches["PreemptionBasic"]["preempt"]
+                     + loop_launches["PreemptionDense"]["preempt"]),
+        "max_abs_err": pre["max_abs_err"], "ms": pre["ms"],
+        "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,1 +1,2 @@
-"""The batched assignment step and its resident state."""
+"""The batched assignment step, its resident state, and batched
+preemption's device programs."""

@@ -28,9 +28,13 @@ Transport design (unchanged from the JAX backend):
     result whose generation is not the one the host expects was computed
     on state the host never committed, and the wave is re-run from the
     mirror.
+  * batched preemption (PostFilter's device half, `preempt_batch`) reads
+    the victim tensors, a third upload channel (STATIC_VICT) that refreshes
+    only at preemption time: a full upload or a row overwrite, like the
+    static arrays.
 
-Not yet ported (ROADMAP queue 1): batched preemption, checkpoint/warm
-start, batch telemetry and tracing, the wave timeline.
+Not yet ported (ROADMAP queue 1): checkpoint/warm start, batch telemetry
+and tracing, the wave timeline, the remote device worker.
 """
 
 from __future__ import annotations
@@ -69,6 +73,11 @@ DYN_FIELDS = ("used", "used_nz", "npods", "port_mask")
 FULL_BYTES_PER_CELL = 24
 FULL_MEM_SHARE = 0.5
 
+# victim tensors (batched preemption): binds dirty victim rows every batch,
+# but the re-encode and the upload happen only at preemption time, keyed by
+# tensors.vict_version, and never invalidate the static arrays
+STATIC_VICT = ("vict_prio", "vict_req", "vict_pdb", "vict_over")
+
 # dispatch() sentinel: an earlier batch is still in flight and this batch
 # needs a refresh or a static change, which would clobber the in-flight
 # batch's device-side accounting.  The caller must resolve the in-flight
@@ -99,6 +108,32 @@ def _apply_sel_patch(sel: dict, rows, label_v, key_v, dom_sg_v,
     sel["key_mask"][rows] = key_v
     sel["dom_sg"][:, rows] = dom_sg_v
     sel["dom_asg"][:, rows] = dom_asg_v
+
+
+def _apply_vict_patch(vict: dict, rows, prio_v, req_v, pdb_v,
+                      over_v) -> None:
+    """Row-wise overwrite of the resident victim tensors (same contract as
+    _apply_static_patch)."""
+    vict["vict_prio"][rows] = prio_v
+    vict["vict_req"][rows] = req_v
+    vict["vict_pdb"][rows] = pdb_v
+    vict["vict_over"][rows] = over_v
+
+
+def _to_host(*tensors) -> list[np.ndarray]:
+    """One device-to-host pull: CUDA tensors are copied into pinned host
+    memory behind a single CUDA event, which is then waited on; CPU
+    tensors are copied."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.numpy().copy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return [h.numpy() for h in host]
 
 
 def decode_results(assignments, n: int, batch_size: int, escapes: set,
@@ -468,6 +503,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         self._state = None          # dict of device tensors (STATE_KEYS)
         self._static_node = None    # dict of device tensors (STATIC_CORE)
         self._static_version = -1
+        self._static_vict = None    # dict of device tensors (STATIC_VICT)
+        self._vict_version = -1
         self._mirror: dict[str, np.ndarray] | None = None
         # dispatched-but-unresolved batches (pipeline bookkeeping) and node
         # rows whose dirtiness must survive an early-exit dispatch attempt
@@ -497,6 +534,11 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                       "waves": 0, "flush_first": 0, "waves_patched": 0,
                       "waves_reflattened": 0, "event_patches": 0,
                       "patch_seconds": 0.0, "flatten_seconds": 0.0}
+        # per-(plugin, reason) escape tallies (the batched preemption's
+        # DefaultPreemption escapes), drained by the scheduler as counter
+        # deltas; own lock, since the tallies are taken under self._lock
+        self._esc_lock = threading.Lock()
+        self._escape_pending: dict[tuple[str, str], int] = {}
 
     # -- namespace and PDB events ----------------------------------------
 
@@ -510,18 +552,20 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
 
     def note_pdb_event(self, event_type: str, obj, old=None) -> None:
         """PodDisruptionBudget informer feed: keeps the flattener's PDB
-        cache in sync (read by batched preemption, not yet ported)."""
+        cache in sync, so the victim tensors' PDB-coverage bits stay exact.
+        The bits re-encode lazily at the next preemption wave."""
         with self._lock:
             self.tensors.note_pdb(obj, deleted=event_type == "DELETED")
 
     # -- device sync -----------------------------------------------------
 
     def warmup(self) -> None:
-        """Build the kernel and both step variants, upload the static
+        """Build the kernels and both step variants, upload the static
         arrays and the resident state, and run an all-invalid batch
-        through each variant before the first real batch, so none of it
-        lands inside the first scheduling cycle.  An all-invalid batch
-        leaves the resident state unchanged."""
+        through each variant and an all-inactive chunk through the
+        preemption dry run before the first real batch, so none of it
+        lands inside the first scheduling cycle or preemption wave.  An
+        all-invalid batch leaves the resident state unchanged."""
         with self._lock:
             if self._static_node is None:
                 self._upload_static()
@@ -529,8 +573,9 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             if self._state is None:
                 self._full_refresh(cd_sg, cd_asg)
             if self.device.type == "cuda":
-                from . import kernels
-                kernels._kernel_lib()  # build + load csrc/claims.cu
+                from . import _build, kernels
+                _build.build()         # every csrc/*.cu, one nvcc each
+                kernels._kernel_lib()  # load csrc/claims.cu
             batch = self.encoder.encode([])
             self._ensure_full()
             runs = [("full", self._spec_full,
@@ -548,6 +593,24 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                     self._device_step(variant, staged).get()
                 finally:
                     self._stage_pins.discard(id(staged))
+            self._warm_preempt()
+
+    def _warm_preempt(self) -> None:
+        """Make the victim tensors resident and run the dry run once on an
+        all-inactive chunk of the common single-group shape (on CUDA this
+        loads csrc/preempt.cu), so neither lands in the first preemption
+        wave.  Inactive pods are no candidates and hit no overflow."""
+        self._ensure_vict()
+        c = self.caps
+        P = self.PREEMPT_P_CAP
+        _to_host(*self._preempt_step({
+            "req": np.zeros((P, c.r), np.float32),
+            "prio": np.zeros(P, np.int32),
+            "untol_hard": np.zeros((P, c.t_cap), np.float32),
+            "group_idx": np.zeros(P, np.int32),
+            "nom_used": np.zeros((1, c.n_cap, c.r), np.float32),
+            "nom_np": np.zeros((1, c.n_cap), np.float32),
+            "active": np.zeros(P, bool)}))
 
     def _stage_buf(self, total: int) -> _StagedBuffer:
         """Hand out a host staging buffer of `total` f32 slots from the
@@ -673,6 +736,37 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         t.static_dirty_rows = set()
         t.static_full = False
         self._static_version = t.static_version
+
+    def _ensure_vict(self) -> None:
+        """Re-encode the dirty victim rows and sync the resident victim
+        tensors (STATIC_VICT): a full upload when forced (first upload, a
+        PDB change, many rows), otherwise a row-wise overwrite, under
+        _upload_static's rule."""
+        t = self.tensors
+        rows = t.refresh_victims()
+        if (self._static_vict is not None and not t.vict_full
+                and self._vict_version == t.vict_version):
+            return
+        full = (self._static_vict is None or t.vict_full or rows is None
+                or len(rows) > self.S_PATCH_MAX
+                or len(rows) * 8 > self.caps.n_cap)
+
+        def dev(a):
+            return torch.tensor(a, device=self.device)
+
+        if full:
+            self._static_vict = {k: dev(getattr(t, k)) for k in STATIC_VICT}
+        else:
+            rows_a = np.asarray(rows, np.int64)
+            _apply_vict_patch(self._static_vict, dev(rows_a),
+                              dev(t.vict_prio[rows_a]),
+                              dev(t.vict_req[rows_a]),
+                              dev(t.vict_pdb[rows_a]),
+                              dev(t.vict_over[rows_a]))
+            self.stats["vict_patched_rows"] = self.stats.get(
+                "vict_patched_rows", 0) + len(rows)
+        t.vict_full = False
+        self._vict_version = t.vict_version
 
     def _full_refresh(self, cd_sg: np.ndarray, cd_asg: np.ndarray) -> None:
         t = self.tensors
@@ -1016,6 +1110,415 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         if resolve is FLUSH_FIRST:
             raise RuntimeError("FLUSH_FIRST with no pipelined caller")
         return resolve()
+
+    # -- escape tallies ----------------------------------------------------
+
+    def _tally_escape_pairs(self, pairs: dict) -> None:
+        with self._esc_lock:
+            pend = self._escape_pending
+            for key, cnt in pairs.items():
+                pend[key] = pend.get(key, 0) + cnt
+
+    def drain_escape_reasons(self) -> dict:
+        """Pop the pending {(plugin, reason): count} escape tallies; the
+        scheduler incs scheduler_tpu_escape_total by these deltas."""
+        with self._esc_lock:
+            out, self._escape_pending = self._escape_pending, {}
+        return out
+
+    # -- batched preemption (PostFilter's device half) -------------------
+
+    # failed pods per dry-run call (padded); at n_cap 110,080 the kernel's
+    # planes for a chunk are ~0.6 GB
+    PREEMPT_P_CAP = 256
+    PREEMPT_G_CAP = 8    # distinct priority groups per call
+
+    def _req_vec(self, res) -> np.ndarray:
+        """Resource -> the flattener's [R] request layout (core columns +
+        scalar-vocab slots)."""
+        from .flatten import CORE_R
+        v = np.zeros(self.caps.r, np.float32)
+        v[0] = res.milli_cpu
+        v[1] = res.memory
+        v[2] = res.ephemeral_storage
+        for name, val in (res.scalar or {}).items():
+            sid = self.tensors.scalar_vocab.lookup(name)
+            if sid is not None:  # victims with unknown scalars reclaim
+                v[CORE_R + sid] = val  # nothing the incoming pod can use
+        return v
+
+    def preempt_candidates(self, pod_infos: Sequence[PodInfo], k: int = 16
+                           ) -> list[list[str] | None]:
+        """For each FitError pod, the top-k candidate node names where
+        removing every lower-priority pod would make it fit (K8,
+        models/preempt.py), best first.  None = this pod needs a host full
+        scan (priority-group overflow).  The host re-proves every
+        candidate with the full filter set, so this is a candidate LIMIT,
+        never a wrong answer."""
+        from ..models.preempt import preempt_candidates as dev_fn
+        out: list[list[str] | None] = [None] * len(pod_infos)
+        with self._lock:
+            t = self.tensors
+            prios = sorted({pi.priority for pi in pod_infos})
+            groups = prios[:self.PREEMPT_G_CAP]
+            gid_of = {p: g for g, p in enumerate(groups)}
+            G, N, R = max(len(groups), 1), self.caps.n_cap, self.caps.r
+            reclaim = np.zeros((G, N, R), np.float32)
+            reclaim_np = np.zeros((G, N), np.float32)
+            thresholds = np.asarray(groups or [0], np.float32)
+            for row, ni in enumerate(t.node_infos):
+                if ni is None or not t.valid[row]:
+                    continue
+                for vp in ni.pods:
+                    gmask = vp.priority < thresholds  # groups this victim
+                    if not gmask.any():               # is reclaimable for
+                        continue
+                    rv = self._req_vec(vp.request)
+                    reclaim[gmask, row] += rv
+                    reclaim_np[gmask, row] += 1.0
+            row_names = list(t.row_names)
+
+            def dev(a):
+                return torch.tensor(a, device=self.device)
+            node_args = [dev(a) for a in (t.alloc, t.used, t.npods,
+                                          t.maxpods, t.valid, reclaim,
+                                          reclaim_np)]
+
+        P = self.PREEMPT_P_CAP
+        idxs = [i for i, pi in enumerate(pod_infos)
+                if pi.priority in gid_of]
+        for at in range(0, len(idxs), P):
+            chunk = idxs[at:at + P]
+            req = np.zeros((P, self.caps.r), np.float32)
+            group_idx = np.zeros(P, np.int32)
+            active = np.zeros(P, bool)
+            for j, i in enumerate(chunk):
+                req[j] = self._req_vec(pod_infos[i].request)
+                group_idx[j] = gid_of[pod_infos[i].priority]
+                active[j] = True
+            rows, _count = _to_host(*dev_fn(
+                *node_args, dev(group_idx), dev(req), dev(active), k))
+            for j, i in enumerate(chunk):
+                out[i] = [row_names[r] for r in rows[j] if r >= 0
+                          and row_names[r] is not None]
+        return out
+
+    def victim_occupancy(self) -> float:
+        """Fraction of victim slots in use across live rows (the
+        tpu_victim_occupancy gauge feed)."""
+        with self._lock:
+            return self.tensors.victim_occupancy()
+
+    def _preempt_step(self, body: dict):
+        """Run one padded preemptor chunk (`body`: numpy pod-side arrays
+        and nominations) through the dry run against the RESIDENT node
+        state and victim tensors; returns the device planes of
+        models/preempt.dry_run_planes (victims as bit words).  Everything
+        above is host bookkeeping; this is the device call."""
+        from ..models.preempt import dry_run_planes
+        t = self.tensors
+        st = self._state
+
+        def dev(a):
+            return torch.tensor(a, device=self.device)
+
+        used = st["used"] if st is not None else dev(t.used)
+        npods = st["npods"] if st is not None else dev(t.npods)
+        s = self._static_node
+        v = self._static_vict
+        return dry_run_planes(
+            s["alloc"], used, npods, s["maxpods"], s["valid"],
+            s["taint_mask"], v["vict_prio"], v["vict_req"], v["vict_pdb"],
+            v["vict_over"], dev(body["nom_used"]), dev(body["nom_np"]),
+            dev(body["group_idx"]), dev(body["req"]), dev(body["prio"]),
+            dev(body["untol_hard"]), dev(body["active"]))
+
+    def preempt_batch(self, pod_infos: Sequence[PodInfo],
+                      node_ord_of: dict, nominated=()):
+        """Device-side DryRunPreemption for a wave of plain,
+        preemption-eligible failed pods: per pod, the reference-selected
+        candidate node + exact victim set + PDB violation count, one
+        dry-run call per PREEMPT_P_CAP chunk instead of a host dry run per
+        (pod, node) pair.
+
+        The dry run returns the per-(pod, node) planes; selection happens
+        HERE, in caller order, so one wave conflict-resolves without a
+        device call per preemptor: unclaimed nodes keep their planes
+        untouched (a nomination only changes its own node's columns), and
+        a node claimed by an earlier winner is either proved closed by a
+        host feasibility bound or re-proved exactly by a host replay of
+        the dry run with the claims folded in — identical to running the
+        sequential Evaluator pod by pod, nominating each winner before the
+        next.
+
+        node_ord_of: {node_name: snapshot.list() position}, the selection
+        tie-break of last resort.  nominated: [(PodInfo, node_name)] pods
+        holding nominations, folded into per-priority-group claimed
+        capacity as RunFilterPluginsWithNominatedPods does (only
+        >=-priority nominations claim).
+
+        Returns (results, escapes): results[i] = (node_name, [victim pod
+        keys], num_pdb_violations) when a candidate was selected, None when
+        there is none; escapes[i] = a reason string when pod i must fall
+        back to the per-pod Evaluator (such i have results[i] = None).
+        Anything the dry run does not model escapes with its reason."""
+        n = len(pod_infos)
+        out: list[tuple | None] = [None] * n
+        escapes: dict[int, str] = {}
+        # the serialization the wave's answers are exact against: live
+        # indices in finalization order (commit or proved-None)
+        self.last_wave_order: list[int] = []
+        with self._lock:
+            t = self.tensors
+            self.stats["preempt_waves"] = self.stats.get(
+                "preempt_waves", 0) + 1
+            live: list[int] = []
+            if t.asgs or t.ns_anti_kv or t.ns_anti_complex:
+                # resident anti-affinity groups can veto the preemptor in
+                # the Evaluator's full filter set, which the dry run does
+                # not model: the wave falls back wholesale
+                for i in range(n):
+                    escapes[i] = "constraint_groups"
+            else:
+                # PDB parity gate: the coverage bit is computed against ALL
+                # blocking PDBs, the Evaluator lists only the preemptor's
+                # namespace; they agree iff every blocking PDB lives there
+                bns = {ns for ns, _sel in t.pdb_blocking()}
+                for i, pi in enumerate(pod_infos):
+                    if bns and bns != {pi.key.split("/", 1)[0]}:
+                        escapes[i] = "pdb_scope"
+                    else:
+                        live.append(i)
+                prios = sorted({pod_infos[i].priority for i in live})
+                if len(prios) > self.PREEMPT_G_CAP:
+                    keep = set(prios[:self.PREEMPT_G_CAP])
+                    for i in list(live):
+                        if pod_infos[i].priority not in keep:
+                            escapes[i] = "priority_groups"
+                    live = [i for i in live if i not in escapes]
+                    prios = prios[:self.PREEMPT_G_CAP]
+            if live:
+                from .flatten import untolerated_hard
+                self._ensure_vict()
+                if (self._static_node is None
+                        or self._static_version != t.static_version):
+                    self._upload_static()
+                if self._state is None:
+                    # a preemption wave before any dispatch: make the
+                    # dynamic state resident, so the dry run and the host
+                    # bound below read the same used/npods
+                    cd_sg, cd_asg = t.domain_base_counts()
+                    self._full_refresh(cd_sg, cd_asg)
+                G, N, R = len(prios), self.caps.n_cap, self.caps.r
+                gid_of = {p: g for g, p in enumerate(prios)}
+                node_ord = np.full(N, 2**31 - 1, np.int32)
+                for name, pos in node_ord_of.items():
+                    row = t.row_of.get(name)
+                    if row is not None and t.valid[row]:
+                        node_ord[row] = pos
+                row_names = list(t.row_names)
+                vict_keys = [list(ks) if ks else [] for ks in t.vict_keys]
+                # host copies for the post-claim feasibility bound: the
+                # resident aggregates the dry run reads, in one pull
+                alloc_h = np.asarray(t.alloc, np.float32)
+                used_h, npods_h = _to_host(self._state["used"],
+                                           self._state["npods"])
+                maxpods_h = np.asarray(t.maxpods, np.float32)
+                taint_h = np.asarray(t.taint_mask, np.float32)
+                vict_prio_h = np.asarray(t.vict_prio, np.int32)
+                vict_req_h = np.asarray(t.vict_req, np.float32)
+                I32M = 2**31 - 1
+
+                def _pick(mask, kviol, khigh, kpsum, knvic):
+                    # pickOneNodeForPreemption: lexicographic min over
+                    # (violations, highest victim priority, priority sum,
+                    # victim count, snapshot order); node_ord is unique,
+                    # so exactly one row survives
+                    m = mask.copy()
+                    for key, sent in ((kviol, np.inf), (khigh, I32M),
+                                      (kpsum, np.inf), (knvic, np.inf),
+                                      (node_ord, I32M)):
+                        kmin = np.min(np.where(m, key, sent))
+                        m &= key == kmin
+                    return int(np.argmax(m))
+
+                P = self.PREEMPT_P_CAP
+                nom_used = np.zeros((G, N, R), np.float32)
+                nom_np = np.zeros((G, N), np.float32)
+                for npi, nnode in nominated:
+                    row = t.row_of.get(nnode)
+                    if row is None or not t.valid[row]:
+                        continue
+                    rv = self._req_vec(npi.request)
+                    for g, p in enumerate(prios):
+                        if npi.priority >= p:
+                            nom_used[g, row] += rv
+                            nom_np[g, row] += 1.0
+                # THIS wave's winners: row -> [(claimant priority, request
+                # vector)].  Claims are not re-sent to the device: a claimed
+                # candidate is re-proved host-side by _host_dry_run below.
+                claimed_rows = np.zeros(N, bool)
+                claims_by_row: dict[int, list] = {}
+                vict_pdb_h = np.asarray(t.vict_pdb, np.float32)
+                V = vict_prio_h.shape[1]
+                # per-node reprieve order, the dry run's
+                slot = np.broadcast_to(np.arange(V), vict_prio_h.shape)
+                ordv_h = np.lexsort(
+                    (slot, -vict_prio_h, -vict_pdb_h), axis=-1)
+                eps32 = np.float32(1e-6)
+
+                def _host_dry_run(rc, prio_j, req_j, g_j):
+                    """The dry run for ONE (pod, claimed node) pair with the
+                    wave's claims on that node folded in as >=-priority
+                    nominations: f32 and the same reprieve order, so the
+                    key is what the device would have given with the
+                    claims resident.  Returns (key, victim_mask,
+                    violations) or None when the node yields no
+                    candidate."""
+                    elig = vict_prio_h[rc] < prio_j
+                    nelig = float(elig.sum())
+                    if nelig == 0.0:
+                        return None
+                    freed = (elig[:, None].astype(np.float32)
+                             * vict_req_h[rc]).sum(axis=0, dtype=np.float32)
+                    cl_used = np.zeros(R, np.float32)
+                    cl_np = np.float32(0.0)
+                    for cp, crv in claims_by_row[rc]:
+                        if cp >= prio_j:
+                            cl_used = cl_used + crv
+                            cl_np += np.float32(1.0)
+                    free = (alloc_h[rc] - (used_h[rc]
+                                           + nom_used[g_j, rc] + cl_used)
+                            + freed).astype(np.float32)
+                    slack = np.float32(
+                        maxpods_h[rc] - (npods_h[rc] + nom_np[g_j, rc]
+                                         + cl_np - nelig))
+                    if not (np.all(req_j <= free + eps32) and slack >= 1.0):
+                        return None
+                    reprieved = np.zeros(V, bool)
+                    for s in ordv_h[rc]:
+                        if not elig[s]:
+                            continue
+                        ftry = free - vict_req_h[rc, s]
+                        if (np.all(req_j <= ftry + eps32)
+                                and (slack - 1.0) >= 1.0):
+                            free = ftry
+                            slack = np.float32(slack - 1.0)
+                            reprieved[s] = True
+                    vict = elig & ~reprieved
+                    nv = float(vict.sum())
+                    if nv == 0.0:
+                        return None
+                    viol = float((vict_pdb_h[rc] * vict).sum(
+                        dtype=np.float32))
+                    high = int(vict_prio_h[rc][vict].max())
+                    ps = float((vict_prio_h[rc].astype(np.float32)
+                                * vict).sum(dtype=np.float32))
+                    return ((viol, high, ps, nv, int(node_ord[rc])),
+                            vict, int(viol))
+
+                for at in range(0, len(live), P):
+                    chunk = live[at:at + P]
+                    self.stats["preempt_chunks"] = self.stats.get(
+                        "preempt_chunks", 0) + 1
+                    req = np.zeros((P, R), np.float32)
+                    prio = np.zeros(P, np.int32)
+                    untol = np.zeros((P, self.caps.t_cap), np.float32)
+                    gidx = np.zeros(P, np.int32)
+                    active = np.zeros(P, bool)
+                    for j, i in enumerate(chunk):
+                        pi = pod_infos[i]
+                        req[j] = self._req_vec(pi.request)
+                        prio[j] = min(max(pi.priority, -(2**31) + 2),
+                                      2**31 - 2)
+                        untol[j] = untolerated_hard(t, pi)
+                        gidx[j] = gid_of[pi.priority]
+                        active[j] = True
+                    (cand, kviol, khigh, kpsum, knvic, vwords,
+                     overflow) = self._pull(*self._preempt_step({
+                         "req": req, "prio": prio, "untol_hard": untol,
+                         "group_idx": gidx, "nom_used": nom_used,
+                         "nom_np": nom_np, "active": active}))
+                    for j, i in enumerate(chunk):
+                        if overflow[j]:
+                            # a reachable node carries a truncated victim
+                            # set: the pod re-proves host-side
+                            escapes[i] = "victim_overflow"
+                            continue
+                        cj = cand[j]
+                        # best OPEN node straight from the planes
+                        best = None
+                        open_m = cj & ~claimed_rows
+                        if open_m.any():
+                            r = _pick(open_m, kviol[j], khigh[j],
+                                      kpsum[j], knvic[j])
+                            best = ((float(kviol[j, r]), int(khigh[j, r]),
+                                     float(kpsum[j, r]), float(knvic[j, r]),
+                                     int(node_ord[r])),
+                                    r, None, int(kviol[j, r]))
+                        # a node claimed by an earlier winner may still be
+                        # this pod's true minimum (capacity sharing): every
+                        # claimed row is re-gated from scratch (the planes
+                        # are claim-blind both ways): taints, then a cheap
+                        # closure bound (every eligible victim evicted,
+                        # claims charged), then the exact replay
+                        for rc in np.nonzero(claimed_rows)[0]:
+                            if float(untol[j] @ taint_h[rc]) != 0.0:
+                                continue
+                            elig = vict_prio_h[rc] < prio[j]
+                            freed = (vict_req_h[rc][elig].sum(axis=0)
+                                     if elig.any() else 0.0)
+                            free_ub = (alloc_h[rc] - used_h[rc]
+                                       - nom_used[gidx[j], rc] + freed)
+                            slack_ub = (maxpods_h[rc]
+                                        - (npods_h[rc]
+                                           + nom_np[gidx[j], rc]
+                                           - float(elig.sum())))
+                            for cp, crv in claims_by_row[rc]:
+                                if cp >= prio[j]:
+                                    free_ub = free_ub - crv
+                                    slack_ub -= 1.0
+                            if not (np.all(req[j] <= free_ub + 1e-6)
+                                    and slack_ub >= 1.0):
+                                continue  # provably closed post-claim
+                            res = _host_dry_run(rc, int(prio[j]),
+                                                req[j], int(gidx[j]))
+                            if res is None:
+                                continue
+                            ckey, cvict, cviol = res
+                            if best is None or ckey < best[0]:
+                                best = (ckey, int(rc), cvict, cviol)
+                        if best is None:
+                            # no open candidate and every claimed row proved
+                            # closed or victimless post-claim: the
+                            # sequential Evaluator finds none either
+                            self.last_wave_order.append(i)
+                            continue
+                        _key, r, cvict, viol_out = best
+                        keys = vict_keys[r]
+                        if cvict is None:
+                            word = int(vwords[j, r])
+                            vs = [keys[s] for s in range(len(keys))
+                                  if (word >> s) & 1]
+                        else:
+                            vs = [keys[s] for s in range(len(keys))
+                                  if cvict[s]]
+                        out[i] = (row_names[r], vs, viol_out)
+                        self.last_wave_order.append(i)
+                        claimed_rows[r] = True
+                        claims_by_row.setdefault(r, []).append(
+                            (int(prio[j]), req[j].copy()))
+        if escapes:
+            tl: dict = {}
+            for reason in escapes.values():
+                key = ("DefaultPreemption", reason)
+                tl[key] = tl.get(key, 0) + 1
+            self._tally_escape_pairs(tl)
+        return out, escapes
+
+    def _pull(self, *planes) -> list[np.ndarray]:
+        """The dry run's planes to the host: one pull per chunk."""
+        return _to_host(*planes)
 
 
 def make_batch_backend(kind: str = "tpu", caps: Caps | None = None,

@@ -53,7 +53,8 @@ _REF_CELLS = 1 << 25
 # vector load (csrc/claims.cu)
 MASK_ALIGN = 16
 # kernel launches by kernel name, counted where each wrapper launches
-LAUNCHES = {"claims": 0}
+# (the preempt kernel's wrapper is models/preempt.py)
+LAUNCHES = {"claims": 0, "preempt": 0}
 
 
 def mask_stride(P: int) -> int:

@@ -14,12 +14,23 @@ Configs (the JAX bench's own parameters):
   SchedulingBasicPaced  5,000 nodes, 24,000 pods arriving at 8,000 pods/s,
                         batch 512, depth 12, 1 ms admission window (the
                         latency row)
+  PreemptionBasic       the workload's own 500 nodes (4 CPU), 2,000
+                        low-priority pods, then 500 measured priority-10
+                        pods that each must evict; batch 1,024, depth 1
+  PreemptionDense       the workload's own 100 nodes (8 CPU), 800
+                        low-priority pods, then 400 measured preemptors,
+                        four to a node, each evicting several; batch 1,024,
+                        depth 1
+The JAX bench runs the two preemption configs twice (`two_pass`, a warm-up
+pass first); this entry runs them once.
 
 The device is CUDA unless --device names another; without a GPU the
 default raises.  --nodes/--pods/--batch override a config's sizes (tests
 run tiny ones on the CPU).  The row's detail also carries `placements`,
 read from the store after the run: pods created and bound, and the nodes
-whose bound pods exceed their CPU, memory or pod count.  Diagnostics:
+whose bound pods exceed their CPU, memory or pod count, and the pods
+created but no longer in the store (victims evicted by preemption are
+deleted: gone, not unbound).  Diagnostics:
 KTPU_STAGE_DEBUG=1 adds the per-batch stage latencies (stage_latency),
 --host-profile the sampling profiler's seconds per pipeline stage
 (host_stages) and each thread's CPU seconds over the run (thread_cpu_s).
@@ -53,6 +64,13 @@ CONFIGS = {
     "SchedulingBasicPaced": {"workload": "SchedulingBasicLarge",
                              "nodes": 5000, "pods": 24_000, "batch": 512,
                              "rate": 8000, "depth": 12, "admission_ms": 1.0},
+    # bench.py's own parameters, at the workload's node and pod counts
+    "PreemptionBasic": {"workload": "PreemptionBasic", "nodes": None,
+                        "pods": None, "batch": 1024, "depth": 1,
+                        "timeout": 900.0},
+    "PreemptionDense": {"workload": "PreemptionDense", "nodes": None,
+                        "pods": None, "batch": 1024, "depth": 1,
+                        "timeout": 900.0},
 }
 
 
@@ -62,11 +80,13 @@ def scaled_timeout(pods: int, base: float = 900.0) -> float:
     return max(base, 60.0 + pods / 100.0)
 
 
-def check_placements(store: kv.MemoryStore) -> dict:
+def check_placements(store: kv.MemoryStore,
+                     created: int | None = None) -> dict:
     """What the store holds after a run, independent of the backend: pods
-    created and bound, the nodes in use, the most pods on one node, and
-    the nodes whose bound pods' requests exceed their allocatable CPU,
-    memory or pod count."""
+    present and bound, pods deleted (`created` minus present, when given:
+    preemption's victims), the nodes in use, the most pods on one node, and the nodes
+    whose bound pods' requests exceed their allocatable CPU, memory or pod
+    count."""
     pods, _ = store.list(PODS)
     nodes, _ = store.list(NODES)
     alloc = {meta.name(n): node_allocatable(n) for n in nodes}
@@ -85,7 +105,9 @@ def check_placements(store: kv.MemoryStore) -> dict:
     over = [n for n, (cpu, mem, cnt) in used.items()
             if n not in alloc or cpu > alloc[n].milli_cpu
             or mem > alloc[n].memory or cnt > alloc[n].allowed_pod_number]
-    return {"pods": len(pods), "bound": bound, "nodes_used": len(used),
+    return {"pods": len(pods), "bound": bound,
+            "deleted": None if created is None else created - len(pods),
+            "nodes_used": len(used),
             "max_pods_per_node": max((u[2] for u in used.values()),
                                      default=0),
             "nodes_over_capacity": len(over), "over_examples": over[:5]}
@@ -115,7 +137,7 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
     row as host_stages; they count a thread's samples whether it runs or
     waits) and reads each thread's CPU seconds over the run before the
     shutdown (thread_cpu_s); `after(cluster)` runs once the workload's
-    stats are read.  Returns {"value", "wall_s", "detail", "stats"}, plus
+    stats and the store's placements are read.  Returns {"value", "wall_s", "detail", "stats"}, plus
     "error" when the barrier failed."""
     cfg = copy.deepcopy(load_workloads()[workload])
     tpl = cfg["workloadTemplate"]
@@ -135,36 +157,43 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
         if op["opcode"] == "barrier":
             op["timeout"] = scaled_timeout(n_measured, barrier_timeout)
     n_nodes = next(op["count"] for op in tpl if op["opcode"] == "createNodes")
+    n_created = sum(op["count"] for op in tpl if op["opcode"] == "createPods")
     profiling_policy = None
-    cpu: dict[str, float] = {}
     if host_profile:
         from ..scheduler.config import ProfilingPolicy
         profiling_policy = ProfilingPolicy(enabled=True)
+    cpu: dict[str, float] = {}
+    placements: dict = {}
 
-        def after(cluster, then=after):
+    def after_run(cluster):
+        # the store as the workload left it, before `after` adds to it
+        placements.update(check_placements(store, n_created))
+        if host_profile:
             cpu.update(thread_cpu_seconds())
-            if then is not None:
-                then(cluster)
+        if after is not None:
+            after(cluster)
     store = kv.MemoryStore(history=1_000_000)
     t0 = time.monotonic()
     summary, stats = run_named_workload(
         cfg, caps=caps_for_nodes(n_nodes), batch_size=batch,
         pipeline_depth=depth, admission_interval=admission_ms / 1e3,
         device=device, store=store, profiling_policy=profiling_policy,
-        after=after)
+        after=after_run)
     wall = time.monotonic() - t0
     detail = summary.to_dict()
-    detail["placements"] = check_placements(store)
+    detail["placements"] = placements
     if not stats.get("barrier_ok", False):
         return {"error": "pods left unscheduled", "value": 0.0,
-                "wall_s": round(wall, 1), "detail": detail, "stats": stats}
+                "wall_s": round(wall, 1), "detail": detail, "stats": stats,
+                "nodes": n_nodes, "pods": n_measured}
     e2e = stats.get("e2e") or {}
     if e2e:
         detail["pod_e2e_p50_ms"] = e2e.get("p50_ms")
         detail["pod_e2e_p95_ms"] = e2e.get("p95_ms")
         detail["pod_e2e_p99_ms"] = e2e.get("p99_ms")
-    if "escape_rate" in stats:
-        detail["escape_rate"] = stats["escape_rate"]
+    for key in ("escape_rate", "preemption_attempts"):
+        if key in stats:
+            detail[key] = stats[key]
     maint = stats.get("tensor_maintenance")
     if maint:
         patch_s = float(maint.get("patch_seconds", 0.0))
@@ -190,7 +219,8 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
     if cpu:
         detail["thread_cpu_s"] = cpu
     return {"value": summary.average, "wall_s": round(wall, 1),
-            "detail": detail, "stats": stats}
+            "detail": detail, "stats": stats, "nodes": n_nodes,
+            "pods": n_measured}
 
 
 def row(value: float, nodes: int, pods: int, batch: int,
@@ -220,7 +250,8 @@ def run_config(name: str, device=None, nodes: int | None = None,
     extra = {"config": name, "wall_s": res.get("wall_s"), **res["detail"]}
     if "error" in res:
         extra["error"] = res["error"]
-    return row(res["value"], c["nodes"], c["pods"], c["batch"], extra), res
+    return row(res["value"], res["nodes"], res["pods"], c["batch"],
+               extra), res
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,7 @@
-"""kubernetes_tpu_torch on the card: the CUDA kernel against its plain
-version, and the GPU steps (plain and full), backend and scheduler loop
-against the CPU ones.  Imports
+"""kubernetes_tpu_torch on the card: the CUDA kernels (claims, the
+preemption dry run) against their plain versions, and the GPU steps (plain
+and full), backend, batched preemption and scheduler loop against the CPU
+ones.  Imports
 neither jax nor kubernetes_tpu, so it runs on a GPU machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from kubernetes_tpu_torch.models import assign
+from kubernetes_tpu_torch.models import assign, preempt
 from kubernetes_tpu_torch.ops import kernels
 from torch_cases import (
-    CLAIMS_CASES, FULL_CASES, K_CAP, PORT_PKG, SEQ_BATCH, SEQ_CAPS,
-    STEP_CASES, make_full_case, make_step_case, pipelined_run, port_side,
-    run_claims, run_port_full_step, run_port_step, sequence, step_patches,
+    CANDIDATE_CASES, CAPS, CLAIMS_CASES, DRY_RUN_CASES, FULL_CASES, K_CAP,
+    PORT_PKG, SEQ_BATCH, SEQ_CAPS, STEP_CASES, candidates_case,
+    dry_run_case, make_full_case, make_step_case, pipelined_run, port_side,
+    port_tensors, run_claims, run_port_full_step, run_port_step, sequence,
+    step_patches,
 )
 
 pytestmark = pytest.mark.cuda
@@ -124,3 +127,76 @@ def test_loop_on_the_card_with_a_wave_deadline_equals_cpu(cuda):
     assert out == cpu_out
     assert threads == {"wave-resolve"}
     assert stats["flush_first"] >= 1 and stats["event_patches"] >= 1
+
+
+@pytest.mark.parametrize("case", sorted(DRY_RUN_CASES))
+def test_dry_run_kernel_matches_plain_version(cuda, case):
+    """csrc/preempt.cu against preempt_dry_run_reference on the same card
+    inputs: all seven outputs bit for bit (the kernel sums in the plain
+    version's order and contracts nothing), one launch counted."""
+    t = port_tensors(dry_run_case(*DRY_RUN_CASES[case]), cuda)
+    before = kernels.LAUNCHES["preempt"]
+    got = preempt.preempt_dry_run(*t)
+    assert kernels.LAUNCHES["preempt"] == before + 1
+    want = preempt.preempt_dry_run_reference(*t)
+    for name, g, w in zip(("cand", "viol", "highest", "psum", "nvic",
+                           "victims", "overflow_hit"), got, want):
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g, w), name
+
+
+def test_dry_run_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    t = port_tensors(dry_run_case(*DRY_RUN_CASES["3x130_r2"]), cuda)
+    with pytest.raises(ValueError, match="req"):
+        preempt.preempt_dry_run(*t[:13], t[13].double(), *t[14:])
+    wide = port_tensors(dry_run_case(3, 40, 33, 2, 1, 1, 9), cuda)
+    with pytest.raises(ValueError, match="V=33"):
+        preempt.preempt_dry_run(*wide)
+
+
+@pytest.mark.parametrize("case", sorted(CANDIDATE_CASES))
+def test_candidates_on_the_card_equal_cpu(cuda, case):
+    """K8 (torch) on the card: the same rows, ties included, and counts."""
+    *shape, k = CANDIDATE_CASES[case]
+    args = candidates_case(*shape)
+    rows, count = preempt.preempt_candidates(*port_tensors(args, cuda), k)
+    want_rows, want_count = preempt.preempt_candidates(*port_tensors(args),
+                                                       k)
+    assert torch.equal(rows.cpu(), want_rows)
+    assert torch.equal(count.cpu(), want_count)
+
+
+def test_preempt_batch_on_the_card_equals_cpu(cuda):
+    """A seeded cluster of low-priority residents and a wave of
+    preemptors: TorchBatchBackend.preempt_batch on the card gives the CPU
+    backend's nodes, victims, violations and wave order."""
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+    outs = []
+    for device in (cuda, "cpu"):
+        s = port_side(8, dict(CAPS, n_cap=64), device)
+        rng = np.random.default_rng(17)
+        for i in range(40):
+            s.cache.add_node(s.node(f"n{i}", cpu=str(int(rng.integers(1, 5))),
+                                    mem="32Gi"))
+        for i in range(120):
+            s.cache.add_pod(s.testing.make_pod(f"v{i}")
+                            .priority(int(rng.integers(0, 5)))
+                            .req(cpu=f"{int(rng.integers(1, 9)) * 100}m")
+                            .node(f"n{int(rng.integers(0, 40))}").build())
+        snap = s.snapshot()
+        s.backend.assign([], snap)
+        s.backend.warmup()
+        pre = [PodInfo(s.testing.make_pod(f"p{j}")
+                       .priority(int(rng.choice([5, 10, 20])))
+                       .req(cpu=f"{int(rng.integers(5, 36)) * 100}m").build())
+               for j in range(30)]
+        before = kernels.LAUNCHES["preempt"]
+        res, esc = s.backend.preempt_batch(
+            pre, {ni.name: i for i, ni in enumerate(snap.list())})
+        launched = kernels.LAUNCHES["preempt"] - before
+        outs.append(([None if r is None else (r[0], sorted(r[1]), r[2])
+                      for r in res], esc, list(s.backend.last_wave_order)))
+        if device == cuda:
+            assert launched == 1
+    assert outs[0] == outs[1]
+    assert sum(1 for r in outs[0][0] if r) >= 5

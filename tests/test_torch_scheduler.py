@@ -16,10 +16,10 @@ Then the TestBasicScheduling scenarios of tests/test_scheduler_e2e.py run
 with the loop started on the port's Scheduler, with a TorchBatchBackend
 profile and with the per-pod profile; the batch verdicts are held against
 the port's own per-pod NodeResourcesFit check (tests/test_tpu_batch.py's
-TestOracleParity); and the preemption pin: the port's backend has no
-batched preemption yet, so a high-priority pod that would preempt under
-the JAX package stays unschedulable and evicts nothing (ROADMAP queue 1
-item 3).
+TestOracleParity); and batched preemption through the Scheduler's batch
+profile: a high-priority pod that fits only by evicting a lower-priority
+one is nominated and its victim evicted as under the JAX package, on one
+node and on a seeded multi-node cluster.
 """
 
 import time
@@ -405,48 +405,89 @@ def test_batch_verdicts_agree_with_the_per_pod_plugins():
     assert refused > 0
 
 
-# -- preemption: absent from the port's backend (ROADMAP queue 1 item 3) ---
+# -- preemption through the batch profile (Scheduler._batch_preempt) ------
 
-def preemption_run(pkg):
-    """One node full of low-priority pods, then a high-priority pod that
-    fits only if one of them is evicted."""
+def preemption_run(pkg, make_nodes=None, make_low=None, make_high=None):
+    """Low-priority pods scheduled first, then high-priority pods that fit
+    only if some of them are evicted, popped as one batch: the batch fails
+    and _batch_preempt nominates and evicts.  Defaults: one node full of
+    two low-priority pods and one high-priority pod."""
     s = Stack(pkg, 8)
 
     def nodes(testing):
         return [testing.make_node("n1").capacity(cpu="2", mem="4Gi").build()]
 
-    def victims(testing):
+    def low(testing):
         return [testing.make_pod(f"low{i}").priority(1).req(cpu="900m")
                 .build() for i in range(2)]
+
+    def high(testing):
+        return [testing.make_pod("high").priority(1000).req(cpu="900m")
+                .build()]
     try:
-        n = s.load(nodes, victims)
+        n = s.load(make_nodes or nodes, make_low or low)
         s.schedule_all(n)
-        high = s.testing.make_pod("high").priority(1000).req(
-            cpu="900m").build()
-        s.client.create(s.PODS, high)
-        assert wait_for(lambda: s.sched.queue.stats()["active"] == 1)
-        s.schedule_all(1)
+        highs = (make_high or high)(s.testing)
+        for pod in highs:
+            s.client.create(s.PODS, pod)
+        assert wait_for(
+            lambda: s.sched.queue.stats()["active"] == len(highs))
+        s.schedule_all(len(highs))
     finally:
         s.stop()
-    pod = s.client.get(s.PODS, "default", "high")
-    left = sorted(s.meta.name(p) for p in s.store.list(s.PODS)[0]
-                  if s.meta.name(p).startswith("low"))
-    return pod, left, s.sched.metrics.preemption_attempts
+    pods = {s.meta.name(p): p for p in s.store.list(s.PODS)[0]}
+    return pods, s.sched.metrics.preemption_attempts
+
+
+def nominations(pods):
+    return {name: (p.get("status") or {}).get("nominatedNodeName")
+            for name, p in pods.items()}
 
 
 def test_no_batched_preemption_on_the_port(pallas_off):
-    """The JAX package's batch profile preempts (a victim is evicted and
-    the pod nominated); the port's backend has no preempt_batch /
-    preempt_candidates, so the scheduler hands the failure straight to
-    _handle_failure: the pod stays unschedulable and nothing is evicted."""
-    jpod, jleft, jattempts = preemption_run(JAX)
-    assert (jpod.get("status") or {}).get("nominatedNodeName") == "n1"
-    assert len(jleft) == 1 and jattempts >= 1
-    ppod, pleft, pattempts = preemption_run(PORT)
-    assert not (ppod.get("status") or {}).get("nominatedNodeName")
-    assert not (ppod.get("spec") or {}).get("nodeName")
-    assert pleft == ["low0", "low1"] and pattempts == 0
-    reasons = [c.get("reason") for c in
-               (ppod.get("status") or {}).get("conditions") or ()
-               if c.get("type") == "PodScheduled"]
-    assert reasons == ["Unschedulable"]
+    """The pin of the port's missing preemption, turned around: the port's
+    batch profile now preempts as the JAX package's does: `high` is
+    nominated to n1, the same one low-priority pod is evicted, and a
+    preemption attempt is counted."""
+    jpods, jattempts = preemption_run(JAX)
+    ppods, pattempts = preemption_run(PORT)
+    assert nominations(jpods)["high"] == "n1"
+    assert nominations(ppods) == nominations(jpods)
+    assert sorted(ppods) == sorted(jpods)
+    assert len([n for n in ppods if n.startswith("low")]) == 1
+    assert pattempts == jattempts >= 1
+    assert not (ppods["high"].get("spec") or {}).get("nodeName")
+
+
+def test_batched_preemption_matches_jax_on_a_seeded_cluster(pallas_off):
+    """Six nodes of 2-4 CPUs filled with low-priority pods of mixed
+    priorities and requests, then eight preemptors at two priorities:
+    both Schedulers nominate the same node for every pod and delete the
+    same pods."""
+    def nodes(testing):
+        rng = np.random.default_rng(31)
+        return [testing.make_node(f"n{i}")
+                .capacity(cpu=str(int(rng.integers(2, 5))), mem="16Gi")
+                .build() for i in range(6)]
+
+    def low(testing):
+        rng = np.random.default_rng(32)
+        return [testing.make_pod(f"low{i:02d}")
+                .priority(int(rng.integers(0, 4)))
+                .req(cpu=f"{int(rng.integers(2, 9)) * 100}m", mem="256Mi")
+                .build() for i in range(24)]
+
+    def high(testing):
+        rng = np.random.default_rng(33)
+        return [testing.make_pod(f"high{i}")
+                .priority(int(rng.choice([10, 20])))
+                .req(cpu=f"{int(rng.integers(8, 21)) * 100}m", mem="256Mi")
+                .build() for i in range(8)]
+
+    outs = {pkg: preemption_run(pkg, nodes, low, high) for pkg in (JAX, PORT)}
+    (jpods, jattempts), (ppods, pattempts) = outs[JAX], outs[PORT]
+    assert nominations(ppods) == nominations(jpods)
+    assert sorted(ppods) == sorted(jpods)        # the same pods deleted
+    assert pattempts == jattempts >= 1
+    assert sum(1 for v in nominations(ppods).values() if v) >= 2
+    assert len(ppods) < 32                       # something was evicted

@@ -7,9 +7,10 @@ Counts are shrunk as tests/test_perf_workloads.py shrinks them (that file
 runs the JAX package's per-pod oracle on the same definitions).  Every
 workload must pass its barriers and report escape_rate == 0.0: the
 tensor path encodes every pod of these workloads, so none falls back to
-the per-pod plugins.  PreemptionBasic and PreemptionDense need batched
-preemption, which the port's backend does not have yet (ROADMAP queue 1
-item 3).
+the per-pod plugins.  PreemptionBasic and PreemptionDense go through the
+port's batched preemption (Scheduler._batch_preempt ->
+TorchBatchBackend.preempt_batch): every high-priority pod must bind, and
+a preemption attempt must be counted.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ CASES = [
     ("SchedulingNSSelectorDense", 100, 100),
     ("TopologySpreading", 20, 100),
     ("SchedulingPodAntiAffinity", 100, 100),
+    ("PreemptionBasic", 25, 25),
+    ("PreemptionDense", 25, 25),
 ]
 
 
@@ -78,3 +81,11 @@ def test_workload_completes_on_the_device_path(name, ndiv, pdiv):
         parked = next(op["count"] for op in cfg["workloadTemplate"]
                       if op.get("skipWaitToCompletion"))
         assert unbound == parked
+    if name.startswith("Preemption"):
+        pods, _ = store.list(PODS)
+        high = [p for p in pods if (p["spec"].get("priority") or 0) > 0]
+        want = next(op["count"] for op in cfg["workloadTemplate"]
+                    if op.get("collectMetrics"))
+        assert len(high) == want
+        assert all(meta.pod_node_name(p) for p in high)
+        assert stats["preemption_attempts"] > 0, stats

@@ -641,6 +641,103 @@ def run_port_full_step(caps, p_cap, state, static, buf, device="cpu",
     return st_np, res.cpu().numpy()
 
 
+# -- batched preemption: the dry run (K7) and the candidate rows (K8) ------
+#
+# Arguments in the JAX programs' order, numpy, from a seed.  Requests are
+# integer milli-CPU-like counts, except with wide=True: floats over many
+# magnitudes, where the order of every f32 sum shows.
+
+I32_MAX = 2**31 - 1
+
+
+def dry_run_case(P, N, V, R, G, T, seed, wide=False):
+    """Nodes with PAD slots, PDB bits, overflow rows, 0/1 taints and G
+    groups of nominations; pods with inactive rows and priorities at the
+    clamp bounds and above 2^24 (victims' too)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    alloc = rng.integers(1, 9, (N, R)).astype(f) * 1000
+    used = rng.integers(0, 8, (N, R)).astype(f) * 500
+    vreq = rng.integers(0, 6, (N, V, R)).astype(f) * 300
+    if wide:
+        alloc = (rng.standard_normal((N, R))
+                 * 10.0 ** rng.integers(-2, 6, (N, R))).astype(f)
+        vreq = np.abs(rng.standard_normal((N, V, R))
+                      * 10.0 ** rng.integers(-3, 6, (N, V, R))).astype(f)
+    vprio = rng.integers(-5, 20, (N, V)).astype(np.int32)
+    vprio[rng.random((N, V)) < 0.1] = rng.integers(2**25, I32_MAX - 2)
+    vprio[rng.random((N, V)) < 0.05] = -I32_MAX + 1      # the clamp floor
+    vprio[rng.random((N, V)) < 0.3] = I32_MAX            # PAD slots
+    prio = rng.integers(0, 25, P).astype(np.int32)
+    prio[rng.random(P) < 0.1] = rng.integers(2**25, I32_MAX - 1)
+    prio[rng.random(P) < 0.2] = I32_MAX - 1              # the clamp ceiling
+    return (alloc, used, rng.integers(0, 6, N).astype(f),
+            rng.integers(3, 10, N).astype(f), rng.random(N) < 0.9,
+            (rng.random((N, T)) < 0.2).astype(f), vprio, vreq,
+            (rng.random((N, V)) < 0.3).astype(f), rng.random(N) < 0.05,
+            (rng.integers(0, 3, (G, N, R)) * 400).astype(f),
+            rng.integers(0, 2, (G, N)).astype(f),
+            rng.integers(0, G, P).astype(np.int32),
+            (rng.integers(0, 8, (P, R)) * 400).astype(f), prio,
+            (rng.random((P, T)) < 0.3).astype(f), rng.random(P) < 0.85)
+
+
+# (P, N, V, R, G, T, seed, wide): ragged N, P of 1 / 37 / 70, V of 8 / 16 /
+# 32, R of 2-12, T past one 32-bit word
+DRY_RUN_CASES = {
+    "37x1000": (37, 1000, 16, 6, 3, 8, 1, False),
+    "1x503_v8_r5": (1, 503, 8, 5, 1, 4, 2, False),
+    "70x300_r8_wide": (70, 300, 16, 8, 2, 31, 3, True),
+    "20x200_v32_t40": (20, 200, 32, 5, 2, 40, 4, False),
+    "3x130_r2": (3, 130, 16, 2, 1, 1, 5, False),
+    "66x257_r12_t64": (66, 257, 16, 12, 3, 64, 6, False),
+}
+
+
+def candidates_case(P, N, R, G, seed, ties=False, wide=False):
+    """K8's inputs.  ties=True makes every node alike with 100,000
+    reclaimable pods, so a pod's scores differ only by the hash term (at
+    most 0.1), and the f32 spacing at 100,000 (2^-7) rounds that to a
+    dozen values: most scores tie and the node index decides (past 2^16
+    nodes the hash itself repeats too)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    alloc = rng.integers(1, 9, (N, R)).astype(f) * 1000
+    used = (alloc * rng.uniform(0.5, 1.0, (N, R))).astype(f)
+    rec = (rng.integers(0, 4, (G, N, R)) * 350).astype(f)
+    rec_np = rng.integers(0, 4, (G, N)).astype(f)
+    if ties:
+        alloc[:], used[:], rec[:], rec_np[:] = 4000, 3600, 1800, 1e5
+    if wide:
+        alloc = (rng.uniform(0, 1, (N, R))
+                 * 10.0 ** rng.integers(-3, 9, (N, R))).astype(f)
+        used = (alloc * rng.uniform(0, 1.2, (N, R))).astype(f)
+        rec = (rng.uniform(0, 1, (G, N, R))
+               * 10.0 ** rng.integers(-3, 9, (G, N, R))).astype(f)
+    return (alloc, used, rng.integers(0, 8, N).astype(f),
+            rng.integers(4, 10, N).astype(f), rng.random(N) < 0.95, rec,
+            rec_np, rng.integers(0, G, P).astype(np.int32),
+            (rng.integers(0, 6, (P, R)) * 500).astype(f),
+            rng.random(P) < 0.9)
+
+
+# (P, N, R, G, seed, ties, wide, k)
+CANDIDATE_CASES = {
+    "37x1000": (37, 1000, 6, 3, 1, False, False, 16),
+    "ties_256x700": (256, 700, 6, 1, 2, True, False, 16),
+    "ties_300x5000": (300, 5000, 6, 1, 5, True, False, 16),
+    "ties_hash_wrap": (3, 70_000, 6, 1, 6, True, False, 16),
+    "k_past_feasible": (5, 40, 5, 2, 3, False, False, 40),
+    "wide": (64, 3000, 8, 2, 4, False, True, 16),
+}
+
+
+def port_tensors(args, device="cpu"):
+    import torch
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in args]
+
+
 # -- the scheduler loop: one package's control plane, stepped by hand ------
 
 PORT_PKG = "kubernetes_tpu_torch"
