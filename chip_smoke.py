@@ -56,11 +56,17 @@ Phases (each prints its wall time; any failed check exits non-zero):
      batch 16,384, depth 2);
   e. the preemption dry-run kernel (csrc/preempt.cu) against its plain
      torch version on the card, all seven planes bit for bit, on seeded
-     cases (ragged N of 1,000 / 5,003 / 20,000, P of 1 / 37 / 256, V of 8
-     and 16, R of 5 / 6 / 8, PAD slots, PDB bits, overflow rows, taints,
-     1-3 nomination groups, inactive pods, priorities at the clamp bounds
-     and above 2^24); then both timed at the 100k chunk shape (P=256 x
-     N=110,080) beside the bound;
+     random cases (ragged N of 1,000 / 5,003 / 20,000, P of 1 / 37 / 256,
+     V of 8 and 16, R of 5 / 6 / 8, PAD slots, PDB bits, overflow rows,
+     taints, 1-3 nomination groups, inactive pods, priorities at the clamp
+     bounds and above 2^24) and flatten-shaped ones (slots ascending with
+     PAD at the tail, pods from a few templates: runs across the 64-pod
+     block edge, keys changing pod to pod, V of 16 and 32); then at the
+     100k chunk shape (P=256 x N=110,080) on random slots and on
+     flatten-shaped ones (one key, 4 live slots a node): the wrapper's
+     time, the bare launch's, the plain version's, the bound, and the
+     kernel's registers, shared memory a block and resident blocks an SM;
+     and K8 (torch) timed at that shape beside its bound;
   f. TorchBatchBackend.preempt_batch at 100,000 nodes of PreemptionBasic's
      shape (4 CPU, 32Gi) holding 4 priority-0 pods of 900m / 500Mi each
      (400,000 residents): one wave of 1,024 priority-10 preemptors (3000m,
@@ -69,8 +75,8 @@ Phases (each prints its wall time; any failed check exits non-zero):
      preemptor fits beside the wave's earlier winners there); per chunk
      the dry run's time between CUDA events, the pull and the host
      selection; the peak device memory; the first chunk's planes held
-     against the plain version and both timed (the kernels line's
-     numbers);
+     against the plain version and timed as in (e) (the kernels line's
+     numbers; its launch_ms is the bare launch);
  10. SchedulingBasicPaced, the latency row (5,000 nodes, 24,000 pods
      arriving at 8,000 pods/s, batch 512, depth 12, 1 ms admission);
  11. PreemptionBasic through the Scheduler (its own 500 nodes, 2,000
@@ -101,15 +107,17 @@ device the script exits 2 and prints no result.
 
 --compare TAG=DIR loads the kubernetes_tpu_torch package of another
 checkout (e.g. an earlier revision, unpacked with git archive) under its
-own name, and times its claims wrapper against this one's in phase 7, in
-turns (this, other, other, this) on the same inputs, after checking that
-both return the same claims and best.
+own name, and times its claims wrapper against this one's in phase 7 and
+its dry_run_planes against this one's at phase e's 100k cases and phase
+f's first chunk, in turns (this, other, other, this) on the same inputs,
+after checking that both return the same answers.
 """
 
 import argparse
 import gc
 import importlib
 import importlib.util
+import inspect
 import json
 import re
 import shutil
@@ -776,12 +784,21 @@ def full_variant_phases(dev, smi, sizes=FULL_SIZES):
 
 PLANES = ("cand", "viol", "highest", "psum", "nvic", "victim words",
           "overflow_hit")
-# (P, N, V, R, G, T, seed): ragged N, P of 1 / 37 / 256, V of 8 / 16, R of
-# 5 / 6 / 8, one to three groups, taints past one 32-bit word
-DRY_RUN_CASES = [(1, 1000, 8, 5, 1, 4, 1), (37, 5003, 16, 6, 2, 31, 2),
-                 (256, 20000, 16, 8, 3, 16, 3), (256, 1000, 8, 6, 1, 40, 4),
-                 (37, 20000, 16, 5, 3, 31, 5), (1, 5003, 16, 8, 2, 16, 6),
-                 (256, 5003, 16, 6, 1, 64, 7)]
+# (generator, arguments).  "random" (P, N, V, R, G, T, seed): ragged N, P
+# of 1 / 37 / 256, V of 8 / 16, R of 5 / 6 / 8, one to three groups, taints
+# past one 32-bit word; "flat" (P, N, V, R, T, seed, lead): slots as
+# ops/flatten.py writes them, pods from a few templates (flat_dry_run_case)
+DRY_RUN_CASES = [("random", (1, 1000, 8, 5, 1, 4, 1)),
+                 ("random", (37, 5003, 16, 6, 2, 31, 2)),
+                 ("random", (256, 20000, 16, 8, 3, 16, 3)),
+                 ("random", (256, 1000, 8, 6, 1, 40, 4)),
+                 ("random", (37, 20000, 16, 5, 3, 31, 5)),
+                 ("random", (1, 5003, 16, 8, 2, 16, 6)),
+                 ("random", (256, 5003, 16, 6, 1, 64, 7)),
+                 ("flat", (256, 20000, 16, 6, 16, 12, 0)),
+                 ("flat", (200, 5003, 32, 5, 40, 13, 0)),
+                 ("flat", (130, 1000, 16, 6, 16, 14, 0)),
+                 ("flat", (256, 5003, 16, 6, 16, 17, 70))]
 
 
 def random_dry_run_case(P, N, V, R, G, T, seed, dev):
@@ -812,12 +829,76 @@ def random_dry_run_case(P, N, V, R, G, T, seed, dev):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
 
 
-def check_dry_run(preempt, args, label):
+def flat_dry_run_case(P, N, V, R, T, seed, lead, dev, live=None,
+                      one_key=False):
+    """Dry-run inputs shaped as ops/flatten.py writes them: each node's
+    slots ascending by priority, PAD (I32_MAX, request 0, no PDB bit) at
+    the tail, invalid rows all PAD, overflow only on full rows; nodes with
+    no live slot and with all V; equal-priority slots split by their PDB
+    bit.  The pods come from five templates, each pod's group the rank of
+    its priority: two of one priority with different requests
+    alternating, then three whose keys change pod to pod, then a run of
+    one template across the 64-pod block edge with inactive pods inside,
+    then a seeded mix; pod priorities between the slots' make only a
+    prefix eligible; `lead` pods of the first template (no untolerated
+    taint) go first.  live=k gives every valid node k live slots;
+    one_key=True makes every pod the first template (one priority, one
+    group, one request), as a wave of one workload's replicas."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    i32_max = 2**31 - 1
+    k = rng.integers(0, V + 1, N) if live is None else np.full(N, live)
+    if live is None:
+        k[:3], k[3:6] = 0, V
+    valid = rng.random(N) < 0.9
+    valid[:6] = True
+    k[~valid] = 0
+    levels = np.array([-3, 0, 2, 5, 8, 2**25 + 3, 2**26 + 1], np.int32)
+    vprio = np.sort(rng.choice(levels, (N, V), p=[.1, .3, .15, .2, .1, .1,
+                                                   .05]), axis=1)
+    pad = np.arange(V)[None] >= k[:, None]
+    vprio[pad] = i32_max
+    vreq = rng.integers(0, 6, (N, V, R)).astype(f) * 250
+    vreq[pad] = 0
+    vpdb = ((rng.random((N, V)) < 0.4) & ~pad).astype(f)
+    over = (k == V) & (rng.random(N) < 0.2)
+    npods = (k + rng.integers(0, 3, N)).astype(f)
+    maxpods = npods + rng.integers(0, 4, N).astype(f)
+    taint = (rng.random((N, T)) < 0.2) & (rng.random((N, 1)) < 0.3)
+    tpl_prio = np.array([10 if one_key else 6, 6, 1, 9, 2**26 + 7], np.int32)
+    tpl_req = (rng.integers(0, 8, (5, R)) * 400).astype(f)
+    tpl_untol = rng.random((5, T)) < 0.2
+    tpl_untol[:3] = False
+    if one_key:
+        seq = np.zeros(P, np.int64)
+        active = np.ones(P, bool)
+    else:
+        seq = ([0] * lead + [i % 2 for i in range(20)]
+               + [(3, 4, 2)[i % 3] for i in range(20)] + [0] * 60)
+        seq = np.array((seq + list(rng.integers(0, 5, P)))[:P])
+        active = rng.random(P) < 0.9
+        active[[i + lead for i in (45, 63, 64, 70) if i + lead < P]] = False
+    prio = tpl_prio[seq]
+    groups = np.unique(prio)
+    G = len(groups)
+    args = (rng.integers(2, 9, (N, R)).astype(f) * 1000,
+            rng.integers(0, 8, (N, R)).astype(f) * 500, npods, maxpods,
+            valid, taint.astype(f), vprio, vreq, vpdb, over,
+            (rng.integers(0, 3, (G, N, R)) * 400
+             * (rng.random((G, N, 1)) < 0.3)).astype(f),
+            (rng.integers(0, 2, (G, N))
+             * (rng.random((G, N)) < 0.3)).astype(f),
+            np.searchsorted(groups, prio).astype(np.int32), tpl_req[seq],
+            prio, tpl_untol[seq].astype(f), active)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+
+
+def check_dry_run(preempt, args, label, k_cap=None):
     """The kernel (dry_run_planes on the card) against the plain version on
     the same inputs, its victims packed the same way: every plane bit for
     bit.  Returns the max |difference| over the float and int planes and
     the kernel's planes."""
-    got = preempt.dry_run_planes(*args)
+    got = preempt.dry_run_planes(*args, k_cap=k_cap)
     ref = preempt.preempt_dry_run_reference(*args)
     want = (*ref[:5], preempt.pack_bits(ref[5])[..., 0], ref[6])
     torch.cuda.synchronize()
@@ -867,33 +948,152 @@ def dry_run_bound(args, planes):
             nbytes, ops)
 
 
-def dry_run_phase(dev, smi):
+def time_cuda_run(fn, n: int, warmup: int = 2) -> float:
+    """ms per launch of n launches back to back between one pair of CUDA
+    events: the device's time when the host enqueues faster than it runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def time_dry_run(preempt, args, k_cap, planes, label, smi, others=None):
+    """The dry-run kernel at one shape: the wrapper (dry_run_planes, each
+    call between its own events, median of 20), the bare launch
+    (prepared_launch: checks and allocations once, 20 launches back to
+    back) on the kernel's own grid and on both grids it chooses from (a
+    block walks all pods, or 64-pod ranges), the same planes written by
+    fill_ (the store rate's yardstick), the plain version, the bound and
+    the launch shape on this card; then each other revision's wrapper in
+    turns with this one's (this, other, other, this) after checking its
+    planes.  Every bare launch's planes are checked against `planes`."""
+    P, N = planes[0].shape
+
+    def bare(**kw):
+        launch, out = preempt.prepared_launch(*args, k_cap=k_cap, **kw)
+        ms = time_cuda_run(launch, 20)
+        check(all(bool(torch.equal(g, w)) for g, w in zip(out, planes)),
+              f"{label}: the bare launches' planes differ ({kw})")
+        return ms, out
+
+    def ours():
+        return preempt.dry_run_planes(*args, k_cap=k_cap)
+    ms = time_cuda(ours, 20)
+    launch_ms, out = bare()
+    grid_ms = {ppb: bare(pods_per_block=ppb)[0] for ppb in (P, 64)}
+    fill_ms = time_cuda_run(lambda: [x.fill_(0) for x in out], 20)
+    plain_ms = time_cuda(
+        lambda: preempt.preempt_dry_run_reference(*args), 3, warmup=1)
+    (bound_ms, by), nbytes, ops = dry_run_bound(args, planes)
+    occ = preempt.kernel_occupancy(args[0].shape[1], args[5].shape[1], k_cap)
+    print(f"   {label} {P}x{N} (k_cap {k_cap}): dry_run_planes {ms:.4f} ms "
+          f"(median of 20), bare launch {launch_ms:.4f} ms (20 back to "
+          f"back; a block walking all {P} pods {grid_ms[P]:.4f} ms, 64-pod "
+          f"ranges {grid_ms[64]:.4f} ms), fill_ of the same planes "
+          f"{fill_ms:.4f} ms, plain version {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({by}: {nbytes} bytes, {ops} operations), "
+          f"{bound_ms / launch_ms:.4f} of it; registers "
+          f"{occ['registers']}, spill {occ['spill_bytes']} B, shared "
+          f"{occ['smem_bytes']} B a block of {occ['block_rows']} rows, "
+          f"{occ['blocks_per_sm']} blocks ({occ['warps_per_sm']} warps) an "
+          f"SM [{smi}]", flush=True)
+    for tag, other in (others or {}).items():
+        kw = ({"k_cap": k_cap} if "k_cap" in
+              inspect.signature(other.dry_run_planes).parameters else {})
+
+        def theirs(other=other, kw=kw):
+            return other.dry_run_planes(*args, **kw)
+        got = theirs()
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(g, w)) for g, w in zip(got, planes)),
+              f"{label}: revision {tag}'s dry run disagrees with this one")
+        t = [time_cuda(fn, 10) for fn in (ours, theirs, theirs, ours)]
+        print(f"   {label} dry_run_planes A/B this vs {tag}: this "
+              f"{t[0]:.4f} {t[3]:.4f} ms, {tag} {t[1]:.4f} {t[2]:.4f} ms "
+              f"[{smi}]", flush=True)
+    return {"ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "occupancy": occ}
+
+
+def candidates_bound(args, rows):
+    """(ms, bound_by, bytes, ops) for one K8 preempt_candidates call: each
+    input read once and the rows and counts written once over HBM
+    bandwidth, against its operations over the FP32 peak: per (pod, node)
+    cell R subtracts, adds, compares, clamps, divides and headroom adds
+    (6R) and ~12 for the pod-count test, masks, score and hash; the top-k
+    selection counted as one compare a cell."""
+    P, R = args[8].shape
+    N = args[0].shape[0]
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + rows[0].numel() * 4 + rows[1].numel() * 4)
+    ops = P * N * (6 * R + 12 + 1)
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes"),
+            t_bytes, nbytes, ops)
+
+
+def dry_run_phase(dev, smi, others=None):
     """Phase e: the dry-run kernel against its plain version on seeded
-    cases, then both timed at the 100k chunk shape (P=256 x N=110,080)."""
+    cases, then both timed at the 100k chunk shape (P=256 x N=110,080) on
+    random slots and on flatten-shaped ones (one key, 4 live slots a
+    node), and K8 (torch) timed at the same shape; `others` maps a tag to
+    another revision's models.preempt, timed beside this one's there."""
     from kubernetes_tpu_torch.models import preempt
     from kubernetes_tpu_torch.perf import caps_for_nodes
     with Phase("e preempt dry-run kernel vs plain version"):
         errs = []
-        for P, N, V, R, G, T, seed in DRY_RUN_CASES:
-            args = random_dry_run_case(P, N, V, R, G, T, seed, dev)
-            errs.append(check_dry_run(preempt, args, f"case {seed}")[0])
+        for kind, shape in DRY_RUN_CASES:
+            if kind == "random":
+                args = random_dry_run_case(*shape, dev)
+            else:
+                args = flat_dry_run_case(*shape, dev)
+            errs.append(check_dry_run(preempt, args,
+                                      f"{kind} case {shape[-1]}")[0])
         caps = caps_for_nodes(100_000)
-        args = random_dry_run_case(256, caps.n_cap, caps.v_cap, caps.r, 1,
-                                   caps.t_cap, 11, dev)
-        err, planes = check_dry_run(preempt, args, "100k shape")
-        errs.append(err)
-        ms = time_cuda(lambda: preempt.dry_run_planes(*args), 20)
-        ms_full = time_cuda(lambda: preempt.preempt_dry_run(*args), 20)
-        plain_ms = time_cuda(
-            lambda: preempt.preempt_dry_run_reference(*args), 3, warmup=1)
-        (bound_ms, by), nbytes, ops = dry_run_bound(args, planes)
-        print(f"   100k shape 256x{caps.n_cap}: kernel {ms:.4f} ms (median "
-              f"of 20), with the victims expanded to bool[P,N,V] "
-              f"{ms_full:.4f} ms, plain version {plain_ms:.4f} ms; bound "
-              f"{bound_ms:.4f} ms ({by}: {nbytes} bytes, {ops} operations) "
-              f"[{smi}]", flush=True)
+        for label, args in (
+                ("100k random", random_dry_run_case(
+                    256, caps.n_cap, caps.v_cap, caps.r, 1, caps.t_cap, 11,
+                    dev)),
+                ("100k flatten-shaped", flat_dry_run_case(
+                    256, caps.n_cap, caps.v_cap, caps.r, caps.t_cap, 15, 0,
+                    dev, live=4, one_key=True))):
+            k_cap = preempt.live_slot_cap(args[6].cpu().numpy())
+            err, planes = check_dry_run(preempt, args, label, k_cap)
+            errs.append(err)
+            time_dry_run(preempt, args, k_cap, planes, label, smi, others)
+            del args, planes
         check(max(errs) == 0.0, f"dry run: max |err| {max(errs)}")
-        del args, planes
+        # K8, the legacy tier's candidate rows (plain torch), at the chunk
+        # shape: seeded inputs, one group, k = 16
+        rng = np.random.default_rng(16)
+        N, R, P = caps.n_cap, caps.r, 256
+        f = np.float32
+        alloc = rng.integers(1, 9, (N, R)).astype(f) * 1000
+        kargs = [torch.from_numpy(a).to(dev) for a in (
+            alloc, (alloc * rng.uniform(0.5, 1.0, (N, R))).astype(f),
+            rng.integers(0, 8, N).astype(f), rng.integers(4, 10, N).astype(f),
+            rng.random(N) < 0.95,
+            (rng.integers(0, 4, (1, N, R)) * 350).astype(f),
+            rng.integers(0, 4, (1, N)).astype(f), np.zeros(P, np.int32),
+            (rng.integers(0, 6, (P, R)) * 500).astype(f), np.ones(P, bool))]
+        rows = preempt.preempt_candidates(*kargs, 16)
+        k8_ms = time_cuda(lambda: preempt.preempt_candidates(*kargs, 16), 5)
+        (k8_bound, k8_by), k8_bytes_ms, k8_bytes, k8_ops = candidates_bound(
+            kargs, rows)
+        print(f"   K8 preempt_candidates {P}x{N} k=16 (torch): {k8_ms:.4f} ms "
+              f"(median of 5); bound {k8_bound:.4f} ms ({k8_by}: {k8_ops} "
+              f"operations; bytes bound {k8_bytes_ms:.6f} ms, {k8_bytes} "
+              f"bytes); feasible per pod {int(rows[1].float().mean())} "
+              f"[{smi}]", flush=True)
+        del kargs, rows
 
 
 def build_preempt_cluster(n_nodes, per_node, seed):
@@ -958,12 +1158,14 @@ def check_preemptions(snap, pre, results, order, label):
     return winners, victims
 
 
-def preempt_phase(dev, smi, n_nodes=100_000, per_node=4, n_pre=1024):
+def preempt_phase(dev, smi, n_nodes=100_000, per_node=4, n_pre=1024,
+                  others=None):
     """Phase f: one wave of n_pre priority-10 preemptors (3000m, 500Mi)
     through TorchBatchBackend.preempt_batch against n_nodes nodes of
     PreemptionBasic's shape holding per_node residents each.  The preempt
     count is zeroed just before the wave and read just after.  Returns the
-    kernel's numbers for the kernels line (its first chunk's inputs)."""
+    kernel's numbers for the kernels line (its first chunk's inputs);
+    `others` as in dry_run_phase."""
     from kubernetes_tpu_torch.models import preempt
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
@@ -1030,10 +1232,10 @@ def preempt_phase(dev, smi, n_nodes=100_000, per_node=4, n_pre=1024):
         captured = []
         inner = preempt.dry_run_planes
 
-        def capture(*args):
+        def capture(*args, **kw):
             if not captured:
-                captured.append([a.clone() for a in args])
-            return inner(*args)
+                captured.append(([a.clone() for a in args], kw))
+            return inner(*args, **kw)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         backend.vict_s.clear()
@@ -1089,21 +1291,17 @@ def preempt_phase(dev, smi, n_nodes=100_000, per_node=4, n_pre=1024):
               f"{backend.victim_occupancy():.4f}; peak device memory "
               f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
               f"above the wave's start) [{smi}]", flush=True)
-        # the first chunk's inputs: the kernel against the plain version,
-        # then both timed
-        args = captured[0]
-        err, planes = check_dry_run(preempt, args, "first chunk")
-        ms = time_cuda(lambda: preempt.dry_run_planes(*args), 20)
-        plain_ms = time_cuda(
-            lambda: preempt.preempt_dry_run_reference(*args), 3, warmup=1)
-        (bound_ms, by), nbytes, ops = dry_run_bound(args, planes)
-        print(f"   first chunk 256x{args[0].shape[0]}: kernel {ms:.4f} ms "
-              f"(median of 20), plain version {plain_ms:.4f} ms; bound "
-              f"{bound_ms:.4f} ms ({by}: {nbytes} bytes, {ops} operations) "
-              f"[{smi}]", flush=True)
+        # the first chunk's inputs and the k_cap the backend passed: the
+        # kernel against the plain version, then timed
+        args, kw = captured[0]
+        k_cap = kw["k_cap"]
+        check(k_cap == preempt.live_slot_cap(args[6]),
+              f"the backend's k_cap {k_cap} is not the slots' live cap")
+        err, planes = check_dry_run(preempt, args, "first chunk", k_cap)
+        timed = time_dry_run(preempt, args, k_cap, planes, "first chunk",
+                             smi, others)
         del backend, cache, snap, captured, args, planes
-        return {"launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
+        return {"launches": launches, "max_abs_err": err, **timed}
 
 
 # -- the scheduler loop: perf.bench configs through a real Scheduler -------
@@ -1254,14 +1452,15 @@ def parse_args(argv):
     ap.add_argument("--compare", action="append", default=[],
                     metavar="TAG=DIR",
                     help="a checkout of another revision whose claims "
-                         "wrapper to time beside this one's")
+                         "and dry-run wrappers to time beside this one's")
     return ap.parse_args(argv)
 
 
 def load_revision(tag, root):
-    """The ops.kernels module of the kubernetes_tpu_torch package under
-    `root`, imported as a package of its own (kubernetes_tpu_torch_<tag>),
-    so that its claims wrapper builds and launches its own kernel."""
+    """The ops.kernels and models.preempt modules of the
+    kubernetes_tpu_torch package under `root`, imported as a package of its
+    own (kubernetes_tpu_torch_<tag>), so that its wrappers build and launch
+    its own kernels."""
     pkg = Path(root).resolve() / "kubernetes_tpu_torch"
     name = f"kubernetes_tpu_torch_{tag}"
     spec = importlib.util.spec_from_file_location(
@@ -1269,7 +1468,8 @@ def load_revision(tag, root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module(f"{name}.ops.kernels")
+    return (importlib.import_module(f"{name}.ops.kernels"),
+            importlib.import_module(f"{name}.models.preempt"))
 
 
 def wave_shape_args(backend, P, state, dev, mixed=False):
@@ -1397,23 +1597,26 @@ def main(argv=None) -> int:
                 if named and ("entry function" in line
                               or "properties for" in line):
                     entry = named.group(1)
-                # the main path's instantiations: R=6 (and the fold), the
-                # dry run's R bound 8
+                # the main path's instantiations: R=6 (and the fold), and
+                # the dry run's R=6 one
                 tpl = re.search(r"slice_kernelILi(\d+)ELi(\d+)ELb(\d)", entry)
-                dry = re.search(r"dry_run_kernelILi(\d+)E", entry)
+                dry = re.search(r"dry_run_kernelILi(\d+)ELb(\d)E", entry)
                 what = ("fold" if "fold_kernel" in entry else tpl and
                         f"slice R={tpl[1]} pods/thread={tpl[2]} "
                         f"{'murmur' if tpl[3] == '1' else 'sin'}")
                 if ("registers" in line or "spill" in line) and (
                         (what and (what == "fold" or tpl[1] == "6"))
-                        or (dry and dry[1] == "8")):
-                    print(f"     {what or 'dry run R<=8'}: {line.strip()}")
+                        or (dry and dry[1] == "6")):
+                    print(f"     {what or 'dry run R=6'}: {line.strip()}")
         print(f"   build {time.monotonic() - t0:.3f} s [{smi}]", flush=True)
-        others = {tag: load_revision(tag, root) for tag, root in
-                  (spec.split("=", 1) for spec in opts.compare)}
+        revs = {tag: load_revision(tag, root) for tag, root in
+                (spec.split("=", 1) for spec in opts.compare)}
+        others = {tag: r[0] for tag, r in revs.items()}
+        others_preempt = {tag: r[1] for tag, r in revs.items()}
         t0 = time.monotonic()
         with ThreadPoolExecutor() as pool:   # one nvcc process each
-            list(pool.map(lambda k: k._kernel_lib(), others.values()))
+            list(pool.map(lambda m: m._kernel_lib(),
+                          [*others.values(), *others_preempt.values()]))
         if others:
             print(f"   built {sorted(others)} in "
                   f"{time.monotonic() - t0:.3f} s", flush=True)
@@ -1582,8 +1785,8 @@ def main(argv=None) -> int:
     full_variant_phases(dev, smi)
 
     # batched preemption: the dry-run kernel, then preempt_batch at 100k
-    dry_run_phase(dev, smi)
-    pre = preempt_phase(dev, smi)
+    dry_run_phase(dev, smi, others_preempt)
+    pre = preempt_phase(dev, smi, others=others_preempt)
 
     # the scheduler loop above BatchBackend
     loop_launches = loop_phases(smi)
@@ -1605,8 +1808,9 @@ def main(argv=None) -> int:
                      + loop_launches["PreemptionBasic"]["preempt"]
                      + loop_launches["PreemptionDense"]["preempt"]),
         "max_abs_err": pre["max_abs_err"], "ms": pre["ms"],
-        "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
-        "bound_by": pre["bound_by"], "library_ms": None}]}))
+        "launch_ms": pre["launch_ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,7 +17,9 @@ Two device programs:
 `dry_run_planes` is what the backend calls: the kernel for CUDA tensors
 (victims as one int32 bit word per (pod, node), bit v = slot v), the plain
 version, packed the same way, for CPU tensors.  On CUDA a build or launch
-failure raises; nothing falls back.  Each kernel launch adds one to
+failure raises; nothing falls back, and nothing but the kernel (and its
+output allocations and the overflow plane's memset) runs: the kernel reads
+the 0/1 taint planes as they are.  Each kernel launch adds one to
 `kernels.LAUNCHES["preempt"]`.
 
 Exactness against the JAX programs, as XLA compiles them on the CPU (their
@@ -231,11 +233,23 @@ def _kernel_lib():
         from ..ops import _build
         lib = _build.load("preempt")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.preempt_dry_run_launch.argtypes = [p] * 17 + [i] * 6 + [p] * 8
+        lib.preempt_dry_run_launch.argtypes = [p] * 17 + [i] * 8 + [p] * 8
         lib.preempt_dry_run_launch.restype = i
+        lib.preempt_occupancy.argtypes = [i, i, i, p]
+        lib.preempt_occupancy.restype = i
         lib.preempt_max_resources.restype = i
+        lib.preempt_max_taints.restype = i
         _lib = lib
     return _lib
+
+
+def live_slot_cap(vict_prio) -> int:
+    """The kernel's k_cap for these victim slots: the largest count of a
+    node's slots whose priority is below I32_MAX (PAD), the only slots
+    that can be eligible.  numpy or torch; on a CUDA tensor this syncs."""
+    if vict_prio.shape[0] == 0:
+        return 0
+    return int((vict_prio != I32_MAX).sum(1).max())
 
 
 def _require(t, name, dtype, shape, device):
@@ -247,10 +261,17 @@ def _require(t, name, dtype, shape, device):
             f"{tuple(t.shape)} on {t.device}")
 
 
-def _launch(alloc, used, npods, maxpods, valid, taint_mask, vict_prio,
-            vict_req, vict_pdb, vict_over, nom_used, nom_np, group_idx, req,
-            prio, untol_hard, active):
-    """csrc/preempt.cu on CUDA tensors -> the planes with victim words."""
+def prepared_launch(alloc, used, npods, maxpods, valid, taint_mask,
+                    vict_prio, vict_req, vict_pdb, vict_over, nom_used,
+                    nom_np, group_idx, req, prio, untol_hard, active, *,
+                    k_cap=None, pods_per_block=None):
+    """Check the CUDA inputs and allocate the planes once: returns
+    (launch, planes), where each launch() runs csrc/preempt.cu into the
+    same planes (cand, viol, highest, psum, nvic, victim words, overflow
+    hit) on the current stream and counts one launch.  k_cap: see
+    dry_run_planes.  pods_per_block imposes the pods a block walks
+    (default: the kernel's grid rule, all P when every node block is
+    resident at once, else 64)."""
     from ..ops import kernels
     dev = alloc.device
     P, R = req.shape
@@ -261,6 +282,9 @@ def _launch(alloc, used, npods, maxpods, valid, taint_mask, vict_prio,
     if R > lib.preempt_max_resources():
         raise ValueError(f"preempt_dry_run: R={R} resources exceeds the "
                          f"kernel's {lib.preempt_max_resources()}")
+    if T > lib.preempt_max_taints():
+        raise ValueError(f"preempt_dry_run: T={T} taints exceeds the "
+                         f"kernel's {lib.preempt_max_taints()}")
     if not 1 <= V <= V_MAX:
         raise ValueError(f"preempt_dry_run: V={V} victim slots; the kernel "
                          f"takes 1..{V_MAX}")
@@ -281,47 +305,78 @@ def _launch(alloc, used, npods, maxpods, valid, taint_mask, vict_prio,
             (prio, "prio", i32, (P,)), (untol_hard, "untol_hard", f32, (P, T)),
             (active, "active", b, (P,))):
         _require(t, name, dtype, shape, dev)
-    # both taint planes are 0/1, so "no common bit" is exactly the JAX
-    # program's einsum(untol, taint) == 0
-    taint_bits = pack_bits(taint_mask != 0)
-    untol_bits = pack_bits(untol_hard != 0)
-    cand = torch.empty((P, N), dtype=b, device=dev)
-    viol = torch.empty((P, N), dtype=f32, device=dev)
-    highest = torch.empty((P, N), dtype=i32, device=dev)
-    psum = torch.empty((P, N), dtype=f32, device=dev)
-    nvic = torch.empty((P, N), dtype=f32, device=dev)
-    words = torch.empty((P, N), dtype=i32, device=dev)
-    overflow = torch.empty(P, dtype=i32, device=dev)
-    err = lib.preempt_dry_run_launch(
-        alloc.data_ptr(), used.data_ptr(), npods.data_ptr(),
-        maxpods.data_ptr(), valid.data_ptr(), taint_bits.data_ptr(),
-        vict_prio.data_ptr(), vict_req.data_ptr(), vict_pdb.data_ptr(),
-        vict_over.data_ptr(), nom_used.data_ptr(), nom_np.data_ptr(),
-        group_idx.data_ptr(), req.data_ptr(), prio.data_ptr(),
-        untol_bits.data_ptr(), active.data_ptr(),
-        P, N, V, R, G, taint_bits.shape[1],
-        cand.data_ptr(), viol.data_ptr(), highest.data_ptr(),
-        psum.data_ptr(), nvic.data_ptr(), words.data_ptr(),
-        overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if k_cap is None:
+        k_cap = live_slot_cap(vict_prio)
+    if not 0 <= k_cap <= V:
+        raise ValueError(f"preempt_dry_run: k_cap={k_cap} outside 0..{V}")
+    ppb = 0 if pods_per_block is None else pods_per_block
+    if ppb < 0 or (ppb and -(-P // ppb) > 65535):
+        raise ValueError(f"preempt_dry_run: pods_per_block={ppb} for P={P}")
+    planes = (torch.empty((P, N), dtype=b, device=dev),
+              torch.empty((P, N), dtype=f32, device=dev),
+              torch.empty((P, N), dtype=i32, device=dev),
+              torch.empty((P, N), dtype=f32, device=dev),
+              torch.empty((P, N), dtype=f32, device=dev),
+              torch.empty((P, N), dtype=i32, device=dev),
+              torch.empty(P, dtype=b, device=dev))
+    inputs = (alloc, used, npods, maxpods, valid, taint_mask, vict_prio,
+              vict_req, vict_pdb, vict_over, nom_used, nom_np, group_idx, req,
+              prio, untol_hard, active)
+
+    def launch():
+        # the closure holds the tensors whose pointers the kernel reads
+        err = lib.preempt_dry_run_launch(
+            *(x.data_ptr() for x in inputs), P, N, V, R, G, T, k_cap, ppb,
+            *(x.data_ptr() for x in planes),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"preempt kernel launch failed: cudaError {err}")
+        kernels.LAUNCHES["preempt"] += 1
+
+    return launch, planes
+
+
+def kernel_occupancy(R: int, T: int, k_cap: int) -> dict:
+    """The kernel's launch shape on this card for R resources, T taints
+    and k_cap live slots: registers and spill bytes a thread, dynamic
+    shared bytes and node rows a block, resident blocks and warps an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 5)()
+    err = lib.preempt_occupancy(R, T, k_cap, ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"preempt kernel launch failed: cudaError {err}")
-    kernels.LAUNCHES["preempt"] += 1
-    return cand, viol, highest, psum, nvic, words, overflow != 0
+        raise RuntimeError(f"preempt occupancy query failed: cudaError {err}")
+    regs, smem, tn, blocks, local = list(out)
+    return {"registers": regs, "spill_bytes": local, "smem_bytes": smem,
+            "block_rows": tn, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * tn // 32}
 
 
 def dry_run_planes(alloc, used, npods, maxpods, valid, taint_mask, vict_prio,
                    vict_req, vict_pdb, vict_over, nom_used, nom_np,
-                   group_idx, req, prio, untol_hard, active):
+                   group_idx, req, prio, untol_hard, active, *, k_cap=None):
     """The dry run with the victims as words: (cand, viol, highest, psum,
     nvic, victim words int32[P,N], overflow_hit), on the inputs' device.
     CUDA tensors launch csrc/preempt.cu; CPU tensors run the plain
-    version and pack its victims."""
+    version and pack its victims.
+
+    k_cap sizes the kernel's shared memory: at least live_slot_cap(
+    vict_prio), the largest count of a node's non-PAD slots; a caller
+    that holds the slots on the host passes it, otherwise it is one
+    reduction here (a sync).  A smaller k_cap is a device-side error, not
+    a wrong answer.  The kernel skips slots that are not eligible (not
+    victims) instead of adding 0 * x for them: the same sums for finite
+    requests and PDB values (flatten.py writes no other), not for an
+    infinite or NaN one in such a slot."""
     args = (alloc, used, npods, maxpods, valid, taint_mask, vict_prio,
             vict_req, vict_pdb, vict_over, nom_used, nom_np, group_idx, req,
             prio, untol_hard, active)
     dev = alloc.device
     if dev.type == "cuda":
-        return _launch(*args)
+        launch, planes = prepared_launch(*args, k_cap=k_cap)
+        launch()
+        return planes
     if dev.type != "cpu":
         raise ValueError(f"preempt_dry_run: unsupported device {dev}")
     out = preempt_dry_run_reference(*args)

@@ -504,6 +504,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         self._static_node = None    # dict of device tensors (STATIC_CORE)
         self._static_version = -1
         self._static_vict = None    # dict of device tensors (STATIC_VICT)
+        self._vict_live_cap = 0     # live_slot_cap of the resident slots
         self._vict_version = -1
         self._mirror: dict[str, np.ndarray] | None = None
         # dispatched-but-unresolved batches (pipeline bookkeeping) and node
@@ -767,6 +768,9 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 "vict_patched_rows", 0) + len(rows)
         t.vict_full = False
         self._vict_version = t.vict_version
+        # the dry-run kernel's shared-memory size, from the host copy
+        from ..models.preempt import live_slot_cap
+        self._vict_live_cap = live_slot_cap(t.vict_prio)
 
     def _full_refresh(self, cd_sg: np.ndarray, cd_asg: np.ndarray) -> None:
         t = self.tensors
@@ -1231,7 +1235,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             s["taint_mask"], v["vict_prio"], v["vict_req"], v["vict_pdb"],
             v["vict_over"], dev(body["nom_used"]), dev(body["nom_np"]),
             dev(body["group_idx"]), dev(body["req"]), dev(body["prio"]),
-            dev(body["untol_hard"]), dev(body["active"]))
+            dev(body["untol_hard"]), dev(body["active"]),
+            k_cap=self._vict_live_cap)
 
     def preempt_batch(self, pod_infos: Sequence[PodInfo],
                       node_ord_of: dict, nominated=()):

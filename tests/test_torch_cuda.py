@@ -18,9 +18,9 @@ from kubernetes_tpu_torch.ops import kernels
 from torch_cases import (
     CANDIDATE_CASES, CAPS, CLAIMS_CASES, DRY_RUN_CASES, FULL_CASES, K_CAP,
     PORT_PKG, SEQ_BATCH, SEQ_CAPS, STEP_CASES, candidates_case,
-    dry_run_case, make_full_case, make_step_case, pipelined_run, port_side,
-    port_tensors, run_claims, run_port_full_step, run_port_step, sequence,
-    step_patches,
+    dry_run_case, dry_run_inputs, make_full_case, make_step_case,
+    pipelined_run, port_side, port_tensors, run_claims, run_port_full_step,
+    run_port_step, sequence, step_patches,
 )
 
 pytestmark = pytest.mark.cuda
@@ -134,7 +134,7 @@ def test_dry_run_kernel_matches_plain_version(cuda, case):
     """csrc/preempt.cu against preempt_dry_run_reference on the same card
     inputs: all seven outputs bit for bit (the kernel sums in the plain
     version's order and contracts nothing), one launch counted."""
-    t = port_tensors(dry_run_case(*DRY_RUN_CASES[case]), cuda)
+    t = port_tensors(dry_run_inputs(case), cuda)
     before = kernels.LAUNCHES["preempt"]
     got = preempt.preempt_dry_run(*t)
     assert kernels.LAUNCHES["preempt"] == before + 1
@@ -145,8 +145,37 @@ def test_dry_run_kernel_matches_plain_version(cuda, case):
         assert torch.equal(g, w), name
 
 
+@pytest.mark.parametrize("case", sorted(DRY_RUN_CASES))
+def test_dry_run_kernel_at_any_live_cap(cuda, case):
+    """The planes depend neither on the shared-memory size nor on the grid:
+    k_cap from the data (live_slot_cap), the wrapper's default and k_cap =
+    V agree bit for bit, one bare launch through prepared_launch counts
+    once and fills the same planes, and so do blocks that walk all pods,
+    64 or 7."""
+    t = port_tensors(dry_run_inputs(case), cuda)
+    V = t[6].shape[1]
+    cap = preempt.live_slot_cap(t[6])
+    first = preempt.dry_run_planes(*t)
+    for k in (cap, V):
+        got = preempt.dry_run_planes(*t, k_cap=k)
+        assert all(torch.equal(g, f) for g, f in zip(got, first)), k
+    launch, planes = preempt.prepared_launch(*t, k_cap=cap)
+    before = kernels.LAUNCHES["preempt"]
+    launch()
+    assert kernels.LAUNCHES["preempt"] == before + 1
+    assert all(torch.equal(g, f) for g, f in zip(planes, first))
+    # either grid (all pods a block, or 64- and 7-pod ranges)
+    for ppb in (len(t[14]), 64, 7):
+        launch, planes = preempt.prepared_launch(*t, k_cap=cap,
+                                                 pods_per_block=ppb)
+        launch()
+        assert all(torch.equal(g, f) for g, f in zip(planes, first)), ppb
+    occ = preempt.kernel_occupancy(t[0].shape[1], t[5].shape[1], cap)
+    assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+
+
 def test_dry_run_wrapper_rejects_what_the_kernel_does_not_take(cuda):
-    t = port_tensors(dry_run_case(*DRY_RUN_CASES["3x130_r2"]), cuda)
+    t = port_tensors(dry_run_inputs("3x130_r2"), cuda)
     with pytest.raises(ValueError, match="req"):
         preempt.preempt_dry_run(*t[:13], t[13].double(), *t[14:])
     wide = port_tensors(dry_run_case(3, 40, 33, 2, 1, 1, 9), cuda)

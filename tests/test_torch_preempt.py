@@ -27,9 +27,12 @@ pytest.importorskip("jax")
 
 from kubernetes_tpu.models import preempt as jax_preempt  # noqa: E402
 from kubernetes_tpu_torch.models import preempt as port_preempt  # noqa: E402
+from preempt_kernel_model import (  # noqa: E402
+    SlotCapExceeded, dry_run_model,
+)
 from torch_cases import (  # noqa: E402
     CANDIDATE_CASES, DRY_RUN_CASES, PORT_PKG, candidates_case,
-    dry_run_case, port_tensors,
+    dry_run_inputs, port_tensors,
 )
 
 JAX = "kubernetes_tpu"
@@ -54,17 +57,94 @@ def assert_planes_equal(want, got):
 
 @pytest.mark.parametrize("case", sorted(DRY_RUN_CASES))
 def test_dry_run_reference_matches_jax(case):
-    args = dry_run_case(*DRY_RUN_CASES[case])
+    args = dry_run_inputs(case)
     want = jax_preempt.preempt_dry_run(*args)
     got = port_preempt.preempt_dry_run_reference(*port_tensors(args))
     assert_planes_equal(want, got)
     assert np.asarray(want[0]).any(), "no candidate in the case"
 
 
+FLAT_CASES = sorted(c for c in DRY_RUN_CASES if c.startswith("flat_"))
+
+
+@pytest.mark.parametrize("case", sorted(DRY_RUN_CASES))
+def test_kernel_order_of_work_matches_reference(case):
+    """tests/preempt_kernel_model.py, the kernel's order of work (live-slot
+    compaction, reprieve order over live slots, reuse by key, sums over
+    eligible slots and victims only) on numpy f32 scalars, equals the
+    plain version bit for bit."""
+    args = dry_run_inputs(case)
+    want = port_preempt.preempt_dry_run_reference(*port_tensors(args))
+    assert_planes_equal([w.numpy() for w in want], dry_run_model(*args))
+
+
+@pytest.mark.parametrize("case", sorted(DRY_RUN_CASES))
+def test_kernel_order_of_work_with_one_block_of_pods(case):
+    """The same with every pod in one block, the kernel's grid when all
+    node blocks are resident at once: one compaction against the highest
+    priority of all pods, keys reused across 64-pod chunk edges."""
+    args = dry_run_inputs(case)
+    want = port_preempt.preempt_dry_run_reference(*port_tensors(args))
+    assert_planes_equal([w.numpy() for w in want],
+                        dry_run_model(*args, pp=len(args[14])))
+
+
+@pytest.mark.parametrize("case", FLAT_CASES)
+def test_kernel_order_of_work_at_narrow_blocks(case):
+    """The same with 7-pod blocks: every block edge cuts a run of equal
+    keys, and each block's highest priority compacts its own live slots."""
+    args = dry_run_inputs(case)
+    want = port_preempt.preempt_dry_run_reference(*port_tensors(args))
+    assert_planes_equal([w.numpy() for w in want],
+                        dry_run_model(*args, pp=7))
+
+
+def test_flatten_cases_have_what_they_claim():
+    """The flatten-shaped cases: slots ascending with PAD at the tail,
+    nodes with no live slot and with all V, runs of one key across the
+    64-pod block edge with inactive pods inside, keys that change pod to
+    pod, one priority with two requests, prefix-only eligibility and
+    equal-priority slots split by their PDB bit."""
+    for case in FLAT_CASES:
+        params = DRY_RUN_CASES[case][1]
+        lead = params[6] if len(params) > 6 else 0
+        # the pod-side arrays past the leading run
+        a = [x[lead:] if i >= 12 else x
+             for i, x in enumerate(dry_run_inputs(case))]
+        vprio, vpdb, req, prio, gidx, active = (a[6], a[8], a[13], a[14],
+                                                a[12], a[16])
+        V = vprio.shape[1]
+        assert (np.diff(vprio.astype(np.int64), axis=1) >= 0).all()
+        live = (vprio != port_preempt.I32_MAX).sum(1)
+        assert (live == 0).any() and (live == V).any()
+        assert (a[7][vprio == port_preempt.I32_MAX] == 0).all()
+        same = ((prio[1:] == prio[:-1]) & (gidx[1:] == gidx[:-1])
+                & (req[1:] == req[:-1]).all(1))
+        assert same[62:64].all() and not active[63:65].any()
+        assert (~same[20:40]).all()
+        assert ((prio[1:20] == prio[:19]) & ~(req[1:20] == req[:19]).all(1)
+                ).all()
+        elig = vprio[None] < prio[:, None, None]
+        assert (elig.any(2) & ~elig.all(2) & (live > 0)[None]).any()
+        split = ((vprio[:, 1:] == vprio[:, :-1])
+                 & (vpdb[:, 1:] < vpdb[:, :-1]))
+        assert split.any()
+
+
+def test_kernel_order_of_work_needs_the_live_cap():
+    """A k_cap below a node's live slots is refused (the kernel traps),
+    and live_slot_cap is the count of non-PAD slots."""
+    args = dry_run_inputs("flat_130x90")
+    cap = port_preempt.live_slot_cap(args[6])
+    assert cap == port_preempt.live_slot_cap(torch.from_numpy(args[6])) == 16
+    with pytest.raises(SlotCapExceeded):
+        dry_run_model(*args, k_cap=cap - 1)
+
+
 def test_psum_above_2_24_is_the_jax_rounding():
     """Victim priorities above 2^24: the f32 priority sum rounds, and it
     rounds as the JAX program's does (same order, same steps)."""
-    args = dry_run_case(*DRY_RUN_CASES["37x1000"])
+    args = dry_run_inputs("37x1000")
     want = jax_preempt.preempt_dry_run(*args)
     got = port_preempt.preempt_dry_run_reference(*port_tensors(args))
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
@@ -77,7 +157,7 @@ def test_psum_above_2_24_is_the_jax_rounding():
 def test_cpu_wrappers_are_the_plain_version():
     """On CPU tensors preempt_dry_run is the plain version, and
     dry_run_planes packs its victims into words that unpack to them."""
-    t = port_tensors(dry_run_case(*DRY_RUN_CASES["20x200_v32_t40"]))
+    t = port_tensors(dry_run_inputs("20x200_v32_t40"))
     ref = port_preempt.preempt_dry_run_reference(*t)
     assert_planes_equal([x.numpy() for x in ref],
                         port_preempt.preempt_dry_run(*t))
@@ -89,7 +169,7 @@ def test_cpu_wrappers_are_the_plain_version():
 
 
 def test_reprieve_order_is_the_jax_lexsort():
-    args = dry_run_case(*DRY_RUN_CASES["37x1000"])
+    args = dry_run_inputs("37x1000")
     vprio, vpdb = args[6], args[8]
     V = vprio.shape[1]
     want = np.lexsort((np.broadcast_to(np.arange(V), vprio.shape),
@@ -435,3 +515,26 @@ def test_second_wave_patches_victim_rows():
     assert "vict_patched_rows" not in fresh.backend.stats
     for k, v in fresh.backend._static_vict.items():
         assert torch.equal(side.backend._static_vict[k], v), k
+
+
+def test_live_slot_cap_follows_the_victim_rows():
+    """The backend's k_cap for the dry-run kernel is the live-slot count
+    of the resident victim tensors, and a row patch that adds a victim to
+    the fullest node raises it."""
+    from kubernetes_tpu_torch import testing
+    s = scenario_random(4)(testing)
+    side = Side(PORT_PKG, s["nodes"], s["victims"],
+                caps=dict(SMALL_CAPS, n_cap=64, v_cap=16))
+    side.wave(s["pre"])
+    b = side.backend
+    cap = b._vict_live_cap
+    assert cap == port_preempt.live_slot_cap(b._static_vict["vict_prio"]) > 0
+    counts = (b.tensors.vict_prio != port_preempt.I32_MAX).sum(1)
+    full = b.tensors.row_names[int(counts.argmax())]
+    side.cache.add_pod(testing.make_pod("late").priority(0).req(cpu="100m")
+                       .node(full).build())
+    side.snap = side.cache.update_snapshot(side.snap)
+    b.assign([], side.snap)
+    side.wave(s["pre"])
+    assert b._vict_live_cap == cap + 1 == port_preempt.live_slot_cap(
+        b._static_vict["vict_prio"])

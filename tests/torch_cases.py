@@ -682,16 +682,91 @@ def dry_run_case(P, N, V, R, G, T, seed, wide=False):
             (rng.random((P, T)) < 0.3).astype(f), rng.random(P) < 0.85)
 
 
-# (P, N, V, R, G, T, seed, wide): ragged N, P of 1 / 37 / 70, V of 8 / 16 /
-# 32, R of 2-12, T past one 32-bit word
+def flatten_dry_run_case(P, N, V, R, T, seed, lead=0):
+    """Dry-run inputs shaped as ops/flatten.py writes them
+    (_encode_vict_row): each node's slots ascending by priority, PAD
+    (I32_MAX, request 0, no PDB bit) at the tail, invalid rows all PAD,
+    overflow only on full rows; the pods drawn from five templates as a
+    FitError wave is, each pod's group the rank of its priority.  Covers
+    runs of one template across the 64-pod block edge with inactive pods
+    inside, interleaved templates (the key changes pod to pod), two
+    templates of one priority with different requests, nodes with no live
+    slot and nodes with all V live, pod priorities between the slots' (only
+    a prefix eligible), and equal-priority slots that differ only in their
+    PDB bit (the reprieve order departs from slot order).  lead > 0 puts
+    that many pods of the first template (no untolerated taint) first, so
+    that the first 64-pod chunk has none and a later one has."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    live = rng.integers(0, V + 1, N)
+    live[:3], live[3:6] = 0, V
+    valid = rng.random(N) < 0.9
+    valid[:6] = True
+    live[~valid] = 0
+    levels = np.array([-3, 0, 2, 5, 8, 2**25 + 3, 2**26 + 1], np.int32)
+    vprio = np.full((N, V), I32_MAX, np.int32)
+    vreq = np.zeros((N, V, R), f)
+    vpdb = np.zeros((N, V), f)
+    for n in range(N):
+        k = live[n]
+        vprio[n, :k] = np.sort(rng.choice(levels, k, p=[.1, .3, .15, .2, .1,
+                                                        .1, .05]))
+        vreq[n, :k] = rng.integers(0, 6, (k, R)) * 250
+        vpdb[n, :k] = rng.random(k) < 0.4
+    over = (live == V) & (rng.random(N) < 0.5)
+    over[3] = False
+    npods = (live + rng.integers(0, 3, N)).astype(f)
+    maxpods = npods + rng.integers(0, 4, N).astype(f)
+    taint = (rng.random((N, T)) < 0.2) & (rng.random((N, 1)) < 0.3)
+
+    tpl_prio = np.array([6, 6, 1, 9, 2**26 + 7], np.int32)
+    tpl_req = (rng.integers(0, 8, (5, R)) * 400).astype(f)
+    tpl_untol = rng.random((5, T)) < 0.2
+    tpl_untol[:3] = False
+    seq = [0] * lead
+    seq += [i % 2 for i in range(20)]         # one priority, two requests
+    seq += [(3, 4, 2)[i % 3] for i in range(20)]  # keys change pod to pod
+    seq += [0] * 60                           # a run across pod 64
+    seq = np.array((seq + list(rng.integers(0, 5, P)))[:P])
+    active = rng.random(P) < 0.9
+    active[[i + lead for i in (45, 63, 64, 70) if i + lead < P]] = False
+    prio = tpl_prio[seq]
+    groups = np.unique(prio)
+    G = len(groups)
+    return (rng.integers(2, 9, (N, R)).astype(f) * 1000,
+            rng.integers(0, 8, (N, R)).astype(f) * 500, npods, maxpods,
+            valid, taint.astype(f), vprio, vreq, vpdb, over,
+            (rng.integers(0, 3, (G, N, R)) * 400
+             * (rng.random((G, N, 1)) < 0.3)).astype(f),
+            (rng.integers(0, 2, (G, N))
+             * (rng.random((G, N)) < 0.3)).astype(f),
+            np.searchsorted(groups, prio).astype(np.int32), tpl_req[seq],
+            prio, tpl_untol[seq].astype(f), active)
+
+
+# name -> (generator, arguments).  dry_run_case's (P, N, V, R, G, T, seed,
+# wide): ragged N, P of 1 / 37 / 70, V of 8 / 16 / 32, R of 2-12, T past
+# one 32-bit word; flatten_dry_run_case's (P, N, V, R, T, seed[, lead]):
+# two to four 64-pod blocks, V of 16 and 32
 DRY_RUN_CASES = {
-    "37x1000": (37, 1000, 16, 6, 3, 8, 1, False),
-    "1x503_v8_r5": (1, 503, 8, 5, 1, 4, 2, False),
-    "70x300_r8_wide": (70, 300, 16, 8, 2, 31, 3, True),
-    "20x200_v32_t40": (20, 200, 32, 5, 2, 40, 4, False),
-    "3x130_r2": (3, 130, 16, 2, 1, 1, 5, False),
-    "66x257_r12_t64": (66, 257, 16, 12, 3, 64, 6, False),
+    "37x1000": (dry_run_case, (37, 1000, 16, 6, 3, 8, 1, False)),
+    "1x503_v8_r5": (dry_run_case, (1, 503, 8, 5, 1, 4, 2, False)),
+    "70x300_r8_wide": (dry_run_case, (70, 300, 16, 8, 2, 31, 3, True)),
+    "20x200_v32_t40": (dry_run_case, (20, 200, 32, 5, 2, 40, 4, False)),
+    "3x130_r2": (dry_run_case, (3, 130, 16, 2, 1, 1, 5, False)),
+    "66x257_r12_t64": (dry_run_case, (66, 257, 16, 12, 3, 64, 6, False)),
+    "flat_130x90": (flatten_dry_run_case, (130, 90, 16, 6, 16, 21)),
+    "flat_200x64_t40": (flatten_dry_run_case, (200, 64, 16, 6, 40, 22)),
+    "flat_v32_90x70_r5": (flatten_dry_run_case, (90, 70, 32, 5, 8, 23)),
+    "flat_late_taints_200x60": (flatten_dry_run_case,
+                                (200, 60, 16, 6, 16, 24, 70)),
 }
+
+
+def dry_run_inputs(name):
+    """The numpy inputs of DRY_RUN_CASES[name]."""
+    gen, args = DRY_RUN_CASES[name]
+    return gen(*args)
 
 
 def candidates_case(P, N, R, G, seed, ties=False, wide=False):
