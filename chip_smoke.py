@@ -82,23 +82,56 @@ Phases (each prints its wall time; any failed check exits non-zero):
  11. PreemptionBasic through the Scheduler (its own 500 nodes, 2,000
      low-priority pods, 500 measured preemptors; batch 1,024, depth 1);
  12. PreemptionDense through the Scheduler (100 nodes, 800 residents,
-     400 preemptors, four to a node).
-     8-12 each print the bench row (pods/s, pod e2e p50/p95/p99 ms), check
-     from the store that every pod left is bound (the rest are deleted
-     preemption victims) and no node holds more than its CPU, memory or 110
-     pods, and check no ERROR status, a zero escape rate and claims
-     launches; 8-10 then print the backend's counters, the set-up times
-     outside the window, and one more batch through the running loop under
-     torch.profiler (device busy time, idle share); 11-12 check that every
-     high-priority pod is bound, a preemption attempt was counted and every
-     dry-run chunk launched the preempt kernel, and print the preemption
-     waves.
+     400 preemptors, four to a node);
+ 13-16. the constraint and gang rows at their workloads' scale:
+     SchedulingPodAntiAffinity (5,000 nodes, 5,000 hostname anti-affinity
+     pods), SchedulingHighCardinality (5,000 nodes, 20,000 pods in 2,000
+     anti-affinity services), TopologySpreading (1,000 nodes, 5,000
+     zone-spread pods) and CoschedulingGang (5,000 nodes, 10,000 pods in
+     1,000 gangs of 10); batch 8,192, depth 2, 50 ms admission window;
+ 17. SchedulingHostNull: SchedulingBasic's 5,000 nodes and 50,000 pods
+     with the device step nulled (ops/nullbackend.py, by name), depth 1,
+     then the host ceiling at SchedulingBasic's depth 2: the nulled row
+     and SchedulingBasic on the card in turns, three rounds each, the
+     card's share of the ceiling per round and the spread of both;
+ 18. SchedulingOverloadFlood: 2,000 nodes, a 30,000-pod flood with every
+     50th pod outside the tensor encoding, under the full overload policy
+     and a seeded chaos schedule of slow and all-escape waves;
+ 19. SchedulingChurnStorm: 500 nodes, a 12,000-pod flood during a seeded
+     storm of node adds, drains and relabels, default overload policy.
+     8-19 run every pass the config has (two where bench.py says
+     two_pass: 11-16), print the bench row and for each pass its pods/s,
+     pod e2e p50/p95/p99 ms, waves per batch, escape rate and its
+     reasons and the set-up times outside the window, and check every
+     pass from the store: every pod left is bound (the rest are deleted
+     preemption victims), no node holds more than its CPU, memory or 110
+     pods (the storm's drained nodes aside), no ERROR status, the escape
+     rate is 0 (18-19, whose workloads mark pods the tensor path does not
+     encode, must escape), the claims kernel launched in the pass where
+     batches are plain and nothing launched on the nulled device; a
+     failed pass fails the phase even when the row keeps the other one;
+     after each pass of a row without preemption, one
+     more batch of the row's own pods runs through the loop under
+     torch.profiler (device busy time, idle share); 11-12 check that
+     every high-priority pod is bound, a preemption attempt was counted
+     and every dry-run chunk launched the preempt kernel; 18 that the
+     chaos fired and no protected pod was shed; 19 that the storm added,
+     drained and relabelled nodes and no pod was bound twice;
+ 20. checkpoint / warm start on the card: SchedulingBasic's first batch on
+     one TorchBatchBackend, checkpoint_mirror, a fresh backend on the card
+     warm-started from the file and a fresh cache primed with its objects,
+     every row adopted, then the remaining batches on the fresh backend,
+     placed pod for pod as the uninterrupted backend places them, every
+     pod placed within capacity.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
-f the preemption path at the seam and 11-12 under the loop: the kernels'
-launch counts are zeroed just before each and read just after; in 5, 6
-and 8-12 the claims kernel must have launched, in (a)-(d) no kernel (the
-full variant reaches no hand kernel), in f and 11-12 the preempt kernel;
+f the preemption path at the seam and 11-12 under the loop, 13-19 the
+other rows' paths under the loop: the kernels' launch counts are zeroed
+just before each (before each pass in 8-19) and read just after (before
+a pass's profiled batch); in 5, 6, 8-12, 16, 18 and 19 the
+claims kernel must have launched, in (a)-(d) no kernel (the full variant
+reaches no hand kernel; 13-15 run it every batch), in 17 nothing, in f
+and 11-12 the preempt kernel;
 every claims launch of 5 and 6 is recorded by shape (pods, live pods,
 nodes, noise) with its time between CUDA events.  The last two lines are
 a JSON line of per-kernel numbers (launches: claims in phases 6 and 9,
@@ -1309,142 +1342,360 @@ def preempt_phase(dev, smi, n_nodes=100_000, per_node=4, n_pre=1024,
 # phase -> bench config (kubernetes_tpu_torch/perf/bench.py CONFIGS)
 LOOP_PHASES = (("8", "SchedulingBasic"), ("9", "Scheduling100k"),
                ("10", "SchedulingBasicPaced"), ("11", "PreemptionBasic"),
-               ("12", "PreemptionDense"))
+               ("12", "PreemptionDense"),
+               ("13", "SchedulingPodAntiAffinity"),
+               ("14", "SchedulingHighCardinality"),
+               ("15", "TopologySpreading"), ("16", "CoschedulingGang"),
+               ("17", "SchedulingHostNull"),
+               ("18", "SchedulingOverloadFlood"),
+               ("19", "SchedulingChurnStorm"))
+# rows whose pods carry placement rules: every batch runs the full
+# variant, which reaches no hand kernel
+CONSTRAINT_ROWS = ("SchedulingPodAntiAffinity", "SchedulingHighCardinality",
+                   "TopologySpreading")
+# the profiled batch of a row whose pods are not SchedulingBasic's
+PROFILED_PODS = 4096
+# phase 17: nulled and card runs at SchedulingBasic's depth, in turns
+HOST_CEILING_ROUNDS = 3
 
 
-def profile_loop_batch(cluster, batch, label, smi, top=8):
-    """One more batch of SchedulingBasic pods through the running
-    Scheduler (after the measured window and the launch count were read)
-    under torch.profiler: wall from the create to the last bind, device
-    busy time of the kernels and copies in it, and the device's idle
-    share.  The loop's threads launch the kernels; CUPTI records every
-    launch of the process."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from kubernetes_tpu_torch.client.clientset import PODS
-    from kubernetes_tpu_torch.perf.scheduler_perf import _default_pod
-    sched = cluster.scheduler
-    backend = sched.profiles["default-scheduler"].batch_backend
-    op = {"podNamePrefix": f"prof-{label}-"}
-    pods = [_default_pod(i, op) for i in range(batch)]
-
-    def scheduled():
-        with sched.metrics.lock:
-            return sched.metrics.schedule_attempts.get("scheduled", 0)
-
-    base, w0 = scheduled(), backend.stats["waves"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        cluster.client.create_bulk(PODS, pods)
-        deadline = t0 + 120.0
-        while scheduled() < base + batch and time.monotonic() < deadline:
-            time.sleep(0.002)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    check(scheduled() >= base + batch,
-          f"{label}: the profiled batch did not bind within 120 s")
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU
-                   and e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    print(f"   {label} profiled loop batch ({batch} pods, create to last "
-          f"bind): wall {wall_ms:.3f} ms, {backend.stats['waves'] - w0} "
-          f"waves, {sum(r[1] for r in rows)} device events, device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f} [{smi}]",
-          flush=True)
-    for ms, count, key in rows[:top]:
+def profile_loop_batch(cluster, batch, label, smi, top=8, op=None):
+    """One more batch through the running Scheduler (after the measured
+    window and the launch count were read) under torch.profiler
+    (perf.bench.profile_batch): wall from the create to the last
+    scheduling attempt, device busy time of the kernels and copies in it,
+    and the device's idle share.  The batch is `batch` pods of
+    SchedulingBasic's shape, which must all bind, or of the createPods op
+    `op` (a workload's measured pods).  The loop's threads launch the
+    kernels; CUPTI records every launch of the process.  Returns the idle
+    share."""
+    from kubernetes_tpu_torch.perf import bench
+    got = bench.profile_batch(cluster, batch, label, op=op)
+    check(got["done"], f"{label}: the profiled batch was not "
+                       f"{'bound' if op is None else 'attempted'} within "
+                       f"120 s")
+    print(f"   {label} profiled loop batch ({got['pods']} pods, create to "
+          f"last attempt): wall {got['wall_ms']:.3f} ms, {got['waves']} "
+          f"waves, {got['events']} device events, device busy "
+          f"{got['busy_ms']:.3f} ms, idle share {got['idle_share']:.4f} "
+          f"[{smi}]", flush=True)
+    for ms, count, key in got["top"][:top]:
         print(f"     {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+    return got["idle_share"]
+
+
+def pass_escapes(cluster):
+    """A pass's dispatch escapes: the backend's count, by reason as the
+    scheduler's escape counter has them."""
+    sched = cluster.scheduler
+    sched.expose_metrics()
+    backend = sched.profiles["default-scheduler"].batch_backend
+    by_reason = sched.metrics.prom.tpu_escape_total.values()
+    return {"escaped": backend.stats.get("escaped", 0),
+            "by_reason": {"/".join(k): v for k, v in by_reason.items()}}
+
+
+def check_pass(name, cfg, res, seen, smi, preempting, marked):
+    """The invariants of one pass of a row (run_once's result, and what
+    the `after` hook saw): the barrier held, every pod bound (preemption
+    victims are deleted), none on a node over its CPU, memory or 110-pod
+    cap (the storm's drained nodes aside), no ERROR status; the escape
+    rate is 0, except that the rows whose workload marks pods the tensor
+    path does not encode (escapeEvery) or whose chaos injects all-escape
+    waves must escape; the claims kernel launched in this pass where its
+    batches are plain, nothing on the nulled device; the preemption rows
+    bind every high-priority pod and launch the preempt kernel for every
+    dry-run chunk; the chaos and the storm fired and no pod was bound
+    twice under the storm."""
+    label = f"{name} pass {seen['pass']}"
+    check("error" not in res, f"{label}: {res.get('error')}")
+    check(res["stats"].get("barrier_ok"), f"{label}: barrier failed")
+    d = res["detail"]
+    placed = d["placements"]
+    created = res["stats"]["created_pods"]
+    check(placed["bound"] == placed["pods"] == created - placed["deleted"]
+          and (preempting or placed["deleted"] == 0),
+          f"{label}: {placed['bound']} of {placed['pods']} pods bound "
+          f"({created} created, {placed['deleted']} deleted)")
+    check(placed["nodes_over_capacity"] == 0
+          and placed["max_pods_per_node"] <= 110,
+          f"{label}: nodes over capacity {placed['over_examples']}")
+    check(d["schedule_attempts"]["error"] == 0,
+          f"{label}: ERROR statuses {d['schedule_attempts']}")
+    esc = d.get("escape_rate", 0.0)
+    check(esc > 0 if marked else esc == 0.0,
+          f"{label}: escape_rate {esc} {seen['escapes']}")
+    counts = seen["launches"]
+    if cfg.get("null"):
+        check(not any(counts.values()),
+              f"{label}: a kernel launched on the nulled device {counts}")
+    elif name not in CONSTRAINT_ROWS:
+        check(counts.get("claims", 0) > 0,
+              f"{label}: the claims kernel never launched {counts}")
+    st = res["stats"]["backend_stats"]
+    if preempting:
+        hp = seen["high"]
+        check(hp["count"] == res["pods"] == hp["bound"],
+              f"{label}: high-priority pods {hp}")
+        check(d.get("preemption_attempts", 0) > 0,
+              f"{label}: no preemption attempt")
+        # every dry-run chunk of a wave is one launch (warmup's
+        # all-inactive chunk is one more)
+        check(counts.get("preempt", 0) >= st.get("preempt_chunks", 0) > 0,
+              f"{label}: preempt launches {counts} for "
+              f"{st.get('preempt_chunks', 0)} dry-run chunks")
+        print(f"   {label}: {hp['bound']} of {hp['count']} high-priority "
+              f"pods bound; {placed['deleted']} victims deleted; "
+              f"preemption attempts {d['preemption_attempts']}; preemption "
+              f"waves {st.get('preempt_waves', 0)} in "
+              f"{st.get('preempt_chunks', 0)} dry-run chunks [{smi}]",
+              flush=True)
+    if cfg.get("overload") is True:
+        inj = d.get("chaos_injected") or {}
+        check(inj.get("slow", 0) > 0 and inj.get("all_escape", 0) > 0,
+              f"{label}: chaos injected {inj}")
+        check(not any(k.endswith(("/system", "/high"))
+                      for k in d["overload"]["shed"]),
+              f"{label}: shed protected pods {d['overload']}")
+    if "storm" in d:
+        inj = d["storm"]["injected"]
+        check(all(inj.get(k, 0) > 0 for k in
+                  ("node_add", "node_drain", "node_relabel")),
+              f"{label}: storm {d['storm']}")
+        check(not seen["rebinds"],
+              f"{label}: pods bound twice {seen['rebinds'][:5]}")
+    print(f"   {label}: {round(res['value'], 1)} pods/s; pod e2e "
+          f"p50/p95/p99 {d.get('pod_e2e_p50_ms')} / "
+          f"{d.get('pod_e2e_p95_ms')} / {d.get('pod_e2e_p99_ms')} ms; "
+          f"placements from the store {placed}; batches {st['batches']}, "
+          f"waves per batch {d.get('waves_per_batch', 'n/a (no device)')}, "
+          f"full-variant batches {d.get('full_batches', 'n/a')}; escape "
+          f"rate {esc} {seen['escapes']['by_reason']}; profiled-batch idle "
+          f"share {seen.get('idle', 'n/a')}; launches {counts}; outside "
+          f"the window: setup {d['setup_s']} s, node creation "
+          f"{d['create_nodes_s']} s, flatten {d['flatten_before_window_s']} "
+          f"s [{smi}]", flush=True)
+    for key in ("overload", "chaos_injected", "storm"):
+        if key in d:
+            print(f"   {label}: {key} {d[key]}", flush=True)
 
 
 def loop_phases(smi):
-    """Phases 8-12: the bench configs through perf.bench.run_config on the
-    card (store, informers, queue, Scheduler, TorchBatchBackend, binder).
-    The kernels' counts are zeroed before each and read when the workload
-    is done; the checks read the store, not the backend.  8-10 then
-    profile one more batch; 11-12 (PreemptionBasic, PreemptionDense) check
-    that every measured (high-priority) pod is bound and that both kernels
-    launched.  Returns {config: {kernel: launches}}."""
+    """Phases 8-19: the bench configs through perf.bench.run_config on the
+    card (store, informers, queue, Scheduler, TorchBatchBackend, binder),
+    every pass a config has (two where bench.py says two_pass), each pass
+    held to check_pass's invariants.  The kernels' counts are zeroed
+    before each config and again at the end of each pass's `after` hook,
+    so each pass reads its own main path's launches; the checks read the
+    store, not the backend.  After each pass of a row without preemption
+    (and after its launches were read), one more batch of the row's own
+    pods runs under the profiler (idle share).  Phase 17 then reads the
+    host ceiling at SchedulingBasic's depth (host_ceiling).  Returns
+    {config: {kernel: the main path's launches over its passes}} and
+    {config: row}."""
     from kubernetes_tpu_torch.api import meta
     from kubernetes_tpu_torch.client.clientset import PODS
     from kubernetes_tpu_torch.ops import kernels
-    from kubernetes_tpu_torch.perf import bench
-    launches = {}
+    from kubernetes_tpu_torch.perf import bench, load_workloads
+    from kubernetes_tpu_torch.perf.scheduler_perf import is_measured
+
+    def zero():
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+    launches, rows = {}, {}
     for num, name in LOOP_PHASES:
         with Phase(f"{num} {name} through the Scheduler"):
             gc.collect()
             torch.cuda.empty_cache()
-            for k in kernels.LAUNCHES:
-                kernels.LAUNCHES[k] = 0
             cfg = bench.CONFIGS[name]
+            tpl = load_workloads()[cfg["workload"]]["workloadTemplate"]
+            measured = next(op for op in tpl if is_measured(op, tpl))
+            op = bench.profiled_op(tpl)
             preempting = name.startswith("Preemption")
-            high = {}
+            marked = "escapeEvery" in measured or cfg.get("overload") is True
+            passes = []   # per pass: what `after` saw
 
-            def after(cluster, name=name, cfg=cfg, preempting=preempting):
-                launches[name] = dict(kernels.LAUNCHES)
+            def after(cluster, name=name, cfg=cfg, op=op,
+                      preempting=preempting, passes=passes):
+                # this pass's main path: the counts were zeroed before it
+                seen = {"pass": len(passes) + 1,
+                        "launches": dict(kernels.LAUNCHES),
+                        "escapes": pass_escapes(cluster)}
                 if preempting:
                     pods, _ = cluster.store.list(PODS)
                     hp = [p for p in pods
                           if (p["spec"].get("priority") or 0) > 0]
-                    high.update(count=len(hp), bound=sum(
+                    seen["high"] = dict(count=len(hp), bound=sum(
                         1 for p in hp if meta.pod_node_name(p)))
                 else:
-                    profile_loop_batch(cluster, cfg["batch"], name, smi)
+                    if "storm" in name.lower():
+                        ledger = bench.BindLedger(cluster.store, since_rv=0)
+                        ledger.drain()
+                        ledger.stop()
+                        seen["rebinds"] = ledger.rebinds
+                    seen["idle"] = profile_loop_batch(
+                        cluster, cfg["batch"] if op is None
+                        else min(cfg["batch"], PROFILED_PODS), name, smi,
+                        op=op)
+                    torch.cuda.synchronize()
+                passes.append(seen)
+                zero()       # the next pass starts from 0
 
-            row, res = bench.run_config(name, after=after)
+            zero()
+            row, results = bench.run_config(name, after=after)
+            rows[name] = row
             print(json.dumps(row), flush=True)
             print(f"   {name} row measured on [{smi}]", flush=True)
-            check("error" not in res, f"{name}: {res.get('error')}")
-            check(res["stats"].get("barrier_ok"), f"{name}: barrier failed")
-            d = row["detail"]
-            placed = d["placements"]
-            print(f"   {name}: placements from the store {placed}",
-                  flush=True)
-            created = res["stats"]["created_pods"]
+            check(len(results) == len(passes)
+                  == (2 if cfg.get("two_pass") else 1),
+                  f"{name}: {len(results)} passes, {len(passes)} read")
+            for res, seen in zip(results, passes):
+                check_pass(name, cfg, res, seen, smi, preempting, marked)
+            check("error" not in row["detail"],
+                  f"{name}: {row['detail'].get('error')}")
+            launches[name] = {k: sum(p["launches"].get(k, 0) for p in passes)
+                              for k in kernels.LAUNCHES}
+            print(f"   {name}: kept {row['value']} pods/s, "
+                  f"{row['detail'].get('second_pass', 'one pass')}; "
+                  f"main-path launches over the passes {launches[name]} "
+                  f"[{smi}]", flush=True)
+            if cfg.get("null"):
+                host_ceiling(rows, smi, zero)
+    return launches, rows
+
+
+def host_ceiling(rows, smi, zero, rounds=HOST_CEILING_ROUNDS):
+    """Phase 17's second half: SchedulingHostNull and SchedulingBasic at
+    the same depth (SchedulingBasic's 2) in turns, `rounds` times each, in
+    this process: the card's share of the host ceiling per round and the
+    spread of both.  Each run is held to every pod bound, no node over
+    its caps and no escape; the nulled runs launch no kernel, the card's
+    launch claims."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.perf import bench
+    depth = bench.CONFIGS["SchedulingBasic"]["depth"]
+    got = {"SchedulingHostNull": [], "SchedulingBasic": []}
+    for r in range(rounds):
+        for name in got:
+            zero()
+            res = bench.run_once(**{**bench.pass_args(name),
+                                    "depth": depth})
+            counts = dict(kernels.LAUNCHES)
+            label = f"{name} at depth {depth}, round {r + 1}"
+            check("error" not in res, f"{label}: {res.get('error')}")
+            placed = res["detail"]["placements"]
             check(placed["bound"] == placed["pods"]
-                  == created - placed["deleted"],
-                  f"{name}: {placed['bound']} of {placed['pods']} pods bound "
-                  f"({created} created, {placed['deleted']} deleted)")
-            check(placed["nodes_over_capacity"] == 0
-                  and placed["max_pods_per_node"] <= 110,
-                  f"{name}: nodes over capacity {placed['over_examples']}")
-            check(d["schedule_attempts"]["error"] == 0,
-                  f"{name}: ERROR statuses {d['schedule_attempts']}")
-            check(d.get("escape_rate") == 0.0,
-                  f"{name}: escape_rate {d.get('escape_rate')}")
-            counts = launches.get(name, {})
-            check(counts.get("claims", 0) > 0,
-                  f"{name}: the claims kernel never launched")
-            st = res["stats"]["backend_stats"]
-            if preempting:
-                check(high.get("count") == row["detail"]["pods"]
-                      == high.get("bound"),
-                      f"{name}: high-priority pods {high}")
-                check(d.get("preemption_attempts", 0) > 0,
-                      f"{name}: no preemption attempt")
-                # every dry-run chunk of a wave is one launch (warmup's
-                # all-inactive chunk is one more)
-                check(counts.get("preempt", 0)
-                      >= st.get("preempt_chunks", 0) > 0,
-                      f"{name}: preempt launches {counts} for "
-                      f"{st.get('preempt_chunks', 0)} dry-run chunks")
-                print(f"   {name}: {high['bound']} of {high['count']} "
-                      f"high-priority pods bound; {placed['deleted']} "
-                      f"victims deleted; preemption attempts "
-                      f"{d['preemption_attempts']}; preemption waves "
-                      f"{st.get('preempt_waves', 0)} in "
-                      f"{st.get('preempt_chunks', 0)} dry-run chunks; "
-                      f"{d['Average']} pods/s, pod e2e p99 "
-                      f"{d.get('pod_e2e_p99_ms')} ms [{smi}]", flush=True)
-            print(f"   {name}: launches {counts}; backend batches "
-                  f"{st['batches']} waves {st['waves']} flush_first "
-                  f"{st['flush_first']} waves_patched {st['waves_patched']} "
-                  f"full_refresh {st['full_refresh']}; outside the window: "
-                  f"setup {d['setup_s']} s, node creation "
-                  f"{d['create_nodes_s']} s, flatten "
-                  f"{d['flatten_before_window_s']} s [{smi}]", flush=True)
-    return launches
+                  == res["stats"]["created_pods"]
+                  and placed["nodes_over_capacity"] == 0,
+                  f"{label}: placements {placed}")
+            check(res["detail"].get("escape_rate", 0.0) == 0.0
+                  and res["detail"]["schedule_attempts"]["error"] == 0,
+                  f"{label}: escapes or ERROR statuses")
+            check(not any(counts.values()) if name == "SchedulingHostNull"
+                  else counts.get("claims", 0) > 0,
+                  f"{label}: launches {counts}")
+            got[name].append(res["value"])
+            print(f"   {label}: {round(res['value'], 1)} pods/s, p99 "
+                  f"{res['detail'].get('pod_e2e_p99_ms')} ms [{smi}]",
+                  flush=True)
+    null, card = got["SchedulingHostNull"], got["SchedulingBasic"]
+    shares = [c / n for c, n in zip(card, null)]
+    print(f"   host ceiling at depth {depth}, {rounds} rounds in turns: "
+          f"SchedulingHostNull {min(null):.1f}-{max(null):.1f} pods/s, "
+          f"SchedulingBasic {min(card):.1f}-{max(card):.1f} pods/s; the "
+          f"card's share per round {[round(x, 4) for x in shares]}; the "
+          f"depth-1 row {rows['SchedulingHostNull']['value']} pods/s beside "
+          f"phase 8's {rows['SchedulingBasic']['value']} [{smi}]",
+          flush=True)
+
+
+def warm_start_phase(dev, smi, n_nodes=5000, n_pods=50_000, batch=16384):
+    """Phase 20: checkpoint / warm start on the card at SchedulingBasic's
+    shape.  One TorchBatchBackend on the card schedules the first batch;
+    checkpoint_mirror writes its host state (KTPUCKPT v1) with the cluster's
+    objects; a FRESH backend on the card warm-starts from the file, a
+    FRESH cache is primed with the objects (a restarted informer's
+    replay), warm_align adopts the rows, and the fresh backend schedules
+    the remaining pods.  The first backend, never restarted, schedules the
+    same remaining batches on its own cache: both result vectors must be
+    equal pod for pod.  Every pod placed, no node over its CPU, memory or
+    110-pod cap (from the returned names), the adopted rows reported."""
+    import copy as _copy
+    import tempfile
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+    with Phase("20 warm start on the card"):
+        sizes = [batch] * (n_pods // batch) + (
+            [n_pods % batch] if n_pods % batch else [])
+        cache = build_cluster(n_nodes, 20)
+        nodes = [_copy.deepcopy(ni.node)
+                 for ni in cache.update_snapshot(Snapshot()).list()]
+        tagged = [make_batches(1, k, f"warm{b}")[0]
+                  for b, k in enumerate(sizes)]
+
+        def backend():
+            b = TorchBatchBackend(caps_for_nodes(n_nodes), batch_size=batch,
+                                  device=dev)
+            b.warmup()
+            return b
+
+        def run(b, view_cache, infos):
+            out = b.assign(infos, view_cache.flatten_view())
+            torch.cuda.synchronize()
+            assume(view_cache, infos, out)
+            return out
+
+        a = backend()
+        a.prefetch(cache.flatten_view())
+        first = run(a, cache, tagged[0])
+        bound = [{**pi.pod, "spec": {**pi.pod["spec"], "nodeName": nm}}
+                 for pi, (nm, _st) in zip(tagged[0], first) if nm]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/warm.ckpt"
+            t0 = time.monotonic()
+            info = a.checkpoint_mirror(
+                path, snapshot=cache.flatten_view(),
+                resource_versions={"nodes": 1, "pods": 1},
+                objects={"nodes": nodes, "pods": bound})
+            write_s = time.monotonic() - t0
+            b = backend()
+            t0 = time.monotonic()
+            warm = b.warm_start(path)
+            load_s = time.monotonic() - t0
+        fresh = Cache()
+        fresh.add_nodes(warm["objects"]["nodes"])
+        for p in warm["objects"]["pods"]:
+            fresh.add_pod(p)
+        t0 = time.monotonic()
+        dropped = b.warm_align(fresh.flatten_view())
+        align_s = time.monotonic() - t0
+        adopted = b.stats.get("warm_adopted", 0)
+        print(f"   checkpoint {info['bytes']} B, {info['nodes']} rows, "
+              f"write {write_s:.3f} s; warm_start {load_s:.3f} s (lineage "
+              f"{warm['lineage']}); warm_align {align_s:.3f} s: {adopted} "
+              f"rows adopted, {dropped} dropped [{smi}]", flush=True)
+        check(adopted == info["nodes"] == n_nodes and dropped == 0,
+              f"warm start adopted {adopted} of {info['nodes']} rows")
+        outs, ctrl, secs = [first], [first], []
+        for infos in tagged[1:]:
+            twin = [PodInfo(_copy.deepcopy(pi.pod)) for pi in infos]
+            t0 = time.monotonic()
+            outs.append(run(b, fresh, infos))
+            secs.append(time.monotonic() - t0)
+            ctrl.append(run(a, cache, twin))
+        check(all([nm for nm, _ in o] == [nm for nm, _ in c]
+                  for o, c in zip(outs, ctrl)),
+              "the warm-started backend placed differently from the "
+              "uninterrupted one")
+        verify_placements(fresh, outs, n_pods, "warm start")
+        print(f"   after the warm start: {len(secs)} batches in "
+              f"{[round(x, 4) for x in secs]} s (the first includes the "
+              f"device state's rebuild from the installed tensors), "
+              f"{b.stats['full_refresh']} full refresh; equal to the "
+              f"uninterrupted backend pod for pod [{smi}]", flush=True)
+        return {"adopted": adopted, "bytes": info["bytes"]}
 
 
 def parse_args(argv):
@@ -1653,9 +1904,9 @@ def main(argv=None) -> int:
     with Phase("4 slice GPU vs CPU"):
         # murmur is integer noise; the sin noise is f64 sin rounded to f32
         # on both devices, so both must agree bit for bit
-        kept = []
+        kept, by_noise = [], {}
         for noise in ("murmur", "sin"):
-            runs = {}
+            runs = by_noise[noise] = {}
             for device in (dev, torch.device("cpu")):
                 with ClaimsRecorder(kernels, keep=device.type == "cuda") \
                         as rec:
@@ -1667,6 +1918,11 @@ def main(argv=None) -> int:
                 state, _ = carry.state_to_numpy(backend._state)
                 runs[device.type] = (
                     [r.get().copy() for r in backend.results], state, waves)
+        # the launches first: should the vectors below differ, this says
+        # whether a launch or only the noise's inputs did
+        replay_launches(kernels, kept, "slice-cuda")
+        del kept
+        for noise, runs in by_noise.items():
             g, c = runs["cuda"], runs["cpu"]
             check(len(g[0]) == len(c[0]) and all(
                 np.array_equal(a, b) for a, b in zip(g[0], c[0])),
@@ -1681,8 +1937,6 @@ def main(argv=None) -> int:
             print(f"   {noise}: {len(g[0])} result vectors and the final "
                   f"state are bit-identical; waves per batch {g[2]}",
                   flush=True)
-        replay_launches(kernels, kept, "slice-cuda")
-        del kept
 
     summaries = {}
     for label, n_nodes, n_batches in (("5k", 5000, 3), ("100k", 100_000, 12)):
@@ -1789,7 +2043,9 @@ def main(argv=None) -> int:
     pre = preempt_phase(dev, smi, others=others_preempt)
 
     # the scheduler loop above BatchBackend
-    loop_launches = loop_phases(smi)
+    loop_launches, _rows = loop_phases(smi)
+    # checkpoint / warm start
+    warm_start_phase(dev, smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     print(smi)

@@ -33,20 +33,35 @@ Transport design (unchanged from the JAX backend):
     only at preemption time: a full upload or a row overwrite, like the
     static arrays.
 
-Not yet ported (ROADMAP queue 1): checkpoint/warm start, batch telemetry
-and tracing, the wave timeline, the remote device worker.
+Checkpointed warm start (checkpoint_mirror / warm_start) writes and reads
+the JAX package's KTPUCKPT v1 format: a checkpoint written by either
+package's backend installs in the other's.
+
+Not yet ported (ROADMAP queue 1): the batch telemetry's densities
+(drain_batch_telemetry; the escape tallies are ported), tracing, the wave
+timeline, the remote device worker.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
+import io
 import logging
+import os
+import pickle
+import pkgutil
 import threading
 import time
+import types
+import zlib
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from ..api import meta
 from ..device import resolve_device
 from ..models.assign import (
     ALL_FEATURES, PLAIN_FEATURES, PackSpec, build_packed_assign_fn,
@@ -84,6 +99,100 @@ STATIC_VICT = ("vict_prio", "vict_req", "vict_pdb", "vict_over")
 # batch and finish its tail (so the authoritative tensors catch up), then
 # re-dispatch.
 FLUSH_FIRST = object()
+
+
+# -- checkpointed warm start -------------------------------------------------
+#
+# A checkpoint is the HOST half of the backend only: the ClusterTensors
+# (numpy arrays + slot allocator + vocabularies + selector-group buckets)
+# plus per-node adoption digests and the informer resourceVersions the
+# state was current at.  Device state is absent: the backend rebuilds it
+# from the installed tensors on the first dispatch (_full_refresh,
+# _upload_static), on its own device, which is what makes the format
+# portable across the JAX package's backends and this one.
+#
+# The format is the JAX package's (kubernetes_tpu/ops/backend.py), byte
+# for byte in its header and field for field in its payload.  The payload
+# is a pickle, and a pickle names the classes of the objects it holds.
+# Both packages hold the same flatten.py, so the classes are the same
+# code under two package names: this backend writes every class of this
+# package under the JAX package's name (resolved by the reader through
+# pkgutil.resolve_name) and reads either name as its own class.  So the
+# JAX reader's plain pickle.loads gets its own classes, and this package
+# never imports the other.
+
+CHECKPOINT_MAGIC = b"KTPUCKPT"
+
+# Payload schema: exactly the keys the warm-start reader consumes, the
+# JAX package's CHECKPOINT_FIELDS at the same version; changing them is a
+# format change for both packages.
+CHECKPOINT_FIELDS = (
+    "caps",
+    "batch_size",
+    "lineage",
+    "objects",
+    "resource_versions",
+    "tensors",
+    "warm_digests",
+)
+CHECKPOINT_SCHEMA_VERSION = 1
+
+# the package name a checkpoint's classes are written under, and this one
+_WIRE_PKG = "kubernetes_tpu"
+_OWN_PKG = __name__.split(".", 1)[0]
+
+
+class CheckpointError(RuntimeError):
+    """Checkpoint unusable (missing, corrupt, schema/caps mismatch).
+    warm_start raises BEFORE touching any backend state, so the caller
+    falls back to an ordinary cold start — never partial installs."""
+
+
+def _own_name(module: str) -> str:
+    """A module name of either package as this package's."""
+    if module == _WIRE_PKG or module.startswith(_WIRE_PKG + "."):
+        return _OWN_PKG + module[len(_WIRE_PKG):]
+    return module
+
+
+def _resolve_own(name: str):
+    """pkgutil.resolve_name for a checkpoint's class references, with the
+    package mapped to this one."""
+    module, _, attr = name.partition(":")
+    return pkgutil.resolve_name(f"{_own_name(module)}:{attr}")
+
+
+class _CheckpointPickler(pickle.Pickler):
+    """Writes this package's classes and functions under the JAX package's
+    module names (pkgutil.resolve_name("kubernetes_tpu...:Name"))."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, (type, types.FunctionType)):
+            module = getattr(obj, "__module__", "") or ""
+            if module == _OWN_PKG or module.startswith(_OWN_PKG + "."):
+                wire = _WIRE_PKG + module[len(_OWN_PKG):]
+                return pkgutil.resolve_name, (f"{wire}:{obj.__qualname__}",)
+        return NotImplemented
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    """Reads class references of either package as this package's."""
+
+    def find_class(self, module, name):
+        if module == "pkgutil" and name == "resolve_name":
+            return _resolve_own
+        return super().find_class(_own_name(module), name)
+
+
+def _warm_digest(ni) -> tuple:
+    """Content signature of one NodeInfo, comparable ACROSS processes
+    (generation counters are per-process and useless here): the node
+    object's resourceVersion plus the resident pod set with per-pod
+    resourceVersions.  Equal digests => the row encode would be
+    bit-identical, so the checkpointed row can be adopted as-is."""
+    return (meta.resource_version(ni.node),
+            tuple(sorted((pi.key, meta.resource_version(pi.pod))
+                         for pi in ni.pods)))
 
 
 def _apply_static_patch(static: dict, rows, alloc_v, maxpods_v, valid_v,
@@ -198,6 +307,12 @@ class ResidentHostMirror:
     self._f_patch, self._k_cap, self.batch_size, self.caps, self._lock,
     self._unresolved, self._carry_dirty, self._last_epoch, self.stats."""
 
+    # warm-start adoption digests ({node name: _warm_digest}), installed
+    # by warm_start and consumed one-shot by _try_warm_adopt.  The class
+    # default is an always-empty dict (never mutated: every touch is
+    # guarded by truthiness) so cold-started backends pay nothing.
+    _warm_pending: dict = {}
+
     def prefetch(self, snapshot) -> None:
         """Idle-time tensor sync: absorb node churn into the host arrays
         while nothing is queued or in flight, so the next dispatch's
@@ -206,6 +321,8 @@ class ResidentHostMirror:
         with self._lock:
             if self._unresolved:
                 return
+            if self._warm_pending:
+                self._warm_sweep(snapshot)
             epoch_fn = getattr(snapshot, "epoch", None)
             epoch = epoch_fn() if epoch_fn is not None else None
             if epoch is not None and epoch == self._last_epoch:
@@ -279,7 +396,17 @@ class ResidentHostMirror:
     def _replay(self, batch: PodBatch, assignments: np.ndarray) -> None:
         """Apply the step's commit rules to the host mirror (vectorized:
         np.add.at / maximum.at accumulate correctly when many pods land on
-        the same row)."""
+        the same row), and mark the rows this batch placed pods on for a
+        victim re-encode.
+
+        The victim rows re-encode at preemption time from the rows' live
+        NodeInfos, but only the rows marked since the last preemption
+        wave; a tensor sync marks the rows it re-encodes.  The epoch fast
+        path skips that sync when every cache change since the last one
+        was this backend's own placements, so without the mark here a
+        row's victim slots could stay as an earlier wave encoded them,
+        missing the pods placed since, and a preemptor would find no
+        victims where the cache holds them."""
         t, m = self.tensors, self._mirror
         n = min(len(assignments), self.batch_size)
         rows = np.asarray(assignments[:n], np.int64)
@@ -287,6 +414,7 @@ class ResidentHostMirror:
         if placed.size == 0:
             return
         prow = rows[placed]
+        t.vict_dirty_rows.update(np.unique(prow).tolist())
         np.add.at(m["used"], prow, batch.req[placed])
         np.add.at(m["used_nz"], prow, batch.req_nz[placed])
         np.add.at(m["npods"], prow, 1.0)
@@ -329,7 +457,11 @@ class ResidentHostMirror:
 
             def _apply(ni):
                 if ni is None:
+                    if self._warm_pending:
+                        self._warm_pending.pop(name, None)
                     return t.patch_remove(name)
+                if self._warm_pending and self._try_warm_adopt(name, ni):
+                    return None  # row adopted verbatim: nothing dirty
                 return t.patch_node(name, ni)
 
             try:
@@ -403,6 +535,235 @@ class ResidentHostMirror:
         self.stats["gen_recoveries"] = self.stats.get(
             "gen_recoveries", 0) + 1
 
+    # -- checkpointed warm start -----------------------------------------
+
+    def checkpoint_mirror(self, path: str, *, snapshot=None,
+                          resource_versions=None, objects=None) -> dict:
+        """Serialize the resident host state to `path` (atomic
+        tmp+rename): tensors, per-node adoption digests, the informer
+        resourceVersions the state was current at, and optionally the
+        raw objects to prime a restarted informer with.  Taken under the
+        backend lock between waves (the drain path resolves in-flight
+        work first), so the payload is a consistent cut.
+
+        Pass `snapshot` (the cache flatten view) to catch the tensors up
+        with binds committed after the last drain before cutting.  A
+        digest is only recorded for rows whose generation markers are
+        current with the NodeInfo they alias — node_infos are the live
+        cache objects, mutated in place after encode, so a stale row's
+        digest would certify content the tensors don't hold."""
+        with self._lock:
+            t = self.tensors
+            if snapshot is not None:
+                t.update_from_snapshot_tracked(snapshot)
+            digests = {}
+            for row, ni in enumerate(t.node_infos):
+                if (ni is not None and t.valid[row]
+                        and t.gen[row] == ni.generation
+                        and t.node_gen[row] == ni.node_generation):
+                    digests[ni.name] = _warm_digest(ni)
+            # Serialize a shallow copy with the NodeInfo graph stripped:
+            # node_infos are THIS process's live cache objects — the
+            # restarted process rebuilds its own from the primed informer
+            # and re-links them row-by-row through _try_warm_adopt, so
+            # shipping the graph only bloats the blob and dominates the
+            # unpickle.  _dyn_digest goes with it: warm_start resets both
+            # before install.  The numpy arrays are shared references;
+            # pickle copies them into the blob untouched.  Classes are
+            # written under the JAX package's names (_CheckpointPickler).
+            t_ser = copy.copy(t)
+            t_ser.node_infos = [None] * t.caps.n_cap
+            t_ser._dyn_digest = [None] * t.caps.n_cap
+            payload = {
+                "caps": dataclasses.asdict(self.caps),
+                "batch_size": self.batch_size,
+                "lineage": self.lineage,
+                "objects": objects,
+                "resource_versions": dict(resource_versions or {}),
+                "tensors": t_ser,
+                "warm_digests": digests,
+            }
+            # cyclic GC off for the bulk dump: the serializer allocates
+            # many temporaries and every generational collection re-walks
+            # the (large, live) cache heap a draining scheduler holds
+            gc_was = gc.isenabled()
+            gc.disable()
+            try:
+                out = io.BytesIO()
+                _CheckpointPickler(out, protocol=pickle.HIGHEST_PROTOCOL
+                                   ).dump(payload)
+                blob = out.getvalue()
+            finally:
+                if gc_was:
+                    gc.enable()
+        header = (CHECKPOINT_MAGIC
+                  + CHECKPOINT_SCHEMA_VERSION.to_bytes(4, "big")
+                  + zlib.crc32(blob).to_bytes(4, "big"))
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            f.write(header + blob)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return {"path": path, "bytes": len(header) + len(blob),
+                "nodes": len(digests)}
+
+    def warm_start(self, path: str) -> dict:
+        """Install a checkpoint into this (freshly constructed) backend.
+
+        Validation happens before any mutation: bad magic, schema-version
+        mismatch, body corruption or caps mismatch raise CheckpointError
+        and leave the backend untouched (the caller cold-starts).  On
+        success the tensors are installed with every per-process currency
+        marker reset stale — gen/node_gen/_dyn_digest carry ANOTHER
+        process's cache counters, and a coincidental match against this
+        process's generations would let _sync_rows/patch_node silently
+        skip a changed row.  Rows regain currency only through
+        _try_warm_adopt's content-digest check as the (primed) informer
+        replays them; anything unadopted re-encodes through the ordinary
+        sync paths.  Returns {resource_versions, objects, nodes,
+        lineage} so the caller can prime its informers and re-sync only
+        the delta since the checkpoint.  The payload's classes may be
+        either package's (_CheckpointUnpickler reads both as this one's);
+        the installed tensors are host arrays, and the first dispatch
+        uploads them to this backend's device."""
+        try:
+            with open(path, "rb") as f:
+                raw = f.read()
+        except OSError as e:
+            raise CheckpointError(f"checkpoint unreadable: {e}") from e
+        hlen = len(CHECKPOINT_MAGIC) + 8
+        if len(raw) < hlen or not raw.startswith(CHECKPOINT_MAGIC):
+            raise CheckpointError("not a ktpu checkpoint (bad magic)")
+        version = int.from_bytes(raw[len(CHECKPOINT_MAGIC):
+                                     len(CHECKPOINT_MAGIC) + 4], "big")
+        if version != CHECKPOINT_SCHEMA_VERSION:
+            raise CheckpointError(
+                f"checkpoint schema v{version} != supported "
+                f"v{CHECKPOINT_SCHEMA_VERSION}")
+        crc = int.from_bytes(raw[hlen - 4:hlen], "big")
+        # memoryview, not raw[hlen:]: slicing would copy the body (a
+        # second body-sized buffer) before the unpickle
+        blob = memoryview(raw)[hlen:]
+        if zlib.crc32(blob) != crc:
+            raise CheckpointError("checkpoint body corrupt (crc mismatch)")
+        # cyclic GC off for the bulk load: unpickling the object payload
+        # allocates many small containers, and with a warm cache heap
+        # already resident each generational collection re-walks it all
+        gc_was = gc.isenabled()
+        gc.disable()
+        try:
+            payload = _CheckpointUnpickler(io.BytesIO(blob)).load()
+        except Exception as e:  # noqa: BLE001 - any unpickle failure
+            raise CheckpointError(f"checkpoint undecodable: {e}") from e
+        finally:
+            if gc_was:
+                gc.enable()
+        if (not isinstance(payload, dict)
+                or set(payload) != set(CHECKPOINT_FIELDS)):
+            raise CheckpointError("checkpoint payload shape mismatch")
+        if payload["caps"] != dataclasses.asdict(self.caps):
+            raise CheckpointError(
+                "checkpoint caps do not match this backend's caps")
+        t = payload["tensors"]
+        with self._lock:
+            # stale-currency reset: see docstring.  Full-upload flags are
+            # forced so the first dispatch rebuilds every device channel
+            # from the installed tensors (a detached tensor set: no device
+            # copy exists yet to desynchronize).
+            t.gen[:] = -1
+            t.node_gen[:] = -1
+            t._dyn_digest = [None] * t.caps.n_cap
+            t.static_full = True
+            t.vict_full = True
+            t.static_dirty_rows = set()
+            self.tensors = t
+            self.encoder = BatchEncoder(t, self.batch_size)
+            self._state = None
+            self._static_node = None
+            self._static_version = -1
+            self._static_sel = None
+            self._static_vict = None
+            self._vict_version = -1
+            self._vict_live_cap = 0
+            self._mirror = None
+            self._unresolved = []
+            self._carry_dirty = set()
+            self._last_epoch = None
+            self._fence_pending = 0
+            self._stage_pins.clear()
+            self._warm_pending = dict(payload["warm_digests"])
+            self.stats["warm_starts"] = self.stats.get(
+                "warm_starts", 0) + 1
+        return {"resource_versions": payload["resource_versions"],
+                "objects": payload["objects"],
+                "nodes": len(payload["warm_digests"]),
+                "lineage": payload["lineage"]}
+
+    def _try_warm_adopt(self, name: str, ni) -> bool:
+        """Adopt one checkpointed row for a live NodeInfo (caller holds
+        the backend lock; the NodeInfo is read under the cache lock).
+        One-shot per name: the digest is popped, and only an exact
+        content match restores the row's generation currency — a
+        mismatch (node or pods changed across the restart) leaves the
+        row stale so patch_node/_sync_rows re-encode it."""
+        dg = self._warm_pending.pop(name, None)
+        if dg is None:
+            return False
+        t = self.tensors
+        row = t.row_of.get(name)
+        if row is None or not t.valid[row] or dg != _warm_digest(ni):
+            return False
+        t.node_infos[row] = ni
+        # digest-proven adoption: the row's encoded content already
+        # equals this NodeInfo, only the currency stamps move
+        t.gen[row] = ni.generation
+        t.node_gen[row] = ni.node_generation
+        self.stats["warm_adopted"] = self.stats.get("warm_adopted", 0) + 1
+        return True
+
+    def _warm_sweep(self, snapshot) -> int:
+        """One-shot warm alignment (caller holds the backend lock): in a
+        single pass under the cache lock, adopt every checkpointed row
+        whose live NodeInfo content-matches its digest, drop rows for
+        nodes no longer live (deleted during the restart window), and
+        retire the leftover digests — from here on the ordinary sync
+        paths own every row.  The initial informer replay arrives as a
+        BULK ADDED burst (scheduler._on_node_events) that bypasses
+        note_node_event, so the first prefetch/dispatch calls this
+        before its snapshot sync.  Returns the rows dropped."""
+        t = self.tensors
+        dropped = 0
+
+        def go(infos):
+            nonlocal dropped
+            live = set()
+            for ni in infos:
+                live.add(ni.name)
+                self._try_warm_adopt(ni.name, ni)
+            for name in list(t.row_of):
+                if name not in live and t.patch_remove(name) is not None:
+                    dropped += 1
+
+        run_locked = getattr(snapshot, "run_locked", None)
+        if run_locked is not None:
+            run_locked(go)
+        else:
+            go(snapshot.node_info_list)
+        self._warm_pending = {}
+        if dropped:
+            self._maybe_compact()
+        return dropped
+
+    def warm_align(self, snapshot) -> int:
+        """Public wrapper around the warm sweep, for callers that want
+        alignment at a deterministic point — right after cache sync —
+        instead of lazily at the first wave.  Returns the rows dropped."""
+        with self._lock:
+            if not self._warm_pending:
+                return 0
+            return self._warm_sweep(snapshot)
+
 
 class _StagedBuffer:
     """One pinned host staging buffer of the upload ring: `host` is the
@@ -469,6 +830,9 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
     full step's waves and drains the leftovers through a small retry step
     (the JAX package's KTPU_FULL_MAIN_WAVES); 0 runs every wave in the
     main step."""
+
+    # the checkpoint payload's "lineage": which backend wrote it
+    lineage = "torch"
 
     STAGE_RING_MAX = 16
     RETRY_ROUNDS_MAX = 32  # defensive bound; rounds stop at no progress
@@ -832,6 +1196,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         than `full_cap` runs in chunks that chain the resident state; the
         row patches ride the first chunk."""
         with self._lock:
+            if self._warm_pending:
+                self._warm_sweep(snapshot)
             # epoch fast path: if every cache change since the last sync
             # came from this backend's own batches (bulk assume + confirm),
             # the mirror replay already holds the truth — skip the O(nodes)
@@ -852,6 +1218,22 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                     self._last_epoch = epoch
                     self.stats["flatten_seconds"] += time.monotonic() - t_sync
                 batch = self.encoder.encode(list(pod_infos))
+                if (skip_sync and self._static_version
+                        != self.tensors.static_version):
+                    # the encode registered a selector group, so the domain
+                    # counts are compared with the mirror below and a
+                    # mismatch refreshes the device state from the host
+                    # tensors; the skipped sync left those behind this
+                    # backend's own binds since the last one, and a refresh
+                    # from them would drop those pods from the device's
+                    # accounting (nodes filled past their caps).  Nothing
+                    # external changed (same epoch), so no row moves: sync
+                    # now.
+                    t_sync = time.monotonic()
+                    dirty = set(self.tensors.update_from_snapshot_tracked(
+                        snapshot))
+                    skip_sync = False
+                    self.stats["flatten_seconds"] += time.monotonic() - t_sync
             except VocabFullError as e:
                 logger.warning("tensorization overflow (%s); batch -> oracle "
                                "path", e)
@@ -859,6 +1241,10 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 # full dynamic refresh on the next successful dispatch
                 self._state = None
                 self._carry_dirty = set()
+                reason = ("constraint_capacity" if "constraint" in str(e)
+                          else "vocab_full")
+                self._tally_escape_pairs(
+                    {("BatchEncoder", reason): len(pod_infos)})
                 results = [(None, Status(SKIP, str(e)))] * len(pod_infos)
                 return lambda: results
             n_live = len(pod_infos)
@@ -870,6 +1256,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 self._carry_dirty = dirty
                 self.stats["all_escape_skips"] = self.stats.get(
                     "all_escape_skips", 0) + 1
+                self._tally_batch_escapes(batch, n_live)
                 results = [
                     (None, Status(SKIP, "escape to per-pod path"))
                     ] * n_live
@@ -1056,6 +1443,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                                  set(batch.escape), row_names,
                                  "no feasible node (GPU batch filter)",
                                  nofit_escapes=set(batch.nofit_oracle))
+            self._tally_batch_escapes(batch, n, assignments)
             record_batch_stats(self.stats, self._lock, out, n)
             return out
 
@@ -1122,6 +1510,30 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             pend = self._escape_pending
             for key, cnt in pairs.items():
                 pend[key] = pend.get(key, 0) + cnt
+
+    def _tally_batch_escapes(self, batch: PodBatch, n: int,
+                             assignments=None) -> None:
+        """Accumulate this batch's per-(plugin, reason) escape counts.
+        Encoder escapes carry their reason from flatten.escape_reasons;
+        a no-fit verdict on a nofit_oracle pod is a per-pod re-proof: a
+        nominated pod's carries the encoder's ("DefaultPreemption",
+        "nominated_node_stale"), a collided-bucket pod's is attributed to
+        the encoder's shared-bucket transport."""
+        pend: dict = {}
+        esc = set(batch.escape)
+        for i in esc:
+            if i < n:
+                key = (batch.escape_reasons.get(i)
+                       or ("BatchEncoder", "unencodable"))
+                pend[key] = pend.get(key, 0) + 1
+        for i in set(batch.nofit_oracle):
+            if (i < n and i not in esc and i < self.batch_size
+                    and (assignments is None or assignments[i] < 0)):
+                key = (batch.escape_reasons.get(i)
+                       or ("BatchEncoder", "bucket_collision"))
+                pend[key] = pend.get(key, 0) + 1
+        if pend:
+            self._tally_escape_pairs(pend)
 
     def drain_escape_reasons(self) -> dict:
         """Pop the pending {(plugin, reason): count} escape tallies; the
@@ -1538,8 +1950,10 @@ def make_batch_backend(kind: str = "tpu", caps: Caps | None = None,
       tpu      the single-device resident step: TorchBatchBackend on
                `device` (CUDA unless the caller names another)
       sharded  the multi-device path (not ported: ROADMAP queue 1 item 7)
-      null     the host pipeline with the device step nulled (not
-               ported: ROADMAP queue 1 item 4)"""
+      null     the host pipeline with the device step nulled
+               (ops/nullbackend.py, numpy only: the host-ceiling
+               measurement; `device` does not apply).  Only a caller
+               that names it gets it: no other kind falls back to it."""
     if kind == "tpu":
         return TorchBatchBackend(caps, batch_size=batch_size,
                                  weights=weights, k_cap=k_cap,
@@ -1549,8 +1963,7 @@ def make_batch_backend(kind: str = "tpu", caps: Caps | None = None,
             "backend kind 'sharded': the multi-device path is not ported "
             "(ROADMAP queue 1 item 7)")
     if kind == "null":
-        raise NotImplementedError(
-            "backend kind 'null': the nulled-device backend is not ported "
-            "(ROADMAP queue 1 item 4)")
+        from .nullbackend import NullBatchBackend
+        return NullBatchBackend(caps or Caps(), batch_size=batch_size)
     raise ValueError(f"unknown batch backend kind {kind!r} "
                      "(expected tpu, sharded or null)")

@@ -243,15 +243,21 @@ def setup_cluster(caps=None, batch_size: int = 512,
     The profile's batch backend comes from
     ops/backend.make_batch_backend(backend_kind): "tpu" is
     TorchBatchBackend on `device` (CUDA unless the caller names the CPU;
-    without a GPU the default raises).  It is built and warmed up on the
-    caller's thread, before the informers start.  tracing_provider
-    attaches a component_base.tracing.TracerProvider to the scheduler
-    (configure_tracing); overload takes a config.OverloadPolicy
-    (configure_overload).
+    without a GPU the default raises), "null" the host pipeline with the
+    device step nulled (ops/nullbackend.py).  It is built and warmed up on
+    the caller's thread, before the informers start.  null_device=True
+    asks for the "null" kind whatever backend_kind says (the host-ceiling
+    row); it is a measurement the caller names, never a fallback.
+    tracing_provider attaches a component_base.tracing.TracerProvider to
+    the scheduler (configure_tracing); overload takes a
+    config.OverloadPolicy (configure_overload); chaos_schedule takes an
+    ops.faults.OverloadSchedule and wraps the backend in
+    ChaosBatchBackend (slow and all-escape waves); device_flight_s > 0
+    wraps it in FlightDelayBackend (every wave's flight pinned to at least
+    that wall time).
 
     Not ported (they raise NotImplementedError, naming the ROADMAP item):
-    via_http (the apiserver), remote_seam (ops/remote.py), null_device and
-    device_flight_s (ops/nullbackend.py), chaos_schedule (ops/faults.py),
+    via_http (the apiserver), remote_seam (ops/remote.py),
     profiling_policy.census (the device census).
     """
     if via_http:
@@ -260,12 +266,6 @@ def setup_cluster(caps=None, batch_size: int = 512,
     if remote_seam:
         raise _not_ported("remote_seam (ops/remote.py)",
                           "ROADMAP queue 1 item 6")
-    if null_device or device_flight_s > 0:
-        raise _not_ported("null_device / device_flight_s "
-                          "(ops/nullbackend.py)", "ROADMAP queue 1 item 4")
-    if chaos_schedule is not None:
-        raise _not_ported("chaos_schedule (ops/faults.py)",
-                          "ROADMAP queue 1 item 4")
     if profiling_policy is not None and profiling_policy.census:
         raise _not_ported("profiling_policy.census (the device census)",
                           "ROADMAP queue 1 item 5")
@@ -276,9 +276,16 @@ def setup_cluster(caps=None, batch_size: int = 512,
     factory = SharedInformerFactory(client)
     from ..ops.backend import make_batch_backend
     from ..ops.flatten import Caps
-    backend = make_batch_backend(backend_kind, caps or Caps(),
-                                 batch_size=batch_size, device=device)
+    backend = make_batch_backend("null" if null_device else backend_kind,
+                                 caps or Caps(), batch_size=batch_size,
+                                 device=device)
     backend.warmup()
+    if chaos_schedule is not None:
+        from ..ops.faults import ChaosBatchBackend
+        backend = ChaosBatchBackend(backend, chaos_schedule)
+    if device_flight_s > 0:
+        from ..ops.nullbackend import FlightDelayBackend
+        backend = FlightDelayBackend(backend, device_flight_s)
     fw = new_default_framework(client, factory)
     profiles = {"default-scheduler": Profile(
         fw, batch_backend=backend, batch_size=batch_size,
@@ -492,6 +499,7 @@ def run_workload(cluster: PerfCluster, ops: list[dict],
     expected_scheduled = 0
     stats: dict[str, Any] = {}
     churn_stop: list[threading.Event] = []
+    storm_drivers: list = []
     for op in ops:
         opcode = op["opcode"]
         if opcode == "createNodes":
@@ -663,15 +671,53 @@ def run_workload(cluster: PerfCluster, ops: list[dict],
 
             threading.Thread(target=churn_loop, daemon=True).start()
         elif opcode == "nodeStorm":
-            # seeded topology churn drives ops/faults.py's storm driver
-            raise _not_ported("the nodeStorm opcode (ops/faults.py)",
-                              "ROADMAP queue 1 item 4")
+            # seeded topology churn (ChurnStormSchedule + NodeStormDriver):
+            # floods node adds / drains / relabels through the informer
+            # while pod floods are in flight, stressing the backend's row
+            # patches, between-wave compaction and pipelined gen fences.
+            # Background thread like churn; stepped at a fixed interval,
+            # stopped at end-of-workload with the same stop-event list.
+            from ..ops.faults import ChurnStormSchedule, NodeStormDriver
+            storm_sched = ChurnStormSchedule(
+                seed=op.get("seed", 0),
+                add_rate=op.get("addRate", 0.0),
+                drain_rate=op.get("drainRate", 0.0),
+                relabel_rate=op.get("relabelRate", 0.0))
+            prefix = op.get("nodeNamePrefix", "node-")
+            driver = NodeStormDriver(
+                cluster.client, storm_sched,
+                [f"{prefix}{i}" for i in range(created_nodes)],
+                min_nodes=op.get("minNodes", max(1, created_nodes // 2)),
+                max_nodes=op.get("maxNodes", max(4, created_nodes * 2)),
+                cpu=op.get("cpu", "32"), mem=op.get("memory", "256Gi"),
+                rack_labels=op.get("rackLabels", 0))
+            storm_drivers.append(driver)
+            ev = threading.Event()
+            churn_stop.append(ev)
+            interval = op.get("intervalMilliseconds", 50) / 1000.0
+            max_steps = op.get("steps", 0)
+
+            def storm_loop(ev=ev, driver=driver, interval=interval,
+                           max_steps=max_steps):
+                while not ev.wait(interval):
+                    if max_steps and driver.steps >= max_steps:
+                        return
+                    driver.step()
+
+            threading.Thread(target=storm_loop, daemon=True).start()
         else:
             raise ValueError(f"unknown opcode {opcode!r}")
     for ev in churn_stop:
         ev.set()
     stats["created_pods"] = created_pods
     stats["created_nodes"] = created_nodes
+    if storm_drivers:
+        stats["storm"] = {
+            "steps": sum(d.steps for d in storm_drivers),
+            "injected": {k: sum(d.injected[k] for d in storm_drivers)
+                         for k in storm_drivers[0].injected},
+            "live_nodes": sum(len(d._names) for d in storm_drivers),
+        }
     return stats
 
 
@@ -749,6 +795,9 @@ def run_named_workload(config: dict, caps=None,
                 esc = stats["backend_stats"].get("escaped", 0)
                 if pods:
                     stats["escape_rate"] = round(esc / pods, 4)
+                injected = getattr(p.batch_backend, "injected", None)
+                if injected is not None:  # ChaosBatchBackend wrapper
+                    stats["chaos_injected"] = dict(injected)
                 maint_fn = getattr(p.batch_backend,
                                    "maintenance_snapshot", None)
                 if maint_fn is not None:

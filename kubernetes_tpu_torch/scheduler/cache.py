@@ -255,6 +255,11 @@ class Cache:
             ps = self._pod_states.get(meta.namespaced_name(pod))
             return ps.pod if ps else None
 
+    def holds(self, key: str) -> bool:
+        """Whether the cache holds the pod with this 'ns/name' key."""
+        with self._lock:
+            return key in self._pod_states
+
     def assumed_pod_count(self) -> int:
         with self._lock:
             return len(self._assumed_pods)

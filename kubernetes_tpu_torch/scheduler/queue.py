@@ -11,6 +11,9 @@ Reference semantics: pkg/scheduler/internal/queue/scheduling_queue.go
   MoveAllToActiveOrBackoffQueue + moveRequestCycle race guard: an event that
     arrives while a pod is mid-cycle must not strand it in unschedulable.
   PodNominator: bookkeeping of preemption-nominated pods per node.
+  PreEnqueue gating (set_gate): a parked pod the gate holds stays parked
+    whatever event or backoff expiry would release it; the flush loop
+    re-checks the held pods.
 
 Pop() additionally supports pop_batch(max_n) — the TPU batch path drains up
 to K pods at once; this is the only queue-surface addition vs the reference.
@@ -289,6 +292,9 @@ class SchedulingQueue:
         # Default True: a cap set without a controller (tests, legacy
         # `engagement: always`) enforces immediately, as it always has.
         self._overload_engaged = True
+        # pre-enqueue gate (set_gate) and the parked pods it holds
+        self._gate: Callable[[QueuedPodInfo], bool] | None = None
+        self._held: set[str] = set()  # guarded-by: _lock|_cond
 
     # -- backoff ---------------------------------------------------------
 
@@ -305,6 +311,43 @@ class SchedulingQueue:
 
     def _is_backing_off(self, qpi: QueuedPodInfo) -> bool:
         return qpi.attempts > 0 and self._backoff_expiry(qpi) > time.monotonic()
+
+    # -- pre-enqueue gate ------------------------------------------------
+
+    def set_gate(self, held: Callable[[QueuedPodInfo], bool] | None) -> None:
+        """Keep a failed pod parked in unschedulable while held(qpi) is
+        true: no event move, backoff expiry or pod update releases it
+        (the PreEnqueue point, checked when a pod would leave the parking
+        lot).  held runs under the queue lock; the flush loop re-checks
+        the held pods every tick."""
+        with self._cond:
+            self._gate = held
+
+    def _hold(self, qpi: QueuedPodInfo) -> bool:
+        """Park qpi if the gate holds it; whether it did."""
+        if self._gate is None or not self._gate(qpi):
+            self._held.discard(qpi.key)
+            return False
+        self._unschedulable[qpi.key] = qpi
+        self._held.add(qpi.key)
+        return True
+
+    def _release_held_locked(self) -> bool:
+        """Move the held pods the gate now lets go; whether one reached
+        activeQ."""
+        notified = False
+        for key in list(self._held):
+            qpi = self._unschedulable.get(key)
+            if qpi is None:
+                self._held.discard(key)
+            elif not self._hold(qpi):
+                del self._unschedulable[key]
+                if self._is_backing_off(qpi):
+                    self._backoff.push(qpi)
+                else:
+                    self._active.push(qpi)
+                    notified = True
+        return notified
 
     # -- bounded admission (overload: stanza) ----------------------------
 
@@ -530,6 +573,8 @@ class SchedulingQueue:
                 return
             qpi.timestamp = time.monotonic()
             self.nominator.add_nominated_pod(qpi.pod_info)
+            if self._hold(qpi):
+                return
             if self._move_request_cycle >= pod_scheduling_cycle:
                 self._backoff.push(qpi)
             else:
@@ -544,6 +589,8 @@ class SchedulingQueue:
             qpi = self._unschedulable.get(key)
             if qpi is not None:
                 qpi.pod_info.update(new)
+                if self._hold(qpi):
+                    return
                 del self._unschedulable[key]
                 if self._is_backing_off(qpi):
                     self._backoff.push(qpi)
@@ -566,6 +613,7 @@ class SchedulingQueue:
             self._active.remove(key)
             self._backoff.remove(key)
             self._unschedulable.pop(key, None)
+            self._held.discard(key)
             self.nominator.delete_nominated_pod_if_exists(pod)
 
     # -- event-driven requeue -------------------------------------------
@@ -587,7 +635,8 @@ class SchedulingQueue:
         with self._cond:
             moved = []
             for key, qpi in list(self._unschedulable.items()):
-                if self._pod_matches_event(qpi, event):
+                if (self._pod_matches_event(qpi, event)
+                        and not self._hold(qpi)):
                     moved.append(key)
                     if self._is_backing_off(qpi):
                         self._backoff.push(qpi)
@@ -625,13 +674,17 @@ class SchedulingQueue:
                     head = self._backoff.peek()
                     if head is None or self._backoff_expiry(head) > now:
                         break
-                    self._active.push(self._backoff.pop())
-                    notified = True
+                    qpi = self._backoff.pop()
+                    if not self._hold(qpi):
+                        self._active.push(qpi)
+                        notified = True
+                notified |= self._release_held_locked()
                 if now - last_unsched_flush > 5.0:
                     last_unsched_flush = now
                     for key, qpi in list(self._unschedulable.items()):
                         if now - qpi.timestamp > self._unschedulable_timeout:
                             del self._unschedulable[key]
+                            self._held.discard(key)
                             if self._is_backing_off(qpi):
                                 self._backoff.push(qpi)
                             else:

@@ -58,6 +58,10 @@ logger = logging.getLogger(__name__)
 MIN_FEASIBLE_NODES_TO_FIND = 100
 MIN_FEASIBLE_NODES_PERCENTAGE_TO_FIND = 5
 
+# the longest a batch-nominated preemptor waits for the cache to drop its
+# victims before its retry goes ahead anyway (Scheduler._awaits_victims)
+VICTIM_WAIT_S = 30.0
+
 
 class SchedulerMetrics:
     """Scheduler metric bundle.
@@ -597,6 +601,11 @@ class Scheduler:
                         lambda s=self: getattr(s, "_snapshot", None))
                 if hasattr(plugin, "preemption_observer"):
                     plugin.preemption_observer = self.metrics.observe_preemption
+        # batch-nominated preemptor key -> (deadline, the victims evicted
+        # from its nominated node): the queue holds it parked until the
+        # cache has dropped them (_awaits_victims)
+        self._awaited: dict[str, tuple[float, set[str]]] = {}
+        self.queue.set_gate(self._awaits_victims)
         self._stop = threading.Event()
         # Batch pipeline: dispatched-but-unfinished batches, oldest first.
         # pipeline_depth bounds how many ride the device queue at once;
@@ -1236,6 +1245,7 @@ class Scheduler:
                         ClusterEvent("AssignedPod", "Delete"))
             else:
                 self.queue.delete(pod)
+                self._awaited.pop(meta.namespaced_name(pod), None)
 
     def _on_node_event(self, type_: str, node: Obj, old: Obj | None) -> None:
         if self.scaleout is not None \
@@ -1882,6 +1892,8 @@ class Scheduler:
                      if traced else None)
         claimed_nodes: set[str] = set()
         claimed_victims: set[str] = set()
+        node_victims: dict[str, set[str]] = {}
+        nominated: list[tuple[str, str]] = []
         commits = conflicts = 0
         if results is not None:
             for j, i in enumerate(dev):
@@ -1902,12 +1914,19 @@ class Scheduler:
                 victims = [vmap[k] for k in vkeys
                            if k in vmap and k not in claimed_victims]
                 claimed_victims.update(vkeys)
+                node_victims.setdefault(node_name, set()).update(vkeys)
+                nominated.append((pod_info.key, node_name))
                 evict_victims(self.client, victims, pod_info.key, node_name)
                 plugin.persist_nomination(pod_info, node_name)
                 self.queue.nominator.add_nominated_pod(pod_info, node_name)
                 if ev.observer is not None:
                     ev.observer(len(vkeys))
                 commits += 1
+        # a winner retried while the cache still holds victims of its node
+        # (the informer's lag) would find no room there: it waits for them
+        deadline = time.monotonic() + VICTIM_WAIT_S
+        for key, node_name in nominated:
+            self._awaited[key] = (deadline, node_victims[node_name])
         if commit_sp is not None:
             commit_sp.set_attribute("commits", commits)
             commit_sp.set_attribute("conflicts", conflicts)
@@ -1951,6 +1970,24 @@ class Scheduler:
         for i in order:
             qpi, st = failures[i]
             self._handle_failure(fw, qpi, st, cycle, set(), start)
+
+    def _awaits_victims(self, qpi: QueuedPodInfo) -> bool:
+        """The queue's gate: whether a preemptor the batched tier nominated
+        still waits for the cache to drop the victims evicted from its
+        nominated node (the winners sharing a node wait for all of that
+        node's victims).  Their deletes are in the store already; until
+        the informer has brought them to the cache, the nominated node
+        shows no room, and a retry there would only fall back to the
+        per-pod path.  Past VICTIM_WAIT_S the pod goes ahead anyway."""
+        entry = self._awaited.get(qpi.key)
+        if entry is None:
+            return False
+        deadline, victims = entry
+        if time.monotonic() < deadline and any(
+                self.cache.holds(k) for k in victims):
+            return True
+        self._awaited.pop(qpi.key, None)
+        return False
 
     # -- batch pipeline (TPU path; no reference equivalent) --------------
 

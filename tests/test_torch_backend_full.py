@@ -519,3 +519,66 @@ def test_churn_constraint_streams_match_reference(monkeypatch, seed):
     assert got == want
     assert port.stats["event_patches"] > 0
     assert any(n for w in got for n, _ in w)
+
+
+def test_group_registered_after_own_binds_keeps_the_pod_caps():
+    """Own placements, then a batch whose encode registers a new selector
+    group while the epoch fast path skipped the tensor sync: the domain
+    counts then differ from the mirror and the device state is refreshed
+    from the host tensors, which must first catch up with the backend's
+    own binds.  Under the JAX package's rule (refresh from the unsynced
+    tensors) the device forgot 250 placed pods here and filled 110-pod
+    nodes to 115-141; the port keeps every node at its cap and places
+    exactly the capacity that is left."""
+    from kubernetes_tpu_torch import testing
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+
+    def pod(name, color=None, affinity=None):
+        p = testing.make_pod(name).req(cpu="100m", mem="128Mi")
+        p = (p.labels(color=color) if color else p).build()
+        if affinity:
+            p["spec"]["affinity"] = affinity
+        return p
+
+    def term(color):
+        return {"topologyKey": HOST,
+                "labelSelector": {"matchLabels": {"color": color}}}
+
+    red = {"podAffinity": {"preferredDuringSchedulingIgnoredDuringExecution":
+                           [{"weight": 1, "podAffinityTerm": term("red")}]}}
+    green = {"podAntiAffinity": {
+        "requiredDuringSchedulingIgnoredDuringExecution": [term("green")]}}
+    cache = Cache()
+    for i in range(3):
+        cache.add_node(testing.make_node(f"n{i}").capacity(
+            cpu="32", mem="256Gi", pods=110).labels(**{HOST: f"n{i}"})
+            .build())
+    backend = port_backend.TorchBatchBackend(
+        Caps(n_cap=64, l_cap=64, kl_cap=32, t_cap=8, pt_cap=8, s_cap=2,
+             sg_cap=8, asg_cap=8), batch_size=256, device="cpu",
+        claims_noise="murmur")
+    view = cache.flatten_view()
+
+    def run(pods):
+        infos = [PodInfo(p) for p in pods]
+        out = backend.assign(infos, view)
+        items = []
+        for pi, (node, _st) in zip(infos, out):
+            if node:
+                bound = {**pi.pod, "spec": {**pi.pod["spec"],
+                                            "nodeName": node}}
+                items.append((bound, pi.clone_with_pod(bound)))
+        assert not any(cache.assume_pods(items))
+        return sum(1 for node, _st in out if node)
+
+    assert run([pod(f"red{i}", "red", red) for i in range(200)]) == 200
+    assert run([pod(f"plain{i}") for i in range(50)]) == 50
+    skips = backend.stats.get("epoch_skips", 0)
+    placed = run([pod("green0", "green", green)]
+                 + [pod(f"more{i}") for i in range(120)])
+    per_node = {ni.name: len(ni.pods)
+                for ni in cache.update_snapshot(Snapshot()).list()}
+    assert per_node == {"n0": 110, "n1": 110, "n2": 110}
+    assert placed == 330 - 250
+    assert backend.stats.get("epoch_skips", 0) == skips

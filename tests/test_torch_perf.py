@@ -157,11 +157,6 @@ NOT_PORTED = {
     "via_http_process": lambda: port_perf.setup_cluster(
         via_http="process"),
     "remote_seam": lambda: port_perf.setup_cluster(remote_seam="grpc"),
-    "null_device": lambda: port_perf.setup_cluster(null_device=True),
-    "device_flight_s": lambda: port_perf.setup_cluster(
-        device_flight_s=0.01),
-    "chaos_schedule": lambda: port_perf.setup_cluster(
-        chaos_schedule=object()),
     "census": lambda: port_perf.setup_cluster(
         profiling_policy=_census_policy(), device="cpu"),
     "census_run_device_census": _census_on_torch_backend,
@@ -169,8 +164,6 @@ NOT_PORTED = {
         _cfg(), via_http=True, device="cpu"),
     "backend_sharded": lambda: port_backend.make_batch_backend(
         "sharded", device="cpu"),
-    "backend_null": lambda: port_backend.make_batch_backend(
-        "null", device="cpu"),
 }
 
 
@@ -178,18 +171,6 @@ NOT_PORTED = {
 def test_unported_branches_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NOT_PORTED[case]()
-
-
-def test_node_storm_opcode_raises():
-    cluster = port_perf.setup_cluster(
-        caps=port_perf.caps_for_nodes(8), batch_size=16, device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_perf.run_workload(cluster, [
-                {"opcode": "createNodes", "count": 2},
-                {"opcode": "nodeStorm", "seed": 1}])
-    finally:
-        cluster.shutdown()
 
 
 def test_apply_and_scaleout_raise():

@@ -538,3 +538,95 @@ def test_live_slot_cap_follows_the_victim_rows():
     side.wave(s["pre"])
     assert b._vict_live_cap == cap + 1 == port_preempt.live_slot_cap(
         b._static_vict["vict_prio"])
+
+
+def test_wave_after_own_binds_sees_their_victims():
+    """A preemption wave, then low-priority pods placed by the backend's
+    own batches and assumed into the cache (no external change, so the
+    next dispatch takes the epoch fast path and skips the tensor sync),
+    then a second wave: it must see every pod on every node, as the
+    sequential Evaluator on the cache's snapshot does.  Under the JAX
+    package's rule (victim rows marked only by a tensor sync) the second
+    wave read the rows as the first had encoded them and found no
+    candidate; the port marks the rows its own placements land on."""
+    from kubernetes_tpu_torch import testing
+    from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
+    from kubernetes_tpu_torch.ops import backend as port_backend
+    from kubernetes_tpu_torch.ops.flatten import Caps
+    from kubernetes_tpu_torch.scheduler import new_default_framework
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.framework import CycleState
+    from kubernetes_tpu_torch.scheduler.preemption import Evaluator
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+    from kubernetes_tpu_torch.store import kv
+    cache = Cache()
+    for i in range(4):
+        cache.add_node(testing.make_node(f"n{i}").capacity(
+            cpu="4", mem="32Gi").build())
+    backend = port_backend.TorchBatchBackend(
+        Caps(**SMALL_CAPS), batch_size=16, device="cpu",
+        claims_noise="murmur")
+    view = cache.flatten_view()
+
+    def place(names):
+        infos = [PodInfo(testing.make_pod(n).req(cpu="900m", mem="500Mi")
+                         .build()) for n in names]
+        items = []
+        for pi, (node, _st) in zip(infos, backend.assign(infos, view)):
+            assert node
+            pod = {**pi.pod, "spec": {**pi.pod["spec"], "nodeName": node}}
+            items.append((pod, pi.clone_with_pod(pod)))
+        assert not any(cache.assume_pods(items))
+
+    hi = PodInfo(testing.make_pod("hi").priority(10)
+                 .req(cpu="3000m", mem="500Mi").build())
+    place([f"low{k}" for k in range(4)])
+    snap = cache.update_snapshot(Snapshot())
+    order = {ni.name: i for i, ni in enumerate(snap.list())}
+    first, _esc = backend.preempt_batch([hi], order)
+    assert first[0] is not None and len(first[0][1]) == 1
+    skips = backend.stats.get("epoch_skips", 0)
+    place([f"low{k}" for k in range(4, 16)])   # every node now holds 4
+    assert backend.stats.get("epoch_skips", 0) == skips + 1
+    got, esc = backend.preempt_batch([hi], order)
+    assert not esc and got[0] is not None
+    client = LocalClient(kv.MemoryStore())
+    fw = new_default_framework(client, SharedInformerFactory(client))
+    ev = Evaluator(fw, client)
+    snap = cache.update_snapshot(Snapshot())
+    best = ev.select_candidate(ev.find_candidates(CycleState(), hi, {}, snap))
+    assert (got[0][0], sorted(got[0][1]), got[0][2]) == (
+        best.node_name, sorted(v.key for v in best.victims),
+        best.num_pdb_violations)
+    assert len(got[0][1]) == 3
+
+
+def test_batch_escape_tallies_match_jax(pallas_off):
+    """The dispatch's per-(plugin, reason) escape tallies (what the
+    scheduler adds to scheduler_tpu_escape_total) equal the JAX backend's:
+    a Gt node-affinity pod the encoder does not carry, a nominated pod
+    whose nominated node has no room (its per-pod re-proof), and plain
+    pods that place."""
+    from test_torch_backend import jax_side
+    from torch_cases import outcome, port_side
+    got = {}
+    for name, s in (("jax", jax_side(8)), ("port", port_side(8))):
+        s.cache.add_node(s.node("full", cpu="1", mem="2Gi"))
+        s.cache.add_node(s.node("roomy", cpu="8", mem="16Gi"))
+        s.cache.add_pod(s.pod("resident", node="full", cpu="900m"))
+        t = s.testing
+        gt = t.make_pod("gt").req(cpu="100m").build()
+        gt["spec"]["affinity"] = {"nodeAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": {
+                "nodeSelectorTerms": [{"matchExpressions": [
+                    {"key": "rack", "operator": "Gt", "values": ["3"]}]}]}}}
+        nominated = t.make_pod("nom").req(cpu="500m").build()
+        nominated["status"] = {"nominatedNodeName": "full"}
+        pods = [s.pod("plain-0", cpu="100m"), gt, nominated,
+                s.pod("plain-1", cpu="100m")]
+        res = s.backend.dispatch(s.infos(pods), s.snapshot())()
+        got[name] = (outcome(res), s.backend.drain_escape_reasons())
+        assert s.backend.drain_escape_reasons() == {}
+    assert got["port"] == got["jax"]
+    assert got["port"][1] == {("NodeAffinity", "gt_lt_operator"): 1,
+                              ("DefaultPreemption", "nominated_node_stale"): 1}

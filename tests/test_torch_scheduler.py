@@ -491,3 +491,79 @@ def test_batched_preemption_matches_jax_on_a_seeded_cluster(pallas_off):
     assert pattempts == jattempts >= 1
     assert sum(1 for v in nominations(ppods).values() if v) >= 2
     assert len(ppods) < 32                       # something was evicted
+
+
+def test_preemptor_waits_for_the_cache_to_drop_its_victims(pallas_off):
+    """A batch-nominated preemptor retried while the scheduler's cache
+    still holds its victims (the informer behind the store, as under
+    load) finds no room on its nominated node and falls back to the
+    per-pod path: a dispatch escape.  The port's queue keeps it parked
+    instead, through an event move, until the victims' deletes reach the
+    cache; then it binds on its nominated node with no escape."""
+    from kubernetes_tpu_torch.scheduler.types import ClusterEvent
+    s = Stack(PORT, 8)
+    try:
+        n = s.load(
+            lambda t: [t.make_node("n1").capacity(cpu="2", mem="4Gi")
+                       .build()],
+            lambda t: [t.make_pod(f"low{i}").priority(1).req(cpu="900m")
+                       .build() for i in range(2)])
+        s.schedule_all(n)
+        assert wait_for(lambda: s.sched.cache.assumed_pod_count() == 0)
+        lows = s.store.list(s.PODS)[0]
+        s.client.create(s.PODS, s.testing.make_pod("high").priority(1000)
+                        .req(cpu="900m").build())
+        assert wait_for(lambda: s.sched.queue.stats()["active"] == 1)
+        s.factory.stop()             # the informer falls behind the store
+        for inf in s.factory._informers.values():
+            inf._thread.join(timeout=30)   # its last watch batch included
+            assert not inf._thread.is_alive()
+        s.schedule_all(1)
+        left = {s.meta.name(p) for p in s.store.list(s.PODS)[0]}
+        victims = [p for p in lows if s.meta.name(p) not in left]
+        assert len(victims) == 1
+        key = s.meta.namespaced_name(victims[0])
+        assert s.sched.cache.holds(key)
+        s.sched.queue.move_all_to_active_or_backoff(ClusterEvent("*", "*"))
+        assert s.sched.queue.stats() == {
+            "active": 0, "backoff": 0, "unschedulable": 1}
+        # the informer catches up: the victim's delete releases the pod
+        s.sched._on_pod_event(s.kv.DELETED, victims[0], None)
+        assert not s.sched.cache.holds(key)
+        assert s.sched.queue.stats()["unschedulable"] == 0
+        s.sched.queue.run()          # backoff expiry -> activeQ
+        assert wait_for(lambda: s.sched.queue.stats()["active"] == 1)
+        s.schedule_all(1)
+    finally:
+        s.stop()
+    high = next(p for p in s.store.list(s.PODS)[0]
+                if s.meta.name(p) == "high")
+    assert s.meta.pod_node_name(high) == "n1"
+    assert s.backend.stats.get("escaped", 0) == 0, s.backend.stats
+
+
+def test_held_pod_leaves_on_the_flush_tick():
+    """The queue's gate: a held pod stays parked through its backoff
+    expiry, an event move and its own update, and the flush loop releases
+    it once the gate lets it go, with no event."""
+    from kubernetes_tpu_torch.scheduler.queue import SchedulingQueue
+    from kubernetes_tpu_torch.scheduler.types import ClusterEvent
+    from kubernetes_tpu_torch import testing
+    q = SchedulingQueue(pod_initial_backoff=0.01)
+    hold = {"on": True}
+    q.set_gate(lambda qpi: hold["on"])
+    pod = testing.make_pod("p").req(cpu="100m").build()
+    q.add(pod)
+    qpi = q.pop(timeout=0)
+    q.add_unschedulable_if_not_present(qpi, q.scheduling_cycle())
+    q.run()
+    try:
+        time.sleep(0.5)              # past the backoff, two flush ticks
+        q.move_all_to_active_or_backoff(ClusterEvent("*", "*"))
+        q.update(pod, pod)
+        assert q.stats() == {"active": 0, "backoff": 0, "unschedulable": 1}
+        hold["on"] = False
+        assert wait_for(lambda: q.stats()["active"] == 1)
+        assert q.pop(timeout=0).key == qpi.key
+    finally:
+        q.close()

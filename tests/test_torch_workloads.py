@@ -46,6 +46,10 @@ CASES = [
     ("SchedulingPodAntiAffinity", 100, 100),
     ("PreemptionBasic", 25, 25),
     ("PreemptionDense", 25, 25),
+    ("CoschedulingGang", 100, 100),
+    ("SchedulingHighCardinality", 100, 100),
+    ("SchedulingPreferredAntiAffinityWithNSSelector", 100, 100),
+    ("SchedulingRequiredPodAffinityWithNSSelector", 100, 100),
 ]
 
 

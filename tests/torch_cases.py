@@ -947,6 +947,13 @@ def pipelined_run(pkg, deadline=None, n_batches=4, per_batch=24,
     Returns the outcome, the backend's stats and the names of the threads
     resolve() ran on."""
     s = Stack(pkg, per_batch, depth=2, device=device)
+    # the scheduler retires an in-flight batch early once its residency
+    # passes an adaptive flight estimate (0.25 s at start), so on a loaded
+    # host batch 0 could retire inside its own schedule_step and the
+    # second dispatch would find nothing in flight; an infinite estimate
+    # keeps every batch in the pipeline until the depth or a flush
+    # retires it, which is the order this run is about
+    s.sched._flight_est = float("inf")
     threads = set()
     if pkg == PORT_PKG:
         dispatch = s.backend.dispatch
