@@ -122,7 +122,31 @@ Phases (each prints its wall time; any failed check exits non-zero):
      warm-started from the file and a fresh cache primed with its objects,
      every row adopted, then the remaining batches on the fresh backend,
      placed pod for pod as the uninterrupted backend places them, every
-     pod placed within capacity.
+     pod placed within capacity;
+ 21. observability: SchedulingBasic through the Scheduler (5,000 nodes,
+     50,000 pods, batch 16,384, depth 2) with tracing at 1,000,000 per
+     million, profiling.timeline and the device census armed, and with all
+     three off, in turns, three rounds (armed / off pods/s printed, no
+     gate); the first armed pass prints the span count by name and checks
+     that a bound batch's trace holds every pipeline span under its JAX
+     parent, prints the timeline's stages, device idle share and per-pod
+     segment quantiles, and runs one more batch under torch.profiler,
+     whose busy time the timeline's device-stage union over the same
+     window must cover (less 1%); every armed pass holds the census of
+     both variants; then the census of both variants on a backend at
+     Scheduling100k's caps (110,080 rows) after one batch on 100,000
+     nodes, which must leave LAUNCHES, the state and _gen as they were,
+     with each kernel's launches, device time, bytes and bound;
+     then 20 steady batches at SchedulingBasic's shape under SyncGuard
+     (every implicit sync at a `# sync-point:` site; the syncs per batch
+     and per device wave) and BuildCounter (nothing built or loaded), and
+     the same over 3 constraint batches of phase (a)'s mix on 5,000 nodes
+     and one wave of 1,024 preemptors on 5,000 nodes of PreemptionBasic's
+     shape.  The inspecting pass also holds every wave's device-step and
+     d2h, read from CUDA events, inside the host's launch-to-resolve
+     window for that wave (1 ms).  SyncGuard sees what torch's sync debug
+     mode reports, which torch calls incomplete: its counts are lower
+     bounds.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -152,6 +176,7 @@ import importlib
 import importlib.util
 import inspect
 import json
+import math
 import re
 import shutil
 import statistics
@@ -164,34 +189,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-H100_HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-H100_FP32_OPS_PER_S = 67e12      # H100 SXM data sheet, FP32 outside tensor cores
-H100_FP64_OPS_PER_S = 34e12      # H100 SXM data sheet, FP64 outside tensor cores
-# Operations of one claims call, counted three ways.
-#  "PR 1": the first kernel revision's definition: per live cell the mask
-#   and cap tests and R compares; per feasible cell the utilizations,
-#   score, add and running max (SCORE_OPS) and the noise.
-#  "candidates" and "required": the work the inputs need.  Per live cell
-#   the mask test; per distinct (pod request, node) pair R compares and
-#   the cap test, and where they fit the utilizations and score
-#   (PAIR_SCORE_OPS); per noisy cell the noise, add and running max.
-#   "candidates" takes the noise on every feasible cell within NOISE_MAX
-#   of its pod's best score; "required" only on the cells any exact
-#   algorithm must evaluate: those whose upper bound fl(score + NOISE_MAX)
-#   lies above the pod's answer, or equals it at a lower node index, and
-#   the answer itself.
-# The noise: f32 operations (murmur's integer hash counted as 14 of its
-# 16), and for sin one f64 sin counted as 20 f64 operations.
-FIT_OPS_BASE = 2
-SCORE_OPS = 20
-MASK_OPS = 1
-PAIR_SCORE_OPS = 18
-PICK_OPS = 2
-NOISE_OPS = {"sin": 12, "murmur": 16}
-SIN_F64_OPS = {"sin": 20, "murmur": 0}
-# the largest value each noise rule returns (csrc/claims.cu NOISE_MAX)
-NOISE_MAX = {"sin": np.float32(1e-3),
-             "murmur": np.float32(16777215.0) * np.float32(0.05 / 2**24)}
+# the peak rates and the work counts of the kernels live beside them in the
+# package (ops/kernels.py, models/preempt.py): the device census reads the
+# same counts
+from kubernetes_tpu_torch.models.preempt import dry_run_bound
+from kubernetes_tpu_torch.ops.kernels import (
+    H100_FP32_OPS_PER_S, H100_HBM_BYTES_PER_S, claims_bounds,
+)
 
 
 def nvidia_smi_line() -> str:
@@ -310,99 +314,16 @@ def random_claims_case(P, N, seed, dev, R=6, live=0.9, identical=False,
     return (static, t(active), t(used), t(used), t(npods))
 
 
-def claims_work(args, noise, answer):
-    """Counts of the work one claims call on these inputs needs: live
-    cells, feasible cells, distinct (request, node) pairs and those that
-    fit, candidate cells (feasible, score within NOISE_MAX of the pod's
-    best score) and required cells (see the operation counts above);
-    `answer` is the plain version's (claims, best) on the same inputs."""
-    from kubernetes_tpu_torch.ops import kernels
-    static, active, used, used_nz, npods = args
-    P, N, R = static["shape"]
-    claim, best = answer
-    dev = used.device
-    avail = static["alloc"] - used
-    cap_ok = npods + 1.0 <= static["maxpods"]
-    one = torch.ones((), device=dev)
-    nmax = torch.tensor(float(NOISE_MAX[noise]), dtype=torch.float32,
-                        device=dev)
-    node = torch.arange(N, device=dev)[None, :]
-
-    def fits(req):
-        fit = cap_ok[None, :].expand(req.shape[0], N)
-        for r in range(R):
-            fit = fit & (req[:, r, None] <= avail[None, :, r])
-        return fit
-
-    def scores(req_nz):
-        utils = []
-        for r in range(2):
-            a = static["alloc"][None, :, r]
-            u = used_nz[None, :, r] + req_nz[:, r, None]
-            utils.append(torch.where(
-                a > 0, torch.minimum(u / torch.clamp(a, min=1.0), one), one))
-        return kernels.fit_score(*utils)
-
-    live = active.bool()
-    uniq = torch.unique(torch.cat([static["req"], static["req_nz"]], 1)[live],
-                        dim=0)
-    n = {"live": int(live.sum()) * N, "pairs": uniq.shape[0] * N,
-         "pairs fit": 0, "feasible": 0, "candidates": 0, "required": 0}
-    step = max(1, (1 << 25) // N)
-    for lo in range(0, uniq.shape[0], step):
-        n["pairs fit"] += int(fits(uniq[lo:lo + step, :R]).sum())
-    for lo in range(0, P, step):
-        hi = min(P, lo + step)
-        fit = (fits(static["req"][lo:hi])
-               & (static["smask_t"][:, lo:hi].T != 0) & live[lo:hi, None])
-        score = scores(static["req_nz"][lo:hi])
-        top = torch.where(fit, score, torch.full_like(score, -3e38)).amax(1)
-        upper = score + nmax
-        b, c = best[lo:hi, None], claim[lo:hi, None]
-        n["feasible"] += int(fit.sum())
-        n["candidates"] += int((fit & (score + nmax >= top[:, None])).sum())
-        n["required"] += int((fit & ((upper > b) | ((upper == b)
-                                                     & (node <= c)))).sum())
-    return n
-
-
-def claims_bounds(args, noise, answer):
-    """{"PR 1" | "candidates" | "required": (ms, by), "cells": counts} for
-    one claims call on these inputs: the larger of the bytes it must move
-    (each input read once, each output written once) over HBM bandwidth
-    and its operations, counted three ways (above), over the FP32 and
-    FP64 peaks."""
-    static = args[0]
-    P, N, R = static["shape"]
-    nbytes = (N * P + 2 * P * R * 4 + P + P * 4 + 3 * N * R * 4 + 2 * N * 4
-              + P * 8)
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    n = claims_work(args, noise, answer)
-
-    def bound(f32_ops, noisy):
-        t_ops = (f32_ops / H100_FP32_OPS_PER_S
-                 + noisy * SIN_F64_OPS[noise] / H100_FP64_OPS_PER_S) * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
-                                                               "bytes")
-    out = {"PR 1": bound(n["live"] * (FIT_OPS_BASE + R) + n["feasible"]
-                         * (SCORE_OPS + NOISE_OPS[noise]), n["feasible"])}
-    needed = (n["live"] * MASK_OPS + n["pairs"] * (R + 1)
-              + n["pairs fit"] * PAIR_SCORE_OPS)
-    for name in ("candidates", "required"):
-        out[name] = bound(needed + n[name] * (NOISE_OPS[noise] + PICK_OPS),
-                          n[name])
-    out["cells"] = n
-    return out
-
-
 class ClaimsRecorder:
     """Within the block, every kernels.claims call goes through a wrapper
     that records (pods, live pods, nodes, noise) and a pair of CUDA events
-    around the call, and with keep=True a copy of its inputs.  The launch
-    count stays the package's own (kernels.LAUNCHES)."""
+    around the call, and with keep=True a copy of its inputs and of its
+    outputs.  The launch count stays the package's own
+    (kernels.LAUNCHES)."""
 
     def __init__(self, kernels, keep=False):
         self.kernels, self.keep, self.rows, self.inputs = kernels, keep, [], []
+        self.outputs = []
 
     def __enter__(self):
         inner = self.inner = self.kernels.claims
@@ -421,6 +342,8 @@ class ClaimsRecorder:
             e0.record()
             out = inner(static, active, used, used_nz, npods, noise=noise,
                         pod_ids=pod_ids)
+            if self.keep:
+                self.outputs.append(tuple(t.clone() for t in out))
             e1.record()
             host_ms = (time.monotonic() - t0) * 1e3
             P, N, _R = static["shape"]
@@ -481,13 +404,13 @@ class RecordingBackend:
                     return batch
                 self.encoder.encode = timed_encode
 
-            def _device_step(self, variant, staged):
+            def _device_step(self, variant, staged, clock=None):
                 start = None
                 if self.device.type == "cuda":
                     start = torch.cuda.Event(enable_timing=True)
                     start.record()
                 t0 = time.monotonic()
-                res = super()._device_step(variant, staged)
+                res = super()._device_step(variant, staged, clock)
                 self.step_wall_s.append(time.monotonic() - t0)
                 if start is not None:
                     end = torch.cuda.Event(enable_timing=True)
@@ -951,34 +874,6 @@ def check_dry_run(preempt, args, label, k_cap=None):
           f"{int(ref[5].sum())}, overflow pods {int(got[6].sum())}",
           flush=True)
     return err, got
-
-
-def dry_run_bound(args, planes):
-    """(ms, bound_by, bytes, ops) for one dry-run call on these inputs: the
-    larger of its bytes (each input read once, each plane written once,
-    victims as words) over HBM bandwidth and the operations this data
-    needs over the FP32 peak (integer compares counted at that rate).  Per
-    (pod, node) cell: V eligibility compares, R+1 adds per eligible slot
-    (freed), 4R+4 for the fit test, the taint words, 3R+2 per eligible
-    slot walked (R subtracts, R adds, R compares, the slack step) and 4 per
-    victim (count, violations, priority sum, highest)."""
-    (alloc, _u, _np, _mp, _v, taint, vict_prio, _vr, _vp, _vo, nom_used,
-     _nn, _g, req, prio, _ut, _a) = args
-    P, R = req.shape
-    N, V = vict_prio.shape
-    nbytes = (sum(a.numel() * a.element_size() for a in args)
-              + sum(p.numel() * p.element_size() for p in planes))
-    elig = 0
-    for lo in range(0, P, 16):
-        elig += int((vict_prio[None] < prio[lo:lo + 16, None, None]).sum())
-    victims = int(planes[4].sum())
-    tw = -(-taint.shape[1] // 32)
-    ops = (P * N * (V + 4 * R + 4 + tw) + elig * (R + 1 + 3 * R + 2)
-           + victims * 4)
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
-    return ((t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes"),
-            nbytes, ops)
 
 
 def time_cuda_run(fn, n: int, warmup: int = 2) -> float:
@@ -1698,6 +1593,376 @@ def warm_start_phase(dev, smi, n_nodes=5000, n_pods=50_000, batch=16384):
         return {"adopted": adopted, "bytes": info["bytes"]}
 
 
+# phase 21: the batch pipeline's observability on the card
+OBS_ROUNDS = 3
+OBS_GUARD_BATCHES = 20
+# tests/test_tracing.py's pipeline spans, each with its parent's name
+PIPELINE_PARENTS = {"queue.pop": "schedule_batch",
+                    "snapshot.flatten": "schedule_batch",
+                    "plugin.filter_masks": "schedule_batch",
+                    "plugin.score": "schedule_batch",
+                    "plugin.assign_solve": "schedule_batch",
+                    "tpu.h2d": "plugin.assign_solve",
+                    "tpu.d2h": "plugin.assign_solve",
+                    "bind": "schedule_batch"}
+
+
+def check_span_topology(provider):
+    """The span count by name, and one bound batch's trace holding every
+    pipeline span under its JAX parent."""
+    spans = provider.snapshot()
+    by_name = {}
+    for sp in spans:
+        by_name[sp.name] = by_name.get(sp.name, 0) + 1
+    print(f"   spans by name {dict(sorted(by_name.items()))}", flush=True)
+    ids = {sp.span_id: sp for sp in spans}
+    for root in (sp for sp in spans if sp.name == "schedule_batch"):
+        fam = [sp for sp in spans if sp.trace_id == root.trace_id]
+        names = {sp.name for sp in fam}
+        if "bind" not in names:
+            continue
+        check(set(PIPELINE_PARENTS) <= names,
+              f"a bound batch's trace lacks "
+              f"{sorted(set(PIPELINE_PARENTS) - names)}")
+        for sp in fam:
+            want = PIPELINE_PARENTS.get(sp.name)
+            got = ids.get(sp.parent_span_id)
+            check(want is None or (got is not None and got.name == want
+                                   and got.trace_id == root.trace_id),
+                  f"span {sp.name} under "
+                  f"{None if got is None else got.name}, not {want}")
+        attrs = {sp.name: sp.attributes for sp in fam}
+        print(f"   one bound batch's trace: {len(fam)} spans, every "
+              f"pipeline span under its JAX parent; assign_solve "
+              f"{attrs['plugin.assign_solve']}, filter_masks "
+              f"{attrs['plugin.filter_masks']}, h2d {attrs['tpu.h2d']}",
+              flush=True)
+        return
+    check(False, "no traced batch reached bind")
+
+
+def union_in_window(ring, window):
+    """ms of the union of the ring's device-stage intervals inside the
+    time.monotonic() window (start, end)."""
+    from kubernetes_tpu_torch.component_base import timeline as cb_timeline
+    w0, w1 = ring.wall(window[0]), ring.wall(window[1])
+    pairs = [(max(r["t0_unix_s"], w0), min(r["t1_unix_s"], w1))
+             for r in ring.intervals()
+             if r["stage"] in cb_timeline.DEVICE_STAGES
+             and r["t1_unix_s"] > w0 and r["t0_unix_s"] < w1]
+    return cb_timeline.interval_union(pairs) * 1e3
+
+
+def check_wave_bounds(ring, label, smi, tol_ms=1.0):
+    """The upper side of the union check: every wave's device-step, read
+    from CUDA events through the clock anchor, lies inside the host's
+    window for that wave, from the launch (the end of its h2d) to the end
+    of the scheduler's resolve, and each d2h inside its device-step, all
+    within tol_ms.  A wrong anchor or a misplaced event falls outside."""
+    by_wave = {}
+    for r in ring.intervals():
+        if r["wave"] is not None:
+            by_wave.setdefault(r["wave"], {}).setdefault(
+                r["stage"], []).append((r["t0_unix_s"], r["t1_unix_s"]))
+    waves = 0
+    # the least room, ms, between each device interval and its bounds
+    # (negative: outside): after the launch, before the resolve's end
+    after_launch = before_resolve = math.inf
+    for wave, st in by_wave.items():
+        if not {"h2d", "device-step", "resolve"} <= set(st):
+            continue
+        waves += 1
+        launch = max(t1 for _t0, t1 in st["h2d"])
+        done = max(t1 for _t0, t1 in st["resolve"])
+        for d0, d1 in st["device-step"]:
+            after_launch = min(after_launch, (d0 - launch) * 1e3)
+            before_resolve = min(before_resolve, (done - d1) * 1e3)
+            for c0, c1 in st.get("d2h", ()):
+                check(c0 >= d0 - tol_ms / 1e3 and c1 <= d1 + tol_ms / 1e3,
+                      f"{label}: wave {wave}'s d2h lies outside its "
+                      f"device-step")
+    print(f"   {label}: {waves} waves' device-step intervals (CUDA events) "
+          f"inside the host's launch-to-resolve window: the least room "
+          f"{after_launch:.4f} ms after the launch, {before_resolve:.4f} ms "
+          f"before the resolve's end (tolerance {tol_ms} ms) [{smi}]",
+          flush=True)
+    check(waves > 0, f"{label}: no wave with h2d, device-step and resolve")
+    check(after_launch >= -tol_ms and before_resolve >= -tol_ms,
+          f"{label}: a device-step lies outside its wave's host window "
+          f"({after_launch:.4f} ms after the launch, {before_resolve:.4f} "
+          f"ms before the resolve's end)")
+
+
+def observability_pass(armed, smi, label, inspect_pass=False):
+    """One SchedulingBasic pass through perf.bench.run_once: with tracing
+    at 1,000,000 per million, profiling.timeline and the census armed, or
+    with all three off.  The armed pass that inspects also checks the span
+    topology and, on one more batch under torch.profiler, that the
+    timeline's device-stage union over that batch's window is no less
+    than the profiler's busy time, less 1%."""
+    from kubernetes_tpu_torch.component_base import timeline as cb_timeline
+    from kubernetes_tpu_torch.component_base import tracing
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.perf import bench
+    from kubernetes_tpu_torch.scheduler.config import ProfilingPolicy
+    ring = cb_timeline.default_timeline
+    provider = policy = None
+    if armed:
+        provider = tracing.TracerProvider(sampling_rate_per_million=1_000_000,
+                                          max_spans=100_000)
+        policy = ProfilingPolicy(timeline=True, census=True)
+    seen = {}
+
+    def after(cluster):
+        seen["launches"] = dict(kernels.LAUNCHES)
+        if not inspect_pass:
+            return
+        check_span_topology(provider)
+        got = bench.profile_batch(cluster, 16384, "observability")
+        torch.cuda.synchronize()
+        check(got["done"], f"{label}: the profiled batch was not bound")
+        union_ms = union_in_window(ring, got["window"])
+        print(f"   {label} profiled batch: wall {got['wall_ms']:.3f} ms, "
+              f"profiler busy {got['busy_ms']:.3f} ms (idle share "
+              f"{got['idle_share']:.4f}); the timeline's device-stage union "
+              f"over the same window {union_ms:.3f} ms (idle share "
+              f"{1 - union_ms / got['wall_ms']:.4f}) [{smi}]", flush=True)
+        check(union_ms >= got["busy_ms"] * 0.99,
+              f"{label}: the timeline's device stages cover {union_ms:.3f} "
+              f"ms, the profiler's kernels and copies {got['busy_ms']:.3f}")
+        check_wave_bounds(ring, label, smi)
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    try:
+        res = bench.run_once(**bench.pass_args("SchedulingBasic"),
+                             tracing_provider=provider,
+                             profiling_policy=policy, after=after)
+    finally:
+        ring.configure(enabled=False)
+        ring.reset()
+    check("error" not in res, f"{label}: {res.get('error')}")
+    placed = res["detail"]["placements"]
+    check(placed["bound"] == placed["pods"] == res["stats"]["created_pods"]
+          and placed["nodes_over_capacity"] == 0,
+          f"{label}: placements {placed}")
+    check(seen["launches"].get("claims", 0) > 0,
+          f"{label}: the claims kernel never launched ({seen['launches']})")
+    stats = res["stats"]
+    if armed:
+        tl = stats.get("timeline") or {}
+        check({"patch", "h2d", "device-step", "d2h"} <= set(tl.get(
+            "stages", {})), f"{label}: timeline stages {tl.get('stages')}")
+        census = stats.get("device_census") or {}
+        check(set(census.get("torch", {})) == {"full", "plain"},
+              f"{label}: census {sorted(census)}")
+        if inspect_pass:
+            print(f"   {label}: timeline stages {tl['stages']}, device idle "
+                  f"share {tl['device_idle_share']}, overlap "
+                  f"{tl['overlap']}, {tl['pods_decomposed']} pods "
+                  f"in the ring; per-pod segments (p50/p95/p99 ms over "
+                  f"{next(iter(tl['segments'].values()))['count']} pods) "
+                  + ", ".join(f"{k} {v['p50_ms']}/{v['p95_ms']}/"
+                              f"{v['p99_ms']}" for k, v in
+                              tl["segments"].items()) + f" [{smi}]",
+                  flush=True)
+    else:
+        check("timeline" not in stats and not ring.intervals(),
+              f"{label}: the off pass recorded a timeline")
+    print(f"   {label}: {round(res['value'], 1)} pods/s, p99 "
+          f"{res['detail'].get('pod_e2e_p99_ms')} ms, claims launches "
+          f"{seen['launches'].get('claims', 0)} [{smi}]", flush=True)
+    return res["value"]
+
+
+def census_at_100k(dev, smi, n_nodes=100_000, batch=16384):
+    """The census of both variants on a backend at Scheduling100k's caps
+    (110,080 rows; plain at 16,384 pods, full at its full_cap) after one
+    batch of SchedulingBasic pods on 100,000 nodes: it must leave
+    LAUNCHES, the resident state and _gen as it found them, and the
+    plain variant's claims launches are its waves, each counted at the
+    bytes of the count beside the kernel (PERF.md's bound's numerator)."""
+    from kubernetes_tpu_torch.models import carry
+    from kubernetes_tpu_torch.ops import kernels
+    cache = build_cluster(n_nodes, 21)
+    backend, _outs, _secs, _waves = drive(
+        cache, make_batches(1, batch, "census"), dev, "census 100k", batch,
+        claims_noise="sin")
+    torch.cuda.synchronize()
+    state0, _ = carry.state_to_numpy(backend._state)
+    gen0, launches0 = backend._gen, dict(kernels.LAUNCHES)
+    t0 = time.monotonic()
+    census = backend.device_census()
+    secs = time.monotonic() - t0
+    state1, _ = carry.state_to_numpy(backend._state)
+    check(kernels.LAUNCHES == launches0 and backend._gen == gen0
+          and all(np.array_equal(state0[k], state1[k]) for k in state0),
+          "census 100k: the census moved the backend's counts or state")
+    P, N, R = batch, backend.caps.n_cap, backend.caps.r
+    per_call = kernels.claims_bytes(P, N, R)
+    call_ms, call_by = kernels.bound(per_call)
+    for variant, rec in census.items():
+        ks = "; ".join(
+            f"{name}: {k['launches']} launches, {k['device_ms']:.4f} ms on "
+            f"the card, {k['bytes']} B, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']})" for name, k in rec["kernels"].items())
+        print(f"   census 100k {variant} ({rec['batch']['pods']} pods of "
+              f"{rec['batch']['req']}): {rec['waves']} waves, device "
+              f"{rec['device_ms']:.3f} ms, flops {rec['cost']['flops']:.6g}, "
+              f"bytes accessed {rec['cost']['bytes_accessed']:.6g}; "
+              f"{ks or 'no hand kernel'} [{smi}]", flush=True)
+    k = census["plain"]["kernels"].get("claims")
+    check(k is not None and k["launches"] == census["plain"]["waves"] >= 1
+          and k["bytes"] == k["launches"] * per_call,
+          f"census 100k: claims {k}")
+    print(f"   census 100k: {secs:.3f} s for both variants; the claims "
+          f"kernel's bytes a call by the count beside it (the census's "
+          f"bytes and the bound's numerator) {per_call} B, bound "
+          f"{call_ms:.4f} ms ({call_by}), PERF.md's wave bound 0.5413 ms "
+          f"[{smi}]", flush=True)
+    check((P, N) != (16384, 110_080) or round(call_ms, 4) == 0.5413,
+          f"census 100k: the claims bound {call_ms:.4f} ms moved")
+
+
+def sync_and_build_census(dev, smi, batches=OBS_GUARD_BATCHES, n_nodes=5000,
+                          batch=16384):
+    """Steady plain batches at SchedulingBasic's shape (5,000 nodes,
+    16,384 pods a batch) under SyncGuard and BuildCounter, after warmup
+    and two batches: every implicit sync at a `# sync-point:` site, the
+    syncs per batch and per device wave, and nothing built or loaded."""
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.testing.sanitizers import (
+        BuildCounter, SyncGuard,
+    )
+    cache = build_cluster(n_nodes, 22)
+    backend = TorchBatchBackend(caps_for_nodes(n_nodes), batch_size=batch,
+                                device=dev)
+    backend.warmup()
+    view = cache.flatten_view()
+    todo = make_batches(batches + 2, batch, "guard")
+    for infos in todo[:2]:
+        assume(cache, infos, backend.assign(infos, view))
+    w0 = backend.stats["waves"]
+    with SyncGuard("warn") as guard, BuildCounter() as built:
+        for infos in todo[2:]:
+            assume(cache, infos, backend.assign(infos, view))
+    guard_report(guard, built, "steady plain batches",
+                 [(batches, "batch", "batches"),
+                  (backend.stats["waves"] - w0, "device wave",
+                   "device waves")], smi)
+
+
+def guard_report(guard, built, label, counts, smi):
+    """Print one SyncGuard / BuildCounter reading with the syncs per unit
+    of `counts` ((n, unit, units), e.g. (20, "batch", "batches")), and
+    fail on an implicit sync without a # sync-point: comment or on a
+    build or load."""
+    root = Path(__file__).resolve().parent
+    sites = {("outside the package" if s is None else
+              f"{Path(s[0]).relative_to(root)}:{s[1]}"): n
+             for s, n in sorted(guard.sites.items(),
+                                key=lambda kv: str(kv[0]))}
+    over = ", ".join(f"{n} {unit if n == 1 else units}"
+                     for n, unit, units in counts)
+    per = ", ".join(f"{guard.syncs / max(n, 1):.2f} a {unit}"
+                    for n, unit, _units in counts)
+    print(f"   SyncGuard over {label} ({over}): {guard.syncs} implicit "
+          f"syncs (a lower bound), {per}; sites {sites}; BuildCounter "
+          f"builds {built.builds} loads {built.loads} [{smi}]", flush=True)
+    check(not guard.unannotated(),
+          f"{label}: implicit syncs without a # sync-point: comment at "
+          f"{guard.unannotated()}")
+    check(built.count == 0, f"{label}: built {built.builds} and loaded "
+                            f"{built.loads}")
+
+
+def sync_census_other_paths(dev, smi, n_nodes=5000, batch=1024, batches=3,
+                            n_pre=1024):
+    """SyncGuard and BuildCounter over the paths the plain census leaves
+    out: `batches` constraint batches of phase (a)'s mix (the full
+    variant) on n_nodes zoned nodes after one batch, and one wave of n_pre
+    preemptors (preempt_batch, the dry-run kernel) on n_nodes nodes of
+    PreemptionBasic's shape after a wave of a quarter as many."""
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.scheduler.cache import Snapshot
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+    from kubernetes_tpu_torch.testing import make_pod
+    from kubernetes_tpu_torch.testing.sanitizers import (
+        BuildCounter, SyncGuard,
+    )
+    cache = build_zoned_cluster(n_nodes, 23, disk_labels=True)
+    backend = TorchBatchBackend(caps_for_nodes(n_nodes), batch_size=batch,
+                                device=dev)
+    backend.warmup()
+    view = cache.flatten_view()
+    todo = [[PodInfo(mixed_pod(f"sg{b}-{i}", i)) for i in range(batch)]
+            for b in range(batches + 1)]
+    assume(cache, todo[0], backend.assign(todo[0], view))
+    w0, f0 = backend.stats["waves"], backend.stats.get("plain", 0)
+    with SyncGuard("warn") as guard, BuildCounter() as built:
+        for infos in todo[1:]:
+            assume(cache, infos, backend.assign(infos, view))
+    check(backend.stats.get("plain", 0) == f0,
+          "constraint batches took the plain variant")
+    guard_report(guard, built, "the full variant",
+                 [(batches, "constraint batch", "constraint batches"),
+                  (backend.stats["waves"] - w0, "device wave",
+                   "device waves")], smi)
+    del backend, cache, view, todo
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cache = build_preempt_cluster(n_nodes, 4, 24)
+    snap = cache.update_snapshot(Snapshot())
+    backend = TorchBatchBackend(caps=caps_for_nodes(n_nodes), batch_size=batch,
+                                device=dev)
+    backend.prefetch(cache.flatten_view())
+    backend.warmup()
+    pre = [PodInfo(make_pod(f"sg-pre-{j}").priority(10)
+                   .req(cpu="3000m", mem="500Mi").build())
+           for j in range(n_pre)]
+    node_ord_of = {ni.name: i for i, ni in enumerate(snap.list())}
+    backend.preempt_batch(pre[:n_pre // 4], node_ord_of)
+    chunks = -(-n_pre // backend.PREEMPT_P_CAP)
+    with SyncGuard("warn") as guard, BuildCounter() as built:
+        results, esc = backend.preempt_batch(pre, node_ord_of)
+    won = sum(r is not None for r in results)
+    check(not esc and won == min(n_pre, n_nodes),
+          f"guarded preemption wave: escapes {esc}, {won} of {n_pre} won")
+    guard_report(guard, built, "a preemption wave",
+                 [(chunks, "dry-run chunk", "dry-run chunks")], smi)
+
+
+def observability_phase(dev, smi, rounds=OBS_ROUNDS):
+    """Phase 21: the batch pipeline's observability on the card."""
+    with Phase("21 observability"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ratios = []
+        for r in range(rounds):
+            order = (True, False) if r % 2 == 0 else (False, True)
+            got = {armed: observability_pass(
+                armed, smi, f"SchedulingBasic {'armed' if armed else 'off'}"
+                f", round {r + 1}", inspect_pass=armed and r == 0)
+                for armed in order}
+            ratios.append(got[True] / got[False])
+        print(f"   armed / off pods/s per round "
+              f"{[round(x, 4) for x in ratios]} (in turns; no gate: the "
+              f"host spreads more than the instrumentation costs) [{smi}]",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        census_at_100k(dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync_and_build_census(dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync_census_other_paths(dev, smi)
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[],
@@ -1765,6 +2030,45 @@ def time_in_turns(kernels, others, args, raw, noise, pod_ids, label, smi,
         t = [time_cuda(fn, n) for fn in (ours, theirs, theirs, ours)]
         print(f"   {label} A/B this vs {tag}: this {t[0]:.4f} {t[3]:.4f} "
               f"ms, {tag} {t[1]:.4f} {t[2]:.4f} ms [{smi}]", flush=True)
+
+
+def explain_divergence(kernels, gpu, cpu):
+    """Where a GPU and a CPU run of the same slice part: for each pair of
+    kept claims launches (inputs, outputs), whether their inputs are
+    equal, whether each run's output is what the plain version gives on
+    that run's own inputs again (and, for the GPU's, the kernel
+    relaunched), and how many pods differ.  Printed before phase 4 fails,
+    so a divergence names the side that moved."""
+    host = torch.device("cpu")
+
+    def same(a, b):
+        return a.shape == b.shape and bool(torch.equal(a.to(host),
+                                                       b.to(host)))
+
+    for i, (gi, go, ci, co) in enumerate(zip(gpu.inputs, gpu.outputs,
+                                             cpu.inputs, cpu.outputs)):
+        g_static, c_static = gi[0], ci[0]
+        inputs = {k: same(g_static[k], c_static[k]) for k in g_static
+                  if torch.is_tensor(g_static[k])}
+        inputs.update(zip(("active", "used", "used_nz", "npods"),
+                          (same(a, b) for a, b in zip(gi[1:5], ci[1:5]))))
+        noise, ids = gi[5], gi[6]
+        again = kernels.claims(*gi[:5], noise=noise, pod_ids=ids)
+        plain_g = kernels.claims_reference(
+            {k: v.to(host) if torch.is_tensor(v) else v
+             for k, v in g_static.items()}, *(t.to(host) for t in gi[1:5]),
+            noise=noise, pod_ids=None if ids is None else ids.to(host))
+        plain_c = kernels.claims_reference(*ci[:5], noise=noise,
+                                           pod_ids=ci[6])
+        diff = (go[0].to(host) != co[0]).nonzero().flatten()
+        print(f"   launch {i} ({noise}): inputs equal "
+              f"{[k for k, v in inputs.items() if v]}, differ "
+              f"{[k for k, v in inputs.items() if not v]}; GPU run = "
+              f"relaunch {same(go[0], again[0]) and same(go[1], again[1])},"
+              f" = plain on its inputs {same(go[0], plain_g[0])}; CPU run = "
+              f"plain on its inputs again {same(co[0], plain_c[0])}; "
+              f"{diff.numel()} pods differ, first {diff[:8].tolist()}",
+              flush=True)
 
 
 def replay_launches(kernels, inputs, label, repeats=100):
@@ -1908,24 +2212,30 @@ def main(argv=None) -> int:
         for noise in ("murmur", "sin"):
             runs = by_noise[noise] = {}
             for device in (dev, torch.device("cpu")):
-                with ClaimsRecorder(kernels, keep=device.type == "cuda") \
-                        as rec:
+                with ClaimsRecorder(kernels, keep=True) as rec:
                     label = f"slice-{device.type}-{noise}"
                     backend, _outs, _secs, waves = drive(
                         build_cluster(5000, 7), make_batches(2, 4096, label),
                         device, label, 4096, claims_noise=noise)
-                kept += rec.inputs
+                if device.type == "cuda":
+                    kept += rec.inputs
                 state, _ = carry.state_to_numpy(backend._state)
                 runs[device.type] = (
-                    [r.get().copy() for r in backend.results], state, waves)
+                    [r.get().copy() for r in backend.results], state, waves,
+                    rec)
         # the launches first: should the vectors below differ, this says
         # whether a launch or only the noise's inputs did
         replay_launches(kernels, kept, "slice-cuda")
         del kept
         for noise, runs in by_noise.items():
             g, c = runs["cuda"], runs["cpu"]
-            check(len(g[0]) == len(c[0]) and all(
-                np.array_equal(a, b) for a, b in zip(g[0], c[0])),
+            agree = len(g[0]) == len(c[0]) and all(
+                np.array_equal(a, b) for a, b in zip(g[0], c[0]))
+            if not agree:
+                print(f"   {noise}: waves per batch GPU {g[2]} CPU {c[2]}",
+                      flush=True)
+                explain_divergence(kernels, g[3], c[3])
+            check(agree,
                 f"{noise}: GPU and CPU result vectors differ: " + "; ".join(
                     f"vector {i} slots {d[:8].tolist()} GPU {a[d[:8]].tolist()}"
                     f" CPU {b[d[:8]].tolist()}"
@@ -1937,6 +2247,7 @@ def main(argv=None) -> int:
             print(f"   {noise}: {len(g[0])} result vectors and the final "
                   f"state are bit-identical; waves per batch {g[2]}",
                   flush=True)
+        del by_noise
 
     summaries = {}
     for label, n_nodes, n_batches in (("5k", 5000, 3), ("100k", 100_000, 12)):
@@ -2012,8 +2323,10 @@ def main(argv=None) -> int:
                       f"{b['required'][0]:.4f} ms ({b['required'][1]}) with "
                       f"the noise on the required cells, "
                       f"{b['candidates'][0]:.4f} ms ({b['candidates'][1]}) "
-                      f"on the candidate cells, {b['PR 1'][0]:.4f} ms "
-                      f"({b['PR 1'][1]}) by PR 1's definition; cells live "
+                      f"on the candidate cells, "
+                      f"{b['first revision'][0]:.4f} ms "
+                      f"({b['first revision'][1]}) by the first kernel "
+                      f"revision's definition; cells live "
                       f"{n['live']} feasible {n['feasible']} candidates "
                       f"{n['candidates']} required {n['required']}; "
                       f"request-node pairs {n['pairs']} ({n['pairs fit']} "
@@ -2046,6 +2359,8 @@ def main(argv=None) -> int:
     loop_launches, _rows = loop_phases(smi)
     # checkpoint / warm start
     warm_start_phase(dev, smi)
+    # observability: spans, the wave timeline, the census, the sanitizers
+    observability_phase(dev, smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     print(smi)

@@ -340,8 +340,11 @@ def _wave(static, state, b: _SubBatch, assigned, active, noise):
     res_ok &= npods_claim + prefN + 1.0 <= maxp_claim
     accept = has & active & res_ok
     # commit: index_add_ of exact per-node sums == the JAX one-hot matmul
+    # sync-point: a boolean-mask gather reads the accepted count back
     rows = cl[accept]
+    # sync-point: a boolean-mask gather reads the accepted count back
     used.index_add_(0, rows, b.req[accept])
+    # sync-point: a boolean-mask gather reads the accepted count back
     used_nz.index_add_(0, rows, b.req_nz[accept])
     npods.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float32))
     assigned = torch.where(accept, claims, assigned)
@@ -356,6 +359,7 @@ def _wave_loop(static, state, b, assigned, active, noise, waves,
     while more than `stop_at` pods are active (one count read per
     wave).  Returns (assigned, active, waves)."""
     while waves < max_waves:
+        # sync-point: one count read a wave decides whether another runs
         n_active = int(active.sum())
         if n_active == 0 or n_active <= stop_at:
             break
@@ -441,7 +445,7 @@ class _Full:
         self.match_bits = _bit_columns(pod["match_asg"]).to(torch.int32)
         P = pod["req"].shape[0]
         C, G, KG = caps.c_cap, caps.g_cap, caps.kg_cap
-        # what the batch uses, in one host read
+        # sync-point: what the batch uses, in one host read
         uses = iter(torch.cat([
             torch.stack([(pod["c_kind"] == k).any(0)
                          for k in range(6)]).flatten(),
@@ -564,6 +568,7 @@ def _claims_full(f: _Full, state: dict, node: dict, rows):
     claims = torch.empty(B, dtype=torch.int64, device=dev)
     minm = torch.zeros((B, C), dtype=torch.float32, device=dev)
     boot = torch.zeros((B, C), dtype=torch.bool, device=dev)
+    # sync-point: a constant uploaded, once a full wave
     inf = torch.tensor(float("inf"), device=dev)
     for lo, hi in _row_chunks(B, f.N):
         r = rows[lo:hi]
@@ -703,8 +708,9 @@ def _resolve_and_commit(f: _Full, state: dict, node: dict, idx, cl, minm,
         for c in hard:
             _M, own, _sg, kind = slot[c]
             is_spread = (kind == C_SPREAD_HARD) & (own >= 0)
-            pools[c] = (is_spread,
-                        torch.nonzero(cand & is_spread).squeeze(1))
+            # sync-point: the spread cohort's pods, read back per slot
+            rows = torch.nonzero(cand & is_spread).squeeze(1)
+            pools[c] = (is_spread, rows)
         if any(rows.numel() for _s, rows in pools.values()):
             with torch.profiler.record_function("full.cohort"):
                 accept = _cohort(f, state, idx, cl, accept, cand, slot,
@@ -775,6 +781,7 @@ def _full_wave(f: _Full, state: dict, assigned, active, act):
     with torch.profiler.record_function("full.claims"):
         node = _node_side(f, state)
         claims, minm, boot = _claims_full(f, state, node, act)
+    # sync-point: the claiming pods' count sizes the conflict pass
     h = torch.nonzero(claims >= 0).squeeze(1)
     idx, cl = act[h], claims[h]
     with torch.profiler.record_function("full.resolve"):
@@ -834,6 +841,7 @@ def build_packed_assign_fn(caps: Caps, p_cap: int, k_cap: int = 1024,
         state["gen"] += 1
         result = torch.empty(p_cap + 2, dtype=torch.int32, device=dev)
         result[:p_cap] = assigned
+        # sync-point: the host's wave count copied in (a pageable copy)
         result[p_cap] = waves
         result[p_cap + 1] = state["gen"]
         return state, result
@@ -858,7 +866,8 @@ def build_packed_assign_fn(caps: Caps, p_cap: int, k_cap: int = 1024,
             active = pod["p_valid"].clone()
             waves = 0
             while waves < max_waves:
-                act = torch.nonzero(active).squeeze(1)  # one count read
+                # sync-point: one count read a wave (the active pods)
+                act = torch.nonzero(active).squeeze(1)
                 if not act.numel():
                     break
                 _full_wave(f, state, assigned, active, act)
@@ -886,6 +895,7 @@ def build_packed_assign_fn(caps: Caps, p_cap: int, k_cap: int = 1024,
         assigned, active, waves = _wave_loop(
             static_node, state, main, assigned, active, claims_noise, 0,
             max_waves, tail_p)
+        # sync-point: whether the compacted tail runs
         if tail_p and waves < max_waves and bool(active.any()):
             # gather the (at most tail_p) still-active pods to the front in
             # ascending index order; padding rows gather INACTIVE pods,

@@ -43,9 +43,12 @@ def state_to_numpy(state: dict, static: dict | None = None):
     """Inverse of state_from_reference: the port's tensors -> numpy dicts
     (`gen` as np.int32).  Returns (state_np, static_np), static_np None
     when no static dict is given."""
+    # sync-point: the whole state pulled to the host, on purpose
     state_np = {k: state[k].cpu().numpy() for k in STATE_KEYS if k != "gen"}
+    # sync-point: the generation counter, with the state
     state_np["gen"] = np.int32(int(state["gen"]))
-    static_np = (None if static is None
-                 else {k: static[k].cpu().numpy()
-                       for k in STATIC_CORE + STATIC_SEL if k in static})
-    return state_np, static_np
+    if static is None:
+        return state_np, None
+    # sync-point: the static arrays pulled to the host, on purpose
+    return state_np, {k: static[k].cpu().numpy()
+                      for k in STATIC_CORE + STATIC_SEL if k in static}

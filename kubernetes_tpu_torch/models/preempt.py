@@ -20,7 +20,8 @@ version, packed the same way, for CPU tensors.  On CUDA a build or launch
 failure raises; nothing falls back, and nothing but the kernel (and its
 output allocations and the overflow plane's memset) runs: the kernel reads
 the 0/1 taint planes as they are.  Each kernel launch adds one to
-`kernels.LAUNCHES["preempt"]`.
+`kernels.LAUNCHES["preempt"]` (kernels.count_launch).  The work one call
+must do lives beside it: `dry_run_bytes` and `dry_run_bound`.
 
 Exactness against the JAX programs, as XLA compiles them on the CPU (their
 optimized IR, dumped with XLA_FLAGS=--xla_dump_to, and a probe with
@@ -87,11 +88,15 @@ def preempt_candidates(alloc, used, npods, maxpods, valid, reclaim,
     for r in range(alloc.shape[1]):
         headroom = headroom + torch.clamp(free[..., r], min=0.0) / denom[:, r]
     P, N = fits.shape
+    # sync-point: f32 constants uploaded (pageable copies), as the JAX
+    # program's literals; K8 runs once a preemption wave
     tie_scale = torch.tensor(0.1, dtype=f32, device=dev) / 65536.0
-    score = (headroom * torch.tensor(1e-9, dtype=f32, device=dev)
-             - rec_np) + _tie_noise(P, N, dev) * tie_scale
-    score = torch.where(fits, score, torch.tensor(NEG, dtype=f32,
-                                                  device=dev))
+    # sync-point: an f32 constant uploaded
+    scale = torch.tensor(1e-9, dtype=f32, device=dev)
+    score = (headroom * scale - rec_np) + _tie_noise(P, N, dev) * tie_scale
+    # sync-point: an f32 constant uploaded
+    neg = torch.tensor(NEG, dtype=f32, device=dev)
+    score = torch.where(fits, score, neg)
     vals, rows = torch.sort(score, dim=1, descending=True, stable=True)
     vals, rows = vals[:, :k], rows[:, :k]
     rows = torch.where(vals > NEG / 2, rows, torch.full_like(rows, -1))
@@ -181,9 +186,9 @@ def preempt_dry_run_reference(alloc, used, npods, maxpods, valid, taint_mask,
     victf = victims.to(torch.float32)
     nvic = _sum_slots(victf)
     viol = _sum_slots(victf * vict_pdb[None])
-    highest = torch.where(victims, vict_prio[None],
-                          torch.tensor(-I32_MAX, dtype=torch.int32,
-                                       device=dev)).amax(-1)
+    # sync-point: an i32 constant uploaded (the plain version)
+    floor = torch.tensor(-I32_MAX, dtype=torch.int32, device=dev)
+    highest = torch.where(victims, vict_prio[None], floor).amax(-1)
     highest = torch.where(nvic > 0.0, highest, torch.zeros_like(highest))
     psum = _sum_slots(victf * vict_prio[None].to(torch.float32))
 
@@ -249,6 +254,7 @@ def live_slot_cap(vict_prio) -> int:
     that can be eligible.  numpy or torch; on a CUDA tensor this syncs."""
     if vict_prio.shape[0] == 0:
         return 0
+    # sync-point: one reduction a call when the caller holds no k_cap
     return int((vict_prio != I32_MAX).sum(1).max())
 
 
@@ -332,7 +338,7 @@ def prepared_launch(alloc, used, npods, maxpods, valid, taint_mask,
         if err != 0:
             raise RuntimeError(
                 f"preempt kernel launch failed: cudaError {err}")
-        kernels.LAUNCHES["preempt"] += 1
+        kernels.count_launch("preempt")
 
     return launch, planes
 
@@ -396,3 +402,40 @@ def preempt_dry_run(alloc, used, npods, maxpods, valid, taint_mask,
         return preempt_dry_run_reference(*args)
     out = dry_run_planes(*args)
     return (*out[:5], unpack_victims(out[5], vict_prio.shape[1]), out[6])
+
+
+# -- the work of one call ---------------------------------------------------
+
+def dry_run_bytes(args, planes) -> int:
+    """Bytes one dry-run call must move: each input of `args` (the
+    dry_run_planes arguments, in order) read once and each plane written
+    once, the victims as one int32 word per (pod, node)."""
+    return (sum(a.numel() * a.element_size() for a in args)
+            + sum(p.numel() * p.element_size() for p in planes))
+
+
+def dry_run_bound(args, planes):
+    """((ms, bound_by), bytes, ops) for one dry-run call on these inputs:
+    the larger of its bytes (dry_run_bytes) over HBM bandwidth and the
+    operations this data needs over the FP32 peak (integer compares
+    counted at that rate), on one H100 (kernels.bound).  Per (pod, node)
+    cell: V eligibility compares, R+1 adds per eligible slot (freed),
+    4R+4 for the fit test, the taint words, 3R+2 per eligible slot walked
+    (R subtracts, R adds, R compares, the slack step) and 4 per victim
+    (count, violations, priority sum, highest)."""
+    from ..ops import kernels
+    (_al, _u, _np, _mp, _v, taint, vict_prio, _vr, _vp, _vo, _nu,
+     _nn, _g, req, prio, _ut, _a) = args
+    P, R = req.shape
+    N, V = vict_prio.shape
+    nbytes = dry_run_bytes(args, planes)
+    elig = 0
+    for lo in range(0, P, 16):
+        # sync-point: measurement count (not the main path)
+        elig += int((vict_prio[None] < prio[lo:lo + 16, None, None]).sum())
+    # sync-point: measurement count (not the main path)
+    victims = int(planes[4].sum())
+    tw = -(-taint.shape[1] // 32)
+    ops = (P * N * (V + 4 * R + 4 + tw) + elig * (R + 1 + 3 * R + 2)
+           + victims * 4)
+    return kernels.bound(nbytes, ops), nbytes, ops

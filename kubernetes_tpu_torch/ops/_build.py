@@ -6,6 +6,9 @@ covers the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.  The libraries are loaded with ctypes: the sources
 include no PyTorch header, which keeps a build to seconds (ninja and
 torch.utils.cpp_extension are not needed).  Nothing here runs at import.
+`COUNTS` tallies the nvcc compiles started and the libraries loaded in this
+process (testing.sanitizers.BuildCounter reads it: after warmup, steady
+waves build and load nothing).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ NVCC_FLAGS = (
 
 # name -> ctypes.CDLL, one load per process
 _loaded: dict[str, ctypes.CDLL] = {}
+# nvcc compiles started and libraries loaded, by source name
+COUNTS: dict[str, dict[str, int]] = {"builds": {}, "loads": {}}
 
 
 def nvcc_path() -> str | None:
@@ -74,6 +79,7 @@ def build(names=None) -> dict[str, dict]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        COUNTS["builds"][name] = COUNTS["builds"].get(name, 0) + 1
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, path)
@@ -94,4 +100,5 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         info = build([name])[name]
         lib = _loaded[name] = ctypes.CDLL(info["path"])
+        COUNTS["loads"][name] = COUNTS["loads"].get(name, 0) + 1
     return lib

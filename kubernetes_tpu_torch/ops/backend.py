@@ -37,9 +37,15 @@ Checkpointed warm start (checkpoint_mirror / warm_start) writes and reads
 the JAX package's KTPUCKPT v1 format: a checkpoint written by either
 package's backend installs in the other's.
 
-Not yet ported (ROADMAP queue 1): the batch telemetry's densities
-(drain_batch_telemetry; the escape tallies are ported), tracing, the wave
-timeline, the remote device worker.
+Observability, as the JAX backend's: tracing spans under the scheduler's
+sampled batch root (_trace_parent), the per-batch telemetry
+(drain_batch_telemetry, drain_escape_reasons), the wave timeline's patch,
+h2d, device-step and d2h intervals (on the card from CUDA events,
+_WaveClock) and a device census (device_census: one step of each variant
+on a clone of the resident state, under torch.profiler, a dispatch-mode
+byte count and the FLOP counter).
+
+Not yet ported (ROADMAP queue 1): the remote device worker.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ import numpy as np
 import torch
 
 from ..api import meta
+from ..component_base import tracing
+from ..component_base.timeline import default_timeline
 from ..device import resolve_device
 from ..models.assign import (
     ALL_FEATURES, PLAIN_FEATURES, PackSpec, build_packed_assign_fn,
@@ -72,8 +80,9 @@ from ..scheduler.batch_backend import BatchBackend
 from ..scheduler.cache import Snapshot
 from ..scheduler.types import ERROR, SKIP, UNSCHEDULABLE, PodInfo, Status
 from .flatten import (
-    BatchEncoder, Caps, ClusterTensors, PodBatch, VocabFullError,
-    gather_pod_batch, slice_pod_batch,
+    C_AFFINITY, C_ANTI_AFFINITY, C_PREF_AFFINITY, C_SPREAD_HARD,
+    C_SPREAD_SCORE, CORE_R, BatchEncoder, Caps, ClusterTensors, PodBatch,
+    VocabFullError, gather_pod_batch, slice_pod_batch,
 )
 
 logger = logging.getLogger(__name__)
@@ -227,6 +236,18 @@ def _apply_vict_patch(vict: dict, rows, prio_v, req_v, pdb_v,
     vict["vict_req"][rows] = req_v
     vict["vict_pdb"][rows] = pdb_v
     vict["vict_over"][rows] = over_v
+
+
+def _trace_parent():
+    """The scheduler-installed batch root span for THIS thread (see
+    component_base/tracing use_span), or None when the pipeline is
+    untraced or the root was not sampled — callers then skip every span
+    and attribute computation, so tracing off costs nothing on the
+    dispatch path."""
+    span = tracing.current_span()
+    if span is None or not span.sampled:
+        return None
+    return span
 
 
 def _to_host(*tensors) -> list[np.ndarray]:
@@ -526,9 +547,11 @@ class ResidentHostMirror:
         self-heals at its own resolve."""
         m = self._mirror
         self._gen += 1
+        # sync-point: pageable host-to-device copies (a recovery)
         state = {k: torch.tensor(m[k], device=self.device) for k in
                  ("used", "used_nz", "npods", "port_mask",
                   "cd_sg", "cd_asg")}
+        # sync-point: a pageable host-to-device copy (a recovery)
         state["gen"] = torch.tensor(self._gen, dtype=torch.int32,
                                     device=self.device)
         self._state = state
@@ -782,15 +805,21 @@ class _StagedBuffer:
 
 class _Result:
     """The step's result vector on its way to the host: a pinned copy and
-    the CUDA event behind which it lands (None on the CPU)."""
+    the CUDA event behind which it lands (None on the CPU).  `timed` (the
+    timeline armed) makes `ready` a timing event and adds `copied`, one
+    recorded just before the copy: the d2h interval on the card."""
 
-    def __init__(self, device_result, device):
+    def __init__(self, device_result, device, timed: bool = False):
+        self.copied = None
         if device.type == "cuda":
+            if timed:
+                self.copied = torch.cuda.Event(enable_timing=True)
+                self.copied.record()
             self.host = torch.empty(device_result.shape,
                                     dtype=device_result.dtype,
                                     pin_memory=True)
             self.host.copy_(device_result, non_blocking=True)
-            self.ready = torch.cuda.Event()
+            self.ready = torch.cuda.Event(enable_timing=timed)
             self.ready.record()
         else:
             self.host, self.ready = device_result, None
@@ -799,6 +828,81 @@ class _Result:
         if self.ready is not None:
             self.ready.synchronize()
         return self.host.numpy()
+
+
+class _WaveClock:
+    """One wave's timeline marks, made only while profiling.timeline is
+    armed: h2d from pack start to launch, device-step from launch until
+    the last result landed (fence re-runs included), d2h nested inside it.
+    On CUDA the device-step and d2h bounds are timing events on the stream
+    (the launch event fires when the stream reaches the wave, which at
+    depth 2 can be after the host launched it; the end is the last
+    result's `ready` event, not the moment the host called resolve), mapped
+    onto time.monotonic() through the backend's clock anchor.  On the CPU,
+    as in the JAX package, they are host times: the launch, and the pull at
+    resolve."""
+
+    def __init__(self, backend: "TorchBatchBackend"):
+        self.backend = backend
+        self.cuda = backend.device.type == "cuda"
+        self.t_h2d = time.monotonic()
+        self.t_launch = self.t_pull = None
+        self.launch_ev = None
+        self.results: list[_Result] = []
+
+    def launch(self) -> None:
+        """Just before the wave's first step is enqueued (dispatch)."""
+        self.t_launch = time.monotonic()
+        if self.cuda:
+            self.launch_ev = torch.cuda.Event(enable_timing=True)
+            self.launch_ev.record()
+        default_timeline.record("h2d", self.t_h2d, self.t_launch)
+
+    def pull(self) -> None:
+        """resolve() starts pulling the results."""
+        self.t_pull = time.monotonic()
+
+    def record(self) -> None:
+        """Every result of the wave landed: commit device-step and d2h."""
+        t_end = time.monotonic()
+        if not self.cuda:
+            default_timeline.record("device-step", self.t_launch, t_end)
+            default_timeline.record("d2h", self.t_pull, t_end)
+            return
+        mono = self.backend._event_clock()
+        legs = [(mono(r.copied), mono(r.ready)) for r in self.results]
+        default_timeline.record("device-step", mono(self.launch_ev),
+                                max(t1 for _t0, t1 in legs))
+        for t0, t1 in legs:
+            default_timeline.record("d2h", t0, t1)
+
+
+def _traffic_mode():
+    """A TorchDispatchMode whose `bytes` sums the operand and result bytes
+    of every aten op run under it — the unfused traffic of the code —
+    leaving out views and allocations, which move nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    skip = {torch.ops.aten.empty, torch.ops.aten.empty_strided,
+            torch.ops.aten.empty_like}
+
+    def nbytes(tree) -> int:
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+                   if isinstance(x, torch.Tensor))
+
+    class Traffic(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and func.overloadpacket not in skip:
+                self.bytes += nbytes((args, kwargs)) + nbytes(out)
+            return out
+
+    return Traffic()
 
 
 def default_full_cap(n_cap: int, device: torch.device) -> int:
@@ -831,10 +935,12 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
     (the JAX package's KTPU_FULL_MAIN_WAVES); 0 runs every wave in the
     main step."""
 
-    # the checkpoint payload's "lineage": which backend wrote it
+    # the checkpoint payload's "lineage": which backend wrote it; the
+    # census and its gauges are labelled by it too (census_kind)
     lineage = "torch"
 
     STAGE_RING_MAX = 16
+    TELEMETRY_PENDING_MAX = 64  # per-batch telemetry dicts awaiting a drain
     RETRY_ROUNDS_MAX = 32  # defensive bound; rounds stop at no progress
 
     def __init__(self, caps: Caps | None = None, batch_size: int = 256,
@@ -904,6 +1010,19 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         # deltas; own lock, since the tallies are taken under self._lock
         self._esc_lock = threading.Lock()
         self._escape_pending: dict[tuple[str, str], int] = {}
+        # per-batch telemetry ({pods, feasible_nodes, mask_density,
+        # waves}), bounded, drained by the scheduler under _esc_lock
+        self._telemetry_pending: list[dict] = []
+        # (CUDA timing event, time.monotonic()) taken after a synchronize:
+        # maps the timeline's event times onto the host clock
+        self._clock_anchor = None
+        # step variants run at least once (the full step builds its noise
+        # table at its first call): the census warms the others first
+        self._stepped: set[str] = set()
+
+    @property
+    def census_kind(self) -> str:
+        return self.lineage
 
     # -- namespace and PDB events ----------------------------------------
 
@@ -959,6 +1078,26 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 finally:
                     self._stage_pins.discard(id(staged))
             self._warm_preempt()
+            if self.device.type == "cuda" and default_timeline.enabled:
+                self._anchor_clock()
+
+    def _anchor_clock(self) -> None:
+        """One (timing event, host time) pair, taken after a synchronize:
+        the origin _event_clock maps the timeline's CUDA events through."""
+        torch.cuda.synchronize(self.device)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ev.synchronize()
+        self._clock_anchor = (ev, time.monotonic())
+
+    def _event_clock(self):
+        """A function from a completed CUDA timing event to its
+        time.monotonic() reading; the anchor is taken at warmup when the
+        timeline is armed by then, else here, once."""
+        if self._clock_anchor is None:
+            self._anchor_clock()
+        ev0, t0 = self._clock_anchor
+        return lambda ev: t0 + ev0.elapsed_time(ev) / 1e3
 
     def _warm_preempt(self) -> None:
         """Make the victim tensors resident and run the dry run once on an
@@ -977,6 +1116,166 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             "nom_np": np.zeros((1, c.n_cap), np.float32),
             "active": np.zeros(P, bool)}))
 
+    # -- device census ---------------------------------------------------
+
+    # the census pod's cpu (milli) and memory (bytes) when no row holds a
+    # pod yet: SchedulingBasic's pod
+    CENSUS_DEFAULT_REQ = (100.0, 128.0 * 2**20)
+
+    def device_census(self, variants: tuple = ("full", "plain")) -> dict:
+        """Cost census of the step variants, the counterpart of the JAX
+        backend's (which lowers each variant and reads XLA's cost
+        analysis): torch cannot cost a step without running it, so this
+        runs ONE step of each variant on a clone of the resident state
+        (the device state, the static arrays and `_gen`, the mirror and
+        kernels.LAUNCHES are left as they were), on a fixed batch:
+        every slot valid (batch_size pods, full_cap for the full variant),
+        each pod requesting the smallest nonzero per-pod cpu and memory
+        among the rows that hold pods (used / npods), or
+        CENSUS_DEFAULT_REQ on an empty cluster, and tolerating every
+        taint.  The step runs under torch.profiler (kernel launches and
+        device time), a dispatch mode that sums the operand and result
+        bytes of every aten op (views and allocations aside: the unfused
+        traffic) and FlopCounterMode.  The hand kernels are invisible to
+        both modes: each adds the bytes of its calls from the count beside
+        it (kernels.claims_bytes) where it launched (on the CPU their
+        plain versions ran as aten ops and are counted as such).
+
+        Returns {variant: {"collectives": {}, "per_call_bytes": 0,
+        "per_wave_bytes": 0 (one device), "cost": {"flops",
+        "bytes_accessed"}, "kernels": {name: {"launches", "device_ms",
+        "bytes", "bound_ms", "bound_by"}}, "device_ms", "waves",
+        "batch": {"pods", "req"}}}; device_ms are 0.0 off the card.  The
+        clone is taken under the backend lock and the steps run outside
+        it, so a census does not stall a concurrent dispatch.  torch's
+        profiler allows one session a process: never run a census inside
+        another profiler's window."""
+        names = [v for v in ("full", "plain") if v in variants]
+        with self._lock:
+            plans = [self._census_plan(v) for v in names]
+        return {v: self._census_run(v, *plan)
+                for v, plan in zip(names, plans)}
+
+    def _census_req(self) -> np.ndarray:
+        """The census pod's request: per core resource the smallest nonzero
+        used / npods over the rows holding pods, as the device state has
+        them (the mirror; the host tensors before the first step)."""
+        t = self.tensors
+        src = self._mirror if self._mirror is not None else {
+            "used": t.used, "npods": t.npods}
+        req = np.zeros(self.caps.r, np.float32)
+        rows = t.valid & (src["npods"] > 0)
+        for r, default in enumerate(self.CENSUS_DEFAULT_REQ):
+            per_pod = src["used"][rows, r] / src["npods"][rows]
+            per_pod = per_pod[per_pod > 0]
+            req[r] = per_pod.min() if per_pod.size else default
+        return req
+
+    def _census_plan(self, variant: str) -> tuple:
+        """(step fn, cloned state, static arrays, packed batch on the
+        device, pods, request) for one census step (caller holds the
+        lock)."""
+        t = self.tensors
+
+        def dev(a):
+            # sync-point: a pageable host-to-device copy (between waves)
+            return torch.tensor(a, device=self.device)
+
+        if self._state is not None:
+            state = {k: v.clone() for k, v in self._state.items()}
+        else:
+            cd_sg, cd_asg = t.domain_base_counts()
+            state = {"used": dev(t.used), "used_nz": dev(t.used_nz),
+                     "npods": dev(t.npods), "port_mask": dev(t.port_mask),
+                     "cd_sg": dev(cd_sg), "cd_asg": dev(cd_asg),
+                     "gen": dev(np.int32(self._gen))}
+        static = (self._static_node if self._static_node is not None
+                  and self._static_version == t.static_version
+                  else {k: dev(getattr(t, k)) for k in STATIC_CORE})
+        batch = self.encoder.encode([])
+        if variant == "full":
+            fn, spec, pods = self._ensure_full(), self._spec_full, self.full_cap
+            static = {**static,
+                      **(self._static_sel if self._static_sel is not None
+                         and self._static_version == t.static_version
+                         else {k: dev(getattr(t, k)) for k in STATIC_SEL})}
+            batch = slice_pod_batch(batch, 0, 0, pods)
+        else:
+            fn, spec, pods = self._ensure_plain(), self._spec_plain, \
+                self.batch_size
+        req = self._census_req()
+        batch = dataclasses.replace(
+            batch, req=np.tile(req, (pods, 1)), req_nz=np.tile(req, (pods, 1)),
+            p_valid=np.ones(pods, bool))
+        # sync-point: the census batch's pageable upload
+        buf = torch.from_numpy(pack_pod_batch(batch, spec)).to(self.device)
+        return fn, state, static, buf, pods, req
+
+    def _census_run(self, variant, fn, state, static, buf, pods,
+                    req) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from . import kernels
+        cuda = self.device.type == "cuda"
+        if variant not in self._stepped:
+            # a step's first call builds what it caches (the full step's
+            # noise table): run it once on another clone, unmeasured
+            with kernels.launch_tally():
+                fn({k: v.clone() for k, v in state.items()}, static, buf)
+            self._stepped.add(variant)
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if cuda else [])
+        traffic = _traffic_mode()
+        with profile(activities=acts) as prof:
+            with kernels.launch_tally() as tally, \
+                    FlopCounterMode(display=False) as flops, traffic:
+                _state, rd = fn(state, static, buf)
+            if cuda:
+                # sync-point: the census waits for its own step
+                torch.cuda.synchronize(self.device)
+        # sync-point: the census reads its step's wave count
+        waves = int(rd[-2].cpu())
+        device_ms = {}
+        total_ms = 0.0
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                total_ms += e.self_device_time_total / 1e3
+                for name, symbols in kernels.KERNEL_SYMBOLS.items():
+                    if any(sym in e.key for sym in symbols):
+                        device_ms[name] = (device_ms.get(name, 0.0)
+                                           + e.self_device_time_total / 1e3)
+        hand = {}
+        for name, inputs in tally.calls:
+            k = hand.setdefault(name, {"bytes": 0, "ops": 0})
+            if name == "claims":
+                P, N, R = inputs["shape"]
+                k["bytes"] += kernels.claims_bytes(P, N, R)
+                # the mask test every live cell needs: a floor on the
+                # operations (chip_smoke.py counts them in full)
+                # sync-point: the census counts its own calls' live pods
+                k["ops"] += (int(inputs["active"].sum()) * N
+                             * kernels.MASK_OPS)
+        out_k = {}
+        hand_bytes = hand_ops = 0
+        for name, k in hand.items():
+            launches = tally.launches.get(name, 0)
+            ms, by = kernels.bound(k["bytes"], k["ops"])
+            out_k[name] = {"launches": launches,
+                           "device_ms": device_ms.get(name, 0.0),
+                           "bytes": k["bytes"], "bound_ms": ms,
+                           "bound_by": by}
+            if launches:
+                hand_bytes += k["bytes"]
+                hand_ops += k["ops"]
+        return {"collectives": {}, "per_call_bytes": 0, "per_wave_bytes": 0,
+                "cost": {"flops": float(flops.get_total_flops() + hand_ops),
+                         "bytes_accessed": float(traffic.bytes
+                                                 + hand_bytes)},
+                "kernels": out_k, "device_ms": total_ms, "waves": waves,
+                "batch": {"pods": pods,
+                          "req": [float(x) for x in req[:CORE_R]]}}
+
     def _stage_buf(self, total: int) -> _StagedBuffer:
         """Hand out a host staging buffer of `total` f32 slots from the
         ring (caller holds the lock): one that no unresolved wave retains
@@ -993,9 +1292,11 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         self._stage_pins.add(id(sb))
         return sb
 
-    def _device_step(self, variant: str, staged: _StagedBuffer) -> _Result:
+    def _device_step(self, variant: str, staged: _StagedBuffer,
+                     clock: _WaveClock | None = None) -> _Result:
         """Run one packed batch through the `variant` step ("plain",
-        "full" or "full_small") and return the result vector's handle.
+        "full" or "full_small") and return the result vector's handle,
+        registered with the wave's timeline `clock` when one is given.
         Everything above this call is host bookkeeping; everything below
         is device execution."""
         if variant == "plain":
@@ -1012,8 +1313,12 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         else:
             buf = staged.host
         self._state, rd = fn(self._state, static, buf)
+        self._stepped.add(variant)
         self._gen += 1  # the step computes the identical state.gen + 1
-        return _Result(rd, self.device)
+        res = _Result(rd, self.device, timed=clock is not None)
+        if clock is not None:
+            clock.results.append(res)
+        return res
 
     def _ensure_sel(self) -> None:
         """Upload the selector-side static arrays if they are not resident
@@ -1021,6 +1326,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         _upload_static keeps them current)."""
         if self._static_sel is None:
             t = self.tensors
+            # sync-point: pageable host-to-device copies (first full step)
             self._static_sel = {k: torch.tensor(getattr(t, k),
                                                 device=self.device)
                                 for k in STATIC_SEL}
@@ -1076,6 +1382,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 or len(rows) * 8 > self.caps.n_cap)
 
         def dev(a):
+            # sync-point: a pageable host-to-device copy (between waves)
             return torch.tensor(a, device=self.device)
 
         if full:
@@ -1117,6 +1424,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 or len(rows) * 8 > self.caps.n_cap)
 
         def dev(a):
+            # sync-point: a pageable host-to-device copy (between waves)
             return torch.tensor(a, device=self.device)
 
         if full:
@@ -1140,14 +1448,14 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         t = self.tensors
 
         def dev(a):
+            # sync-point: a pageable host-to-device copy (between waves)
             return torch.tensor(a, device=self.device)
 
         self._state = {
             "used": dev(t.used), "used_nz": dev(t.used_nz),
             "npods": dev(t.npods), "port_mask": dev(t.port_mask),
             "cd_sg": dev(cd_sg), "cd_asg": dev(cd_asg),
-            "gen": torch.tensor(self._gen, dtype=torch.int32,
-                                device=self.device),
+            "gen": dev(np.int32(self._gen)),
         }
         self._mirror_from_tensors(cd_sg, cd_asg)
         self.stats["full_refresh"] += 1
@@ -1178,6 +1486,18 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
 
     # -- BatchBackend ----------------------------------------------------
 
+    def _tracked_sync(self, snapshot) -> set[int]:
+        """Bring the host tensors up to the snapshot (caller holds the
+        lock); returns the rows it changed.  The wave timeline's patch
+        leg."""
+        t_sync = time.monotonic()
+        dirty = set(self.tensors.update_from_snapshot_tracked(snapshot))
+        t_end = time.monotonic()
+        self.stats["flatten_seconds"] += t_end - t_sync
+        if default_timeline.enabled:
+            default_timeline.record("patch", t_sync, t_end)
+        return dirty
+
     def dispatch(self, pod_infos: Sequence[PodInfo], snapshot: Snapshot):
         """Host prep + device dispatch.  Returns resolve() -> results, or
         the FLUSH_FIRST sentinel.
@@ -1194,7 +1514,15 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         rows from this attempt are carried over so no external change is
         lost.  A constraint batch (one that needs the full variant) larger
         than `full_cap` runs in chunks that chain the resident state; the
-        row patches ride the first chunk."""
+        row patches ride the first chunk.
+
+        Observability, as the JAX backend's: under a sampled batch root
+        span (the scheduler's, see _trace_parent) the batch gets the
+        snapshot.flatten, plugin.filter_masks, plugin.score and
+        plugin.assign_solve spans, tpu.h2d and tpu.d2h under the last;
+        with the timeline armed it records patch, h2d, device-step and
+        d2h (_WaveClock).  Off, neither costs more than a read."""
+        parent = _trace_parent()
         with self._lock:
             if self._warm_pending:
                 self._warm_sweep(snapshot)
@@ -1207,16 +1535,15 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             skip_sync = (epoch is not None and self._state is not None
                          and epoch == self._last_epoch
                          and not self._carry_dirty)
+            f_sp = (parent.tracer.start_span("snapshot.flatten",
+                                             parent=parent)
+                    if parent is not None else None)
             try:
                 if skip_sync:
                     dirty = set()
                 else:
-                    t_sync = time.monotonic()
-                    dirty = set(self.tensors.update_from_snapshot_tracked(
-                        snapshot))
-                    dirty |= self._carry_dirty
+                    dirty = self._tracked_sync(snapshot) | self._carry_dirty
                     self._last_epoch = epoch
-                    self.stats["flatten_seconds"] += time.monotonic() - t_sync
                 batch = self.encoder.encode(list(pod_infos))
                 if (skip_sync and self._static_version
                         != self.tensors.static_version):
@@ -1229,11 +1556,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                     # accounting (nodes filled past their caps).  Nothing
                     # external changed (same epoch), so no row moves: sync
                     # now.
-                    t_sync = time.monotonic()
-                    dirty = set(self.tensors.update_from_snapshot_tracked(
-                        snapshot))
+                    dirty = self._tracked_sync(snapshot)
                     skip_sync = False
-                    self.stats["flatten_seconds"] += time.monotonic() - t_sync
             except VocabFullError as e:
                 logger.warning("tensorization overflow (%s); batch -> oracle "
                                "path", e)
@@ -1245,8 +1569,17 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                           else "vocab_full")
                 self._tally_escape_pairs(
                     {("BatchEncoder", reason): len(pod_infos)})
+                if f_sp is not None:
+                    f_sp.add_event("vocab_overflow", error=str(e))
+                    f_sp.end()
                 results = [(None, Status(SKIP, str(e)))] * len(pod_infos)
                 return lambda: results
+            if f_sp is not None:
+                f_sp.set_attribute("pods", len(pod_infos))
+                f_sp.set_attribute("escaped", len(batch.escape))
+                f_sp.set_attribute("dirty_rows", len(dirty))
+                f_sp.set_attribute("sync_skipped", bool(skip_sync))
+                f_sp.end()
             n_live = len(pod_infos)
             if n_live and not batch.p_valid[:min(n_live,
                                                 self.batch_size)].any():
@@ -1257,6 +1590,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 self.stats["all_escape_skips"] = self.stats.get(
                     "all_escape_skips", 0) + 1
                 self._tally_batch_escapes(batch, n_live)
+                if parent is not None:
+                    parent.add_event("all_escape_skip", pods=n_live)
                 results = [
                     (None, Status(SKIP, "escape to per-pod path"))
                     ] * n_live
@@ -1267,6 +1602,36 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                     return results
 
                 return resolve_escaped
+
+            # per-plugin batch telemetry: the filter-mask densities and the
+            # device feasibility domain, queued (at resolve, with the wave
+            # count) for the scheduler's tpu_mask_density /
+            # tpu_feasible_nodes metrics and, under a sampled root, set as
+            # span attributes with the score-term densities.  The step fuses
+            # filter, score and solve, so these two spans time the host
+            # telemetry pass; the solve span below is the device's phase.
+            fm_sp = (parent.tracer.start_span("plugin.filter_masks",
+                                              parent=parent)
+                     if parent is not None else None)
+            # host-array: the host tensors' valid rows
+            feasible = int(self.tensors.valid.sum())
+            telem = {
+                "pods": n_live,
+                "feasible_nodes": feasible,
+                "mask_density": self._mask_densities(batch, n_live),
+            }
+            if fm_sp is not None:
+                fm_sp.set_attribute("feasible_nodes",
+                                    telem["feasible_nodes"])
+                for plugin, d in telem["mask_density"].items():
+                    fm_sp.set_attribute(plugin, round(d, 4))
+                fm_sp.end()
+            sc_sp = (parent.tracer.start_span("plugin.score", parent=parent)
+                     if parent is not None else None)
+            if sc_sp is not None:
+                for term, d in self._score_densities(batch, n_live).items():
+                    sc_sp.set_attribute(term, round(d, 4))
+                sc_sp.end()
 
             inflight = bool(self._unresolved)
             # deterministic compaction point: compaction order is visible
@@ -1344,6 +1709,15 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             n = len(pod_infos)
             empty = (np.empty(0, np.int32),
                      np.empty((0, self._f_patch), np.float32))
+            # plugin.assign_solve spans launch -> resolve (ended by
+            # resolve() below); tpu.h2d covers pack + upload + launch
+            # inside it
+            solve_sp = (parent.tracer.start_span("plugin.assign_solve",
+                                                 parent=parent)
+                        if parent is not None else None)
+            h2d_sp = (parent.tracer.start_span("tpu.h2d", parent=solve_sp)
+                      if solve_sp is not None else None)
+            clock = _WaveClock(self) if default_timeline.enabled else None
             # chunk tuples retain the staged buffer, the variant and the
             # expected device generation, so a fenced resolve can re-run
             # the identical chunks from the restored state
@@ -1368,16 +1742,25 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                     pack_pod_batch(cb, self._spec_full, p[0], p[1],
                                    out=staged.array)
                     p = empty
-                    chunks.append((self._device_step("full", staged), lo, hi,
-                                   "full", staged, self._gen))
+                    if clock is not None and not chunks:
+                        clock.launch()
+                    chunks.append((self._device_step("full", staged, clock),
+                                   lo, hi, "full", staged, self._gen))
             else:
                 self.stats["plain"] = self.stats.get("plain", 0) + 1
                 self._ensure_plain()
                 staged = self._stage_buf(self._spec_plain.total)
                 pack_pod_batch(batch, self._spec_plain, patches[0],
                                patches[1], out=staged.array)
-                chunks.append((self._device_step("plain", staged), 0,
+                if clock is not None:
+                    clock.launch()
+                chunks.append((self._device_step("plain", staged, clock), 0,
                                self.batch_size, "plain", staged, self._gen))
+            if h2d_sp is not None:
+                h2d_sp.set_attribute("chunks", len(chunks))
+                h2d_sp.set_attribute("variant", chunks[0][3])
+                h2d_sp.set_attribute("patched_rows", int(len(patches[0])))
+                h2d_sp.end()
             self.stats["batches"] += 1
             holder = object()
             self._unresolved.append(holder)
@@ -1388,9 +1771,15 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
 
         def resolve() -> list[tuple[str | None, Status | None]]:
             nonlocal will_fence
+            batch_waves = 0
             try:
                 with self._lock:
                     assignments = np.full(self.batch_size, -1, np.int64)
+                    d2h_sp = (solve_sp.tracer.start_span("tpu.d2h",
+                                                         parent=solve_sp)
+                              if solve_sp is not None else None)
+                    if clock is not None:
+                        clock.pull()
                     # a fenced wave is stale BY CONSTRUCTION: start from the
                     # fence flag so the replay below is unconditional for it
                     stale = bool(will_fence)
@@ -1415,13 +1804,18 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                             self.stats["gen_stale_waves"] = self.stats.get(
                                 "gen_stale_waves", 0) + 1
                         self._restore_state_from_mirror()
-                        raw = [self._device_step(variant, staged).get()
+                        raw = [self._device_step(variant, staged,
+                                                 clock).get()
                                for _p, _lo, _hi, variant, staged, _e
                                in chunks]
-                    batch_waves = 0
+                    if clock is not None:
+                        clock.record()
                     for result, (_p, lo, hi, *_rest) in zip(raw, chunks):
                         assignments[lo:hi] = result[:-2][:hi - lo]
                         batch_waves += int(result[-2])
+                    if d2h_sp is not None:
+                        d2h_sp.set_attribute("chunks", len(chunks))
+                        d2h_sp.end()
                     self.stats["waves"] += batch_waves
                     self._replay(batch, assignments)
                     if was_full and self.full_main_waves:
@@ -1439,11 +1833,19 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 if will_fence:
                     self._fence_pending = max(0, self._fence_pending - 1)
                     will_fence = False
+            if solve_sp is not None:
+                solve_sp.set_attribute("waves", batch_waves)
+                solve_sp.set_attribute("pods", n)
+                solve_sp.end()
             out = decode_results(assignments, n, self.batch_size,
                                  set(batch.escape), row_names,
                                  "no feasible node (GPU batch filter)",
                                  nofit_escapes=set(batch.nofit_oracle))
             self._tally_batch_escapes(batch, n, assignments)
+            telem["waves"] = batch_waves
+            with self._esc_lock:
+                self._telemetry_pending.append(telem)
+                del self._telemetry_pending[:-self.TELEMETRY_PENDING_MAX]
             record_batch_stats(self.stats, self._lock, out, n)
             return out
 
@@ -1542,6 +1944,74 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             out, self._escape_pending = self._escape_pending, {}
         return out
 
+    # -- batch telemetry ---------------------------------------------------
+
+    def drain_batch_telemetry(self) -> list[dict]:
+        """Pop the pending per-batch telemetry dicts ({pods,
+        feasible_nodes, mask_density, waves}) for the scheduler's gauge
+        and histogram updates."""
+        with self._esc_lock:
+            out, self._telemetry_pending = self._telemetry_pending, []
+        return out
+
+    # host-array: the encoded batch's numpy fields
+    def _mask_densities(self, batch: PodBatch, n: int) -> dict[str, float]:
+        """Per-plugin-family constraint-mask density: the fraction of the
+        batch's live slots carrying an active mask for that family.  The
+        device step fuses filter and score, so these host numbers are what
+        'how selective was this batch' means per plugin."""
+        nl = max(1, min(n, self.batch_size))
+
+        def rows(a):
+            if a is None:
+                return None
+            return (a[:nl].reshape(nl, -1) != 0).any(axis=1)
+
+        def dens(*arrays):
+            acc = None
+            for a in arrays:
+                r = rows(a)
+                if r is not None:
+                    acc = r if acc is None else (acc | r)
+            return float(acc.sum()) / nl if acc is not None else 0.0
+
+        def kind_dens(*kinds):
+            if batch.c_kind is None:
+                return 0.0
+            ck = batch.c_kind[:nl]
+            acc = np.zeros(nl, bool)
+            for k in kinds:
+                acc |= (ck == k).any(axis=1)
+            return float(acc.sum()) / nl
+
+        out = {
+            "NodeAffinity": dens(batch.sel_any_active, batch.key_any_active,
+                                 batch.sel_forb, batch.key_forb),
+            "InterPodAffinity": kind_dens(C_AFFINITY, C_ANTI_AFFINITY,
+                                          C_PREF_AFFINITY),
+            "PodTopologySpread": kind_dens(C_SPREAD_HARD, C_SPREAD_SCORE),
+            "TaintToleration": dens(batch.untol_hard, batch.untol_prefer),
+            "NodePorts": dens(batch.ports),
+        }
+        if batch.node_row is not None:
+            out["NodeName"] = float(
+                (batch.node_row[:nl] >= 0).sum()) / nl
+        return out
+
+    # host-array: the encoded batch's numpy fields
+    def _score_densities(self, batch: PodBatch, n: int) -> dict[str, float]:
+        """Score-phase twin of _mask_densities: the soft (weight-carrying)
+        terms the step's score accumulation reads."""
+        nl = max(1, min(n, self.batch_size))
+        out = {"preferred_affinity": 0.0, "prefer_no_schedule": 0.0}
+        if batch.c_weight is not None:
+            out["preferred_affinity"] = float(
+                (batch.c_weight[:nl] != 0).any(axis=1).sum()) / nl
+        if batch.untol_prefer is not None:
+            out["prefer_no_schedule"] = float(
+                (batch.untol_prefer[:nl] != 0).any(axis=1).sum()) / nl
+        return out
+
     # -- batched preemption (PostFilter's device half) -------------------
 
     # failed pods per dry-run call (padded); at n_cap 110,080 the kernel's
@@ -1595,6 +2065,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             row_names = list(t.row_names)
 
             def dev(a):
+                # sync-point: a pageable host-to-device copy (between waves)
                 return torch.tensor(a, device=self.device)
             node_args = [dev(a) for a in (t.alloc, t.used, t.npods,
                                           t.maxpods, t.valid, reclaim,
@@ -1636,6 +2107,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         st = self._state
 
         def dev(a):
+            # sync-point: a pageable host-to-device copy (between waves)
             return torch.tensor(a, device=self.device)
 
         used = st["used"] if st is not None else dev(t.used)
@@ -1784,6 +2256,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                     (slot, -vict_prio_h, -vict_pdb_h), axis=-1)
                 eps32 = np.float32(1e-6)
 
+                # host-array: the victim slots' host copies
                 def _host_dry_run(rc, prio_j, req_j, g_j):
                     """The dry run for ONE (pod, claimed node) pair with the
                     wave's claims on that node folded in as >=-priority
@@ -1887,10 +2360,12 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                                      if elig.any() else 0.0)
                             free_ub = (alloc_h[rc] - used_h[rc]
                                        - nom_used[gidx[j], rc] + freed)
+                            # host-array: the eligible victims' count
+                            n_elig = float(elig.sum())
                             slack_ub = (maxpods_h[rc]
                                         - (npods_h[rc]
                                            + nom_np[gidx[j], rc]
-                                           - float(elig.sum())))
+                                           - n_elig))
                             for cp, crv in claims_by_row[rc]:
                                 if cp >= prio[j]:
                                     free_ub = free_ub - crv

@@ -172,6 +172,18 @@ class ChaosBatchBackend:
                 out[key] = out.get(key, 0) + cnt
         return out
 
+    def drain_batch_telemetry(self) -> list:
+        fn = getattr(self.inner, "drain_batch_telemetry", None)
+        return fn() if fn is not None else []
+
+    def device_census(self, *args, **kwargs) -> dict:
+        fn = getattr(self.inner, "device_census", None)
+        return fn(*args, **kwargs) if fn is not None else {}
+
+    @property
+    def census_kind(self) -> str:
+        return getattr(self.inner, "census_kind", "chaos")
+
 
 # -- churn-storm chaos ----------------------------------------------------
 #

@@ -12,7 +12,14 @@ and best f32[P] (NEG when none is).
 tensors and runs `claims_reference`, the same function in plain torch, for
 CPU tensors.  On CUDA a build or launch failure raises; it never falls back.
 Each launch adds one to `LAUNCHES["claims"]`, a module-level count that a
-caller wrapping `claims` cannot move.
+caller wrapping `claims` cannot move; inside `launch_tally()` the launches
+of the calling thread go to the tally instead (the device census counts
+its own step's launches there and leaves `LAUNCHES` as it found it).
+
+The work one call must do lives here too, beside the kernel: its bytes
+(`claims_bytes`) and its operations on given inputs (`claims_work`,
+`claims_bounds`), over the peak rates of one H100 below.  chip_smoke.py's
+bounds and the backend's device census read these counts.
 
 Two noise rules, chosen by the `noise` argument:
   "sin"    - the Pallas kernel's fract(sin(gp*12.9898 + gn*78.233) *
@@ -37,8 +44,11 @@ reference's scores bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
+import numpy as np
 import torch
 
 NEG = -1e9
@@ -55,6 +65,90 @@ MASK_ALIGN = 16
 # kernel launches by kernel name, counted where each wrapper launches
 # (the preempt kernel's wrapper is models/preempt.py)
 LAUNCHES = {"claims": 0, "preempt": 0}
+# each kernel's CUDA symbols, as torch.profiler names their launches
+KERNEL_SYMBOLS = {"claims": ("claims_slice_kernel", "claims_fold_kernel"),
+                  "preempt": ("dry_run_kernel",)}
+
+# Peak rates of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at its
+# 700 W power limit): the denominators of every bound computed here.
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_FP32_OPS_PER_S = 67e12      # FP32 outside the tensor cores
+H100_FP64_OPS_PER_S = 34e12      # FP64 outside the tensor cores
+# Operations of one claims call, counted three ways (claims_bounds).
+#  "first revision": the first kernel revision's definition: per live
+#   cell the mask and cap tests and R compares; per feasible cell the
+#   utilizations, score, add and running max (SCORE_OPS) and the noise.
+#  "candidates" and "required": the work the inputs need.  Per live cell
+#   the mask test; per distinct (pod request, node) pair R compares and
+#   the cap test, and where they fit the utilizations and score
+#   (PAIR_SCORE_OPS); per noisy cell the noise, add and running max.
+#   "candidates" takes the noise on every feasible cell within NOISE_MAX
+#   of its pod's best score; "required" only on the cells any exact
+#   algorithm must evaluate: those whose upper bound fl(score + NOISE_MAX)
+#   lies above the pod's answer, or equals it at a lower node index, and
+#   the answer itself.
+# The noise: f32 operations (murmur's integer hash counted as 14 of its
+# 16), and for sin one f64 sin counted as 20 f64 operations.
+FIT_OPS_BASE = 2
+SCORE_OPS = 20
+MASK_OPS = 1
+PAIR_SCORE_OPS = 18
+PICK_OPS = 2
+NOISE_OPS = {"sin": 12, "murmur": 16}
+SIN_F64_OPS = {"sin": 20, "murmur": 0}
+# the largest value each noise rule returns (csrc/claims.cu NOISE_MAX)
+NOISE_MAX = {"sin": np.float32(1e-3),
+             "murmur": np.float32(16777215.0) * np.float32(0.05 / 2**24)}
+
+_tally_local = threading.local()
+
+
+class LaunchTally:
+    """The kernel launches (`launches`, by LAUNCHES' names) and the wrapper
+    calls (`calls`: (kernel name, {inputs}) in call order) of one thread
+    inside `launch_tally()`."""
+
+    def __init__(self):
+        self.launches = {name: 0 for name in LAUNCHES}
+        self.calls: list[tuple[str, dict]] = []
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Within the block the calling thread's launches count in the yielded
+    LaunchTally, not in LAUNCHES, and its wrapper calls are recorded with
+    their inputs.  Other threads count as before."""
+    prev = getattr(_tally_local, "tally", None)
+    tally = _tally_local.tally = LaunchTally()
+    try:
+        yield tally
+    finally:
+        _tally_local.tally = prev
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel `name`: in this thread's tally if one is open,
+    else in LAUNCHES.  Called by each wrapper where it launches."""
+    tally = getattr(_tally_local, "tally", None)
+    (LAUNCHES if tally is None else tally.launches)[name] += 1
+
+
+def note_call(name: str, **inputs) -> None:
+    """Record a wrapper call's inputs in this thread's open tally (no-op
+    without one: the main path pays one attribute read)."""
+    tally = getattr(_tally_local, "tally", None)
+    if tally is not None:
+        tally.calls.append((name, inputs))
+
+
+def bound(nbytes: float, f32_ops: float = 0.0,
+          f64_ops: float = 0.0) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the least time one H100 takes to move
+    `nbytes` and to do the operations, the larger of the two."""
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = (f32_ops / H100_FP32_OPS_PER_S
+             + f64_ops / H100_FP64_OPS_PER_S) * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def mask_stride(P: int) -> int:
@@ -109,6 +203,8 @@ def murmur_noise(pod_ids, n_nodes: int):
     hx ^= hx >> 13
     hx = _mul32(hx, 0xC2B2AE35)
     hx ^= hx >> 16
+    # sync-point: a constant uploaded (the full step's noise table is
+    # built once)
     scale = torch.tensor(MURMUR_NOISE / (1 << 24), dtype=torch.float32,
                          device=dev)
     return (hx >> 8).to(torch.float32) * scale
@@ -135,6 +231,7 @@ def sin_noise(pod_ids, n_nodes: int):
     dev = pod_ids.device
     gp = pod_ids.to(torch.float32)[:, None]
     gn = torch.arange(n_nodes, dtype=torch.float32, device=dev)[None, :]
+    # sync-point: a constant uploaded (the plain version)
     c2 = torch.tensor(78.233, dtype=torch.float32, device=dev)
     arg = fma32(gn, c2, gp * 12.9898)
     h = torch.sin(arg.double()).float() * 43758.5453
@@ -147,6 +244,7 @@ def fit_score(ucpu, umem):
     first product fused into the sum — exactly how the reference's XLA
     compilation on the CPU evaluates it (it contracts a*b + c*d into
     fma(a, b, c*d)), so the murmur rule stays bit-identical to it."""
+    # sync-point: a constant uploaded, once a call (the full step's waves)
     fifty = torch.tensor(50.0, dtype=torch.float32, device=ucpu.device)
     return fma32(2.0 - ucpu - umem, fifty,
                  (1.0 - torch.abs(ucpu - umem) * 0.5) * 100.0)
@@ -241,6 +339,7 @@ def claims(static, active, used, used_nz, npods, noise="sin",
     arange(P)).  CPU tensors run claims_reference; CUDA tensors launch
     csrc/claims.cu and count the launch in `LAUNCHES["claims"]`."""
     _check_noise(noise)
+    note_call("claims", shape=static["shape"], active=active, noise=noise)
     dev = used.device
     if dev.type == "cpu":
         return claims_reference(static, active, used, used_nz, npods, noise,
@@ -286,5 +385,99 @@ def claims(static, active, used, used_nz, npods, noise="sin",
         out_best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"claims kernel launch failed: cudaError {err}")
-    LAUNCHES["claims"] += 1
+    count_launch("claims")
     return out_claims, out_best
+
+
+# -- the work of one call ---------------------------------------------------
+
+def claims_bytes(P: int, N: int, R: int) -> int:
+    """Bytes one claims call must move: each input read once (the uint8
+    mask [N, P], req and req_nz [P, R] f32, active [P] bool, pod_ids [P]
+    i32, alloc, used and used_nz [N, R] f32, npods and maxpods [N] f32)
+    and each output written once (claims i32 and best f32 [P])."""
+    return (N * P + 2 * P * R * 4 + P + P * 4 + 3 * N * R * 4 + 2 * N * 4
+            + P * 8)
+
+
+def claims_work(args, noise, answer):
+    """Counts of the work one claims call on these inputs needs: live
+    cells, feasible cells, distinct (request, node) pairs and those that
+    fit, candidate cells (feasible, score within NOISE_MAX of the pod's
+    best score) and required cells (see the operation counts above);
+    `args` is (static, active, used, used_nz, npods), `answer` the plain
+    version's (claims, best) on the same inputs."""
+    static, active, used, used_nz, npods = args
+    P, N, R = static["shape"]
+    claim, best = answer
+    dev = used.device
+    avail = static["alloc"] - used
+    cap_ok = npods + 1.0 <= static["maxpods"]
+    one = torch.ones((), device=dev)
+    nmax = torch.tensor(float(NOISE_MAX[noise]), dtype=torch.float32,
+                        device=dev)
+    node = torch.arange(N, device=dev)[None, :]
+
+    def fits(req):
+        fit = cap_ok[None, :].expand(req.shape[0], N)
+        for r in range(R):
+            fit = fit & (req[:, r, None] <= avail[None, :, r])
+        return fit
+
+    def scores(req_nz):
+        utils = []
+        for r in range(2):
+            a = static["alloc"][None, :, r]
+            u = used_nz[None, :, r] + req_nz[:, r, None]
+            utils.append(torch.where(
+                a > 0, torch.minimum(u / torch.clamp(a, min=1.0), one), one))
+        return fit_score(*utils)
+
+    live = active.bool()
+    uniq = torch.unique(torch.cat([static["req"], static["req_nz"]], 1)[live],
+                        dim=0)
+    # sync-point: measurement counts, read once per call (not the main path)
+    n = {"live": int(live.sum()) * N, "pairs": uniq.shape[0] * N,
+         "pairs fit": 0, "feasible": 0, "candidates": 0, "required": 0}
+    step = max(1, (1 << 25) // N)
+    for lo in range(0, uniq.shape[0], step):
+        # sync-point: measurement count
+        n["pairs fit"] += int(fits(uniq[lo:lo + step, :R]).sum())
+    for lo in range(0, P, step):
+        hi = min(P, lo + step)
+        fit = (fits(static["req"][lo:hi])
+               & (static["smask_t"][:, lo:hi].T != 0) & live[lo:hi, None])
+        score = scores(static["req_nz"][lo:hi])
+        top = torch.where(fit, score, torch.full_like(score, -3e38)).amax(1)
+        upper = score + nmax
+        b, c = best[lo:hi, None], claim[lo:hi, None]
+        # sync-point: measurement counts
+        n["feasible"] += int(fit.sum())
+        # sync-point: measurement counts
+        n["candidates"] += int((fit & (score + nmax >= top[:, None])).sum())
+        # sync-point: measurement counts
+        n["required"] += int((fit & ((upper > b) | ((upper == b)
+                                                     & (node <= c)))).sum())
+    return n
+
+
+def claims_bounds(args, noise, answer):
+    """{"first revision" | "candidates" | "required": (ms, by), "cells":
+    counts} for one claims call on these inputs: the larger of the bytes
+    it must move (claims_bytes) over HBM bandwidth and its operations,
+    counted three ways (above), over the FP32 and FP64 peaks."""
+    P, N, R = args[0]["shape"]
+    nbytes = claims_bytes(P, N, R)
+    n = claims_work(args, noise, answer)
+    out = {"first revision": bound(
+        nbytes, n["live"] * (FIT_OPS_BASE + R)
+        + n["feasible"] * (SCORE_OPS + NOISE_OPS[noise]),
+        n["feasible"] * SIN_F64_OPS[noise])}
+    needed = (n["live"] * MASK_OPS + n["pairs"] * (R + 1)
+              + n["pairs fit"] * PAIR_SCORE_OPS)
+    for name in ("candidates", "required"):
+        out[name] = bound(nbytes,
+                          needed + n[name] * (NOISE_OPS[noise] + PICK_OPS),
+                          n[name] * SIN_F64_OPS[noise])
+    out["cells"] = n
+    return out

@@ -57,6 +57,17 @@ deleted: gone, not unbound).  Diagnostics:
 KTPU_STAGE_DEBUG=1 adds the per-batch stage latencies (stage_latency),
 --host-profile the sampling profiler's seconds per pipeline stage
 (host_stages) and each thread's CPU seconds over the run (thread_cpu_s).
+
+The observatory read-outs (the JAX bench.py's --profile and --timeline):
+    python3 -m kubernetes_tpu_torch.perf.bench --profile [--out PATH]
+    python3 -m kubernetes_tpu_torch.perf.bench --timeline [--out PATH]
+each run one SchedulingBasicLarge pass (1,000 nodes, 5,000 pods, batch
+1,024, depth 2 unless --nodes/--pods/--batch say otherwise) with the
+profiling: stanza armed (--profile: the host sampler, the device census
+and the SLO tracker; --timeline: the wave timeline), then the same pass
+with it off, print one JSON line (the armed pass's numbers, both passes'
+pods/s and their ratio) and write the artifact to --out (default
+kubernetes_tpu_torch/_build/{profile,timeline}_SchedulingBasicLarge.json).
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import sys
 import threading
 import time
@@ -311,7 +323,8 @@ def profile_batch(cluster, batch: int, label: str, op: dict | None = None,
     terms count only each other; their pod groups are created first.
     Other pods join the run's namespace, so they add no selector group.
     Returns {pods, wall_ms, busy_ms, idle_share, waves, events, top:
-    [(device ms, count, name)], done}."""
+    [(device ms, count, name)], done, window: (start, end) as
+    time.monotonic() readings}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -356,7 +369,8 @@ def profile_batch(cluster, batch: int, label: str, op: dict | None = None,
             time.sleep(0.002)
         if cuda:
             torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
+        t1 = time.monotonic()
+        wall_ms = (t1 - t0) * 1e3
     # device events only; the full step's record_function ranges
     # ("full.*") repeat the time of the kernels inside them
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -370,16 +384,16 @@ def profile_batch(cluster, batch: int, label: str, op: dict | None = None,
             "idle_share": round(1 - busy_ms / wall_ms, 4),
             "waves": backend.stats.get("waves", 0) - w0,
             "events": sum(r[1] for r in rows), "top": rows[:8],
-            "done": attempted() >= base + batch}
+            "done": attempted() >= base + batch, "window": (t0, t1)}
 
 
 def run_once(workload: str, nodes: int | None, pods: int | None,
              batch: int, barrier_timeout: float = 900.0,
              rate: float | None = None, depth: int = 1,
-             admission_ms: float = 0.0, device=None,
-             host_profile: bool = False, after=None,
+             admission_ms: float = 0.0, device=None, after=None,
              null_device: bool = False, pct_nodes: int = 0,
-             overload=None, profile_pods: int = 0) -> dict:
+             overload=None, profile_pods: int = 0, tracing_provider=None,
+             profiling_policy=None) -> dict:
     """One full workload pass in this process (the JAX bench's run_once,
     device-backed by TorchBatchBackend on `device`; null_device=True nulls
     the device step instead).  pct_nodes is the profile's
@@ -388,13 +402,16 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
     default OverloadPolicy without chaos.  profile_pods > 0 runs one more
     batch of that many of the workload's measured pods after `after`,
     under torch.profiler (profile_batch; the row's profiled_batch: device
-    busy ms and idle share).  host_profile arms
-    the sampling host profiler (its per-stage host seconds land in the
-    row as host_stages; they count a thread's samples whether it runs or
-    waits) and reads each thread's CPU seconds over the run before the
-    shutdown (thread_cpu_s); `after(cluster)` runs once the workload's
-    stats and the store's placements are read.  Returns {"value", "wall_s", "detail", "stats"}, plus
-    "error" when the barrier failed."""
+    busy ms and idle share).  `tracing_provider` traces the batches and
+    `profiling_policy` (a ProfilingPolicy) arms the profiling: stanza
+    (census, timeline, sampler) as run_named_workload does; with the
+    sampling host profiler armed (`enabled`) its per-stage host seconds
+    land in the row as host_stages (they count a thread's samples whether
+    it runs or waits) and each thread's CPU seconds over the run are read
+    before the shutdown (thread_cpu_s).  `after(cluster)` runs once the
+    workload's stats and the store's placements are read.  Returns
+    {"value", "wall_s", "detail", "stats"}, plus "error" when the barrier
+    failed."""
     cfg = copy.deepcopy(load_workloads()[workload])
     tpl = cfg["workloadTemplate"]
     # count/rate overrides target the MEASURED createPods only: warm-up
@@ -425,10 +442,7 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
         policy = OverloadPolicy()
     elif overload:
         policy, chaos = overload_shape(batch)
-    profiling_policy = None
-    if host_profile:
-        from ..scheduler.config import ProfilingPolicy
-        profiling_policy = ProfilingPolicy(enabled=True)
+    host_profile = profiling_policy is not None and profiling_policy.enabled
     cpu: dict[str, float] = {}
     placements: dict = {}
     profiled: dict = {}
@@ -452,7 +466,8 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
         pipeline_depth=depth, admission_interval=admission_ms / 1e3,
         null_device=null_device, percentage_of_nodes_to_score=pct_nodes,
         overload=policy, chaos_schedule=chaos, device=device, store=store,
-        profiling_policy=profiling_policy, after=after_run)
+        profiling_policy=profiling_policy, tracing_provider=tracing_provider,
+        after=after_run)
     wall = time.monotonic() - t0
     detail = summary.to_dict()
     detail["placements"] = placements
@@ -463,7 +478,7 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
         detail["full_batches"] = bstats["batches"] - bstats.get("plain", 0)
     if profiled:
         detail["profiled_batch"] = {k: v for k, v in profiled.items()
-                                    if k != "top"}
+                                    if k not in ("top", "window")}
         detail["profiled_batch"]["top"] = [
             [round(ms, 3), n, name[:60]] for ms, n, name in profiled["top"]]
     if not stats.get("barrier_ok", False):
@@ -501,7 +516,7 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
     for key in ("setup_s", "create_nodes_s", "flatten_before_window_s"):
         detail[key] = round(stats.get(key, 0.0), 3)
     # diagnostics: per-batch stage latencies (KTPU_STAGE_DEBUG=1) and the
-    # sampling profiler's host seconds per pipeline stage (host_profile)
+    # sampling profiler's host seconds per pipeline stage
     for key in ("stage_latency", "host_stages"):
         if key in stats:
             detail[key] = stats[key]
@@ -541,7 +556,7 @@ def pass_args(name: str, nodes: int | None = None, pods: int | None = None,
 
 def run_config(name: str, device=None, nodes: int | None = None,
                pods: int | None = None, batch: int | None = None,
-               host_profile: bool = False, after=None,
+               profiling_policy=None, after=None,
                profile_pods: int = 0) -> tuple:
     """Run a named config (sizes optionally overridden); returns (the row,
     every pass's run_once result in run order).  A two_pass config runs
@@ -552,8 +567,9 @@ def run_config(name: str, device=None, nodes: int | None = None,
     pass."""
     args = pass_args(name, nodes, pods, batch)
     paced = bool(args["rate"])
-    results = [run_once(**args, device=device, host_profile=host_profile,
-                        after=after, profile_pods=profile_pods)
+    results = [run_once(**args, device=device,
+                        profiling_policy=profiling_policy, after=after,
+                        profile_pods=profile_pods)
                for _ in range(2 if CONFIGS[name].get("two_pass") else 1)]
 
     def worse(r):
@@ -579,6 +595,142 @@ def run_config(name: str, device=None, nodes: int | None = None,
                extra), results
 
 
+ARTIFACT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build")
+
+
+def _basic_large(nodes: int, pods: int) -> dict:
+    """SchedulingBasicLarge at `nodes` nodes and `pods` measured pods."""
+    cfg = copy.deepcopy(load_workloads()["SchedulingBasicLarge"])
+    tpl = cfg["workloadTemplate"]
+    for op in tpl:
+        if op["opcode"] == "createNodes":
+            op["count"] = nodes
+        elif op["opcode"] == "createPods" and is_measured(op, tpl):
+            op["count"] = pods
+        elif op["opcode"] == "barrier":
+            op["timeout"] = 600.0
+    return cfg
+
+
+def _observatory_passes(policy, nodes: int, pods: int, batch: int, device,
+                        between) -> tuple:
+    """The armed pass, then the same pass with the stanza off: (armed
+    summary, armed stats, off summary, what `between()` returned; it runs
+    between the two passes)."""
+    caps = caps_for_nodes(nodes)
+    summary_a, stats_a = run_named_workload(
+        _basic_large(nodes, pods), caps=caps, batch_size=batch,
+        pipeline_depth=2, profiling_policy=policy, device=device)
+    taken = between()
+    summary_u, _ = run_named_workload(
+        _basic_large(nodes, pods), caps=caps, batch_size=batch,
+        pipeline_depth=2, device=device)
+    return summary_a, stats_a, summary_u, taken
+
+
+def _write_artifact(out_path: str, doc: dict) -> str:
+    out_path = os.path.abspath(out_path)
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return out_path
+
+
+def run_profile(out_path: str | None = None, device=None, nodes: int = 1000,
+                pods: int = 5000, batch: int = 1024) -> dict:
+    """--profile: the performance observatory's read-out.  One
+    SchedulingBasicLarge pass with the profiling: stanza on (the host
+    sampler, the device census of both step variants and the SLO
+    tracker), then the same pass with it off, for the overhead.  The
+    artifact holds the row (per-stage host seconds, the census summary,
+    SLO quantiles and burn rates), the full census and the collapsed
+    stacks."""
+    from ..scheduler.config import ProfilingPolicy
+    out_path = out_path or os.path.join(ARTIFACT_DIR,
+                                        "profile_SchedulingBasicLarge.json")
+    summary_p, stats_p, summary_u, collapsed = _observatory_passes(
+        ProfilingPolicy(enabled=True, census=True), nodes, pods, batch,
+        device, between=profiling.default_host_profiler.collapsed)
+    census = stats_p.get("device_census") or {}
+    census_summary: dict[str, dict] = {}
+    for label, variants in census.items():
+        for variant, rec in variants.items():
+            per_wave, per_call = profiling.collective_bytes_by_op(rec)
+            census_summary[f"{label}-{variant}"] = {
+                "per_wave_bytes": rec.get("per_wave_bytes", 0),
+                "per_call_bytes": rec.get("per_call_bytes", 0),
+                "wave_collective_bytes": per_wave,
+                "step_collective_bytes": per_call,
+                **(rec.get("cost") or {}), "waves": rec.get("waves"),
+                "device_ms": rec.get("device_ms"),
+                "kernels": rec.get("kernels")}
+    e2e = stats_p.get("e2e") or {}
+    out = {"nodes": nodes, "pods": pods, "batch": batch,
+           "pods_per_s": round(summary_p.average, 1),
+           "p50_ms": e2e.get("p50_ms"), "p95_ms": e2e.get("p95_ms"),
+           "p99_ms": e2e.get("p99_ms"),
+           "host_stages": stats_p.get("host_stages"),
+           "profile_samples": stats_p.get("profile_samples"),
+           "slo": stats_p.get("slo"), "census": census_summary}
+    path = _write_artifact(out_path, {
+        "rows": [out], "device_census": census,
+        "hot_stacks": stats_p.get("hot_stacks"),
+        "collapsed_stacks": collapsed})
+    return {**out, "profile_file": path,
+            "profiled_pods_per_s": round(summary_p.average, 1),
+            "unprofiled_pods_per_s": round(summary_u.average, 1),
+            "overhead_ratio": round(summary_u.average
+                                    / max(summary_p.average, 1e-9), 3),
+            "barrier_ok": stats_p.get("barrier_ok", False)}
+
+
+def run_timeline(out_path: str | None = None, device=None, nodes: int = 1000,
+                 pods: int = 5000, batch: int = 1024) -> dict:
+    """--timeline: the wave timeline's read-out.  One SchedulingBasicLarge
+    pass with profiling.timeline armed (the interval ring and the per-pod
+    decomposition), then the same pass with it off, for the overhead.
+    The artifact holds the row (the union-derived device idle share,
+    per-stage overlap ratios, per-segment latency quantiles) and the
+    Perfetto-loadable Chrome trace of the ring."""
+    from ..component_base import timeline as cb_timeline
+    from ..scheduler.config import ProfilingPolicy
+    out_path = out_path or os.path.join(ARTIFACT_DIR,
+                                        "timeline_SchedulingBasicLarge.json")
+    ring = cb_timeline.default_timeline
+
+    def take_and_disarm():
+        # the backend records while the process-wide ring is armed, so the
+        # off pass needs it disarmed
+        doc = ring.to_chrome_trace()
+        ring.configure(enabled=False)
+        return doc
+
+    summary_t, stats_t, summary_u, trace_doc = _observatory_passes(
+        ProfilingPolicy(timeline=True), nodes, pods, batch, device,
+        between=take_and_disarm)
+    tl = stats_t.get("timeline") or {}
+    e2e = stats_t.get("e2e") or {}
+    out = {"nodes": nodes, "pods": pods, "batch": batch,
+           "pods_per_s": round(summary_t.average, 1),
+           "p50_ms": e2e.get("p50_ms"), "p95_ms": e2e.get("p95_ms"),
+           "p99_ms": e2e.get("p99_ms"),
+           "device_idle_share": tl.get("device_idle_share"),
+           "stages": tl.get("stages"),
+           "stage_overlap": tl.get("overlap"),
+           "latency_decomposition": tl.get("segments"),
+           "timeline_intervals": tl.get("intervals"),
+           "pods_decomposed": tl.get("pods_decomposed")}
+    path = _write_artifact(out_path, {"rows": [out],
+                                      "chrome_trace": trace_doc})
+    return {**out, "timeline_file": path,
+            "timed_pods_per_s": round(summary_t.average, 1),
+            "untimed_pods_per_s": round(summary_u.average, 1),
+            "overhead_ratio": round(summary_u.average
+                                    / max(summary_t.average, 1e-9), 3),
+            "barrier_ok": stats_t.get("barrier_ok", False)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default=["SchedulingBasic"], nargs="+",
@@ -599,12 +751,36 @@ def main(argv=None) -> int:
                     help="sample the host threads; the row gains "
                          "host_stages (seconds per pipeline stage) and "
                          "thread_cpu_s (CPU seconds per thread)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--profile", action="store_true",
+                      help="SchedulingBasicLarge with the profiling: "
+                           "stanza (sampler, census, SLO) armed, then off; "
+                           "writes the profile artifact to --out")
+    mode.add_argument("--timeline", action="store_true",
+                      help="SchedulingBasicLarge with profiling.timeline "
+                           "armed, then off; writes the timeline artifact "
+                           "to --out")
+    ap.add_argument("--out", default=None,
+                    help="the --profile / --timeline artifact's path "
+                         f"(default under {ARTIFACT_DIR})")
     args = ap.parse_args(argv)
+    if args.profile or args.timeline:
+        run = run_profile if args.profile else run_timeline
+        sizes = {k: v for k, v in (("nodes", args.nodes),
+                                   ("pods", args.pods),
+                                   ("batch", args.batch)) if v is not None}
+        out = run(args.out, args.device, **sizes)
+        print(json.dumps(out), flush=True)
+        return 0 if out["barrier_ok"] else 1
     failed = False
+    policy = None
+    if args.host_profile:
+        from ..scheduler.config import ProfilingPolicy
+        policy = ProfilingPolicy(enabled=True)
     for name in args.config:
         out, _results = run_config(
             name, args.device, args.nodes, args.pods, args.batch,
-            host_profile=args.host_profile, profile_pods=args.profile_pods)
+            profiling_policy=policy, profile_pods=args.profile_pods)
         print(json.dumps(out), flush=True)
         failed |= "error" in out["detail"]
     return 1 if failed else 0

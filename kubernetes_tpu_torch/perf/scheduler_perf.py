@@ -257,8 +257,10 @@ def setup_cluster(caps=None, batch_size: int = 512,
     that wall time).
 
     Not ported (they raise NotImplementedError, naming the ROADMAP item):
-    via_http (the apiserver), remote_seam (ops/remote.py),
-    profiling_policy.census (the device census).
+    via_http (the apiserver), remote_seam (ops/remote.py).
+    profiling_policy.census runs the backend's device census after its
+    warmup (TorchBatchBackend.device_census: one step of each variant on a
+    clone of the resident state).
     """
     if via_http:
         raise _not_ported("via_http (the apiserver front door)",
@@ -266,9 +268,6 @@ def setup_cluster(caps=None, batch_size: int = 512,
     if remote_seam:
         raise _not_ported("remote_seam (ops/remote.py)",
                           "ROADMAP queue 1 item 6")
-    if profiling_policy is not None and profiling_policy.census:
-        raise _not_ported("profiling_policy.census (the device census)",
-                          "ROADMAP queue 1 item 5")
     from ..utils.gctune import tune_for_throughput
     tune_for_throughput()  # CPython gen-2 pauses cost ~35% at bench scale
     store = store or kv.MemoryStore(history=1_000_000)

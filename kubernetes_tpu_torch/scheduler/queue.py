@@ -323,8 +323,9 @@ class SchedulingQueue:
         with self._cond:
             self._gate = held
 
-    def _hold(self, qpi: QueuedPodInfo) -> bool:
-        """Park qpi if the gate holds it; whether it did."""
+    def _hold_locked(self, qpi: QueuedPodInfo) -> bool:
+        """Park qpi if the gate holds it; whether it did.  The caller holds
+        the queue lock."""
         if self._gate is None or not self._gate(qpi):
             self._held.discard(qpi.key)
             return False
@@ -340,7 +341,7 @@ class SchedulingQueue:
             qpi = self._unschedulable.get(key)
             if qpi is None:
                 self._held.discard(key)
-            elif not self._hold(qpi):
+            elif not self._hold_locked(qpi):
                 del self._unschedulable[key]
                 if self._is_backing_off(qpi):
                     self._backoff.push(qpi)
@@ -573,7 +574,7 @@ class SchedulingQueue:
                 return
             qpi.timestamp = time.monotonic()
             self.nominator.add_nominated_pod(qpi.pod_info)
-            if self._hold(qpi):
+            if self._hold_locked(qpi):
                 return
             if self._move_request_cycle >= pod_scheduling_cycle:
                 self._backoff.push(qpi)
@@ -589,7 +590,7 @@ class SchedulingQueue:
             qpi = self._unschedulable.get(key)
             if qpi is not None:
                 qpi.pod_info.update(new)
-                if self._hold(qpi):
+                if self._hold_locked(qpi):
                     return
                 del self._unschedulable[key]
                 if self._is_backing_off(qpi):
@@ -636,7 +637,7 @@ class SchedulingQueue:
             moved = []
             for key, qpi in list(self._unschedulable.items()):
                 if (self._pod_matches_event(qpi, event)
-                        and not self._hold(qpi)):
+                        and not self._hold_locked(qpi)):
                     moved.append(key)
                     if self._is_backing_off(qpi):
                         self._backoff.push(qpi)
@@ -675,7 +676,7 @@ class SchedulingQueue:
                     if head is None or self._backoff_expiry(head) > now:
                         break
                     qpi = self._backoff.pop()
-                    if not self._hold(qpi):
+                    if not self._hold_locked(qpi):
                         self._active.push(qpi)
                         notified = True
                 notified |= self._release_held_locked()

@@ -916,8 +916,10 @@ class Scheduler:
         as a metric, not a script run).  Gated: only called when the
         profiling: stanza set census=true, and costs an AOT compile per
         variant, so the harness runs it right after backend warmup.
-        A batch backend without `device_census` (TorchBatchBackend) raises
-        NotImplementedError: the GPU census is ROADMAP queue 1 item 5."""
+        The port's TorchBatchBackend runs one step of each variant on a
+        clone of its resident state instead of lowering it; a backend
+        without `device_census` is skipped.  Gauges are labelled by the
+        backend's census_kind (the port's: its lineage, "torch")."""
         if not self._census_wanted:
             return {}
         from ..component_base.profiling import collective_bytes_by_op
@@ -929,10 +931,7 @@ class Scheduler:
                 continue
             census_fn = getattr(backend, "device_census", None)
             if census_fn is None:
-                raise NotImplementedError(
-                    f"device census: {type(backend).__name__} has no "
-                    "device_census; the GPU census is not ported to "
-                    "kubernetes_tpu_torch (ROADMAP queue 1 item 5)")
+                continue
             kind = getattr(backend, "census_kind",
                            type(backend).__name__)
             census = census_fn()

@@ -229,3 +229,98 @@ def test_preempt_batch_on_the_card_equals_cpu(cuda):
             assert launched == 1
     assert outs[0] == outs[1]
     assert sum(1 for r in outs[0][0] if r) >= 5
+
+
+# -- observability on the card ----------------------------------------------
+
+def _loaded_card_side(cuda, batch=SEQ_BATCH):
+    s = port_side(batch, SEQ_CAPS, device=cuda)
+    rng = np.random.default_rng(3)
+    for i in range(20):
+        s.cache.add_node(s.node(f"n{i}", cpu=str(int(rng.integers(2, 9))),
+                                mem="8Gi"))
+    s.backend.warmup()
+    return s, rng
+
+
+def test_sync_guard_allows_only_annotated_sites_on_the_claims_path(cuda):
+    """Steady plain waves on the card under SyncGuard("error"): every
+    implicit sync is at a `# sync-point:` site (the wave's count reads),
+    and the waves still place every pod."""
+    from kubernetes_tpu_torch.testing.sanitizers import SyncGuard
+    s, rng = _loaded_card_side(cuda)
+    waves0 = s.backend.stats["waves"]
+    with SyncGuard("error") as g:
+        for k in range(5):
+            pods = [s.pod(f"p{k}-{i}", cpu="100m", mem="64Mi")
+                    for i in range(SEQ_BATCH)]
+            s.assume(pods, s.backend.assign(s.infos(pods), s.snapshot()))
+    assert g.unannotated() == []
+    assert g.syncs >= s.backend.stats["waves"] - waves0
+
+
+def test_build_counter_reads_zero_after_warmup(cuda):
+    from kubernetes_tpu_torch.testing.sanitizers import BuildCounter
+    s, _rng = _loaded_card_side(cuda)
+    with BuildCounter() as bc:
+        for k in range(3):
+            pods = [s.pod(f"p{k}-{i}", cpu="100m") for i in range(8)]
+            s.assume(pods, s.backend.assign(s.infos(pods), s.snapshot()))
+    assert bc.count == 0, (bc.builds, bc.loads)
+
+
+def test_census_on_the_card(cuda):
+    """The census launches the claims kernel in its own tally: LAUNCHES,
+    the state and _gen unchanged; device time and the kernel's bytes
+    counted; twice the same counts."""
+    from kubernetes_tpu_torch.models import carry
+    s, _rng = _loaded_card_side(cuda)
+    b = s.backend
+    state0, _ = carry.state_to_numpy(b._state)
+    gen0, launches0 = b._gen, dict(kernels.LAUNCHES)
+    a = b.device_census()
+    c = b.device_census()
+    assert kernels.LAUNCHES == launches0 and b._gen == gen0
+    state1, _ = carry.state_to_numpy(b._state)
+    assert all(np.array_equal(state0[k], state1[k]) for k in state0)
+    k = a["plain"]["kernels"]["claims"]
+    assert k["launches"] == a["plain"]["waves"] >= 1
+    assert k["device_ms"] > 0 and a["plain"]["device_ms"] >= k["device_ms"]
+    assert a["plain"]["cost"]["bytes_accessed"] > k["bytes"] > 0
+    strip = {v: {key: val for key, val in rec.items() if key != "device_ms"}
+             for v, rec in a.items()}
+    for rec in strip.values():
+        for kk in rec["kernels"].values():
+            kk.pop("device_ms")
+    again = {v: {key: val for key, val in rec.items() if key != "device_ms"}
+             for v, rec in c.items()}
+    for rec in again.values():
+        for kk in rec["kernels"].values():
+            kk.pop("device_ms")
+    assert strip == again
+
+
+def test_timeline_on_the_card_reads_cuda_events(cuda):
+    """The wave's device-step and d2h come from CUDA events mapped onto
+    the host clock: d2h inside device-step, and device-step inside the
+    host window of dispatch to resolve."""
+    import time
+
+    from kubernetes_tpu_torch.component_base import timeline as tlmod
+    ring = tlmod.default_timeline
+    ring.reset()
+    ring.configure(enabled=True)
+    try:
+        s, _rng = _loaded_card_side(cuda)
+        pods = [s.pod(f"p{i}", cpu="100m") for i in range(SEQ_BATCH)]
+        t0 = ring.wall(time.monotonic())
+        out = s.backend.assign(s.infos(pods), s.snapshot())
+        t1 = ring.wall(time.monotonic())
+        rows = {r["stage"]: r for r in ring.intervals()}
+    finally:
+        ring.configure(enabled=False)
+        ring.reset()
+    assert all(name for name, _st in out)
+    dev, d2h = rows["device-step"], rows["d2h"]
+    assert t0 - 1e-3 <= dev["t0_unix_s"] <= d2h["t0_unix_s"]
+    assert d2h["t1_unix_s"] <= dev["t1_unix_s"] + 1e-6 <= t1 + 1e-3

@@ -11,7 +11,9 @@ tests/test_churn_storm.py: adds with rack labels, the min-nodes floor, the
 max-nodes ceiling, relabels through guaranteed_update, drained victims
 never drained twice).  ChaosBatchBackend, wrapped around the same stub
 backend under the same schedule, returns the same results, counts the same
-injected faults and drains the same escape reasons as the JAX wrapper.
+injected faults and drains the same escape reasons as the JAX wrapper, and
+forwards the batch telemetry, the device census and its label as the JAX
+wrapper does.
 """
 
 import time
@@ -172,6 +174,61 @@ def test_chaos_backend_forwards_and_delays():
     assert port_faults.ChaosBatchBackend(
         _Flush(), port_faults.OverloadSchedule()).dispatch([1], None) \
         == "FLUSH"
+
+
+class _Observed(_Inner):
+    """_Inner with the observability hooks: batch telemetry, a census and
+    its label."""
+
+    census_kind = "stub"
+
+    def drain_batch_telemetry(self):
+        return [{"pods": 3, "feasible_nodes": 7, "waves": 1,
+                 "mask_density": {"NodeAffinity": 0.5}}]
+
+    def device_census(self, variants=("full", "plain")):
+        return {v: {"cost": {"flops": 1.0}} for v in variants}
+
+
+@pytest.mark.parametrize("side", sorted(SIDES))
+@pytest.mark.parametrize("hook", ["drain_batch_telemetry", "device_census",
+                                  "device_census_plain", "census_kind"])
+def test_chaos_observability_forwarders(side, hook):
+    """drain_batch_telemetry, device_census and census_kind reach the
+    inner backend, and a bare inner gives the JAX wrapper's defaults ([],
+    {}, "chaos"); the port's wrapper answers as the JAX one does."""
+    faults = SIDES[side][0]
+    observed = faults.ChaosBatchBackend(_Observed(), faults.OverloadSchedule())
+    bare = faults.ChaosBatchBackend(_Inner(), faults.OverloadSchedule())
+    if hook == "census_kind":
+        got = (observed.census_kind, bare.census_kind)
+        want = ("stub", "chaos")
+    elif hook == "device_census_plain":
+        got = (observed.device_census(variants=("plain",)),
+               bare.device_census(variants=("plain",)))
+        want = ({"plain": {"cost": {"flops": 1.0}}}, {})
+    else:
+        got = (getattr(observed, hook)(), getattr(bare, hook)())
+        want = (getattr(_Observed(), hook)(),
+                [] if hook == "drain_batch_telemetry" else {})
+    assert got == want
+
+
+def test_chaos_forwards_the_port_backends_census_and_telemetry():
+    """Around a TorchBatchBackend on the CPU: the census labelled "torch",
+    and each dispatched batch's telemetry, pass through the wrapper."""
+    from torch_cases import SEQ_CAPS, port_side
+    s = port_side(8, SEQ_CAPS)
+    s.cache.add_node(s.node("n0", cpu="8", mem="8Gi"))
+    chaos = port_faults.ChaosBatchBackend(s.backend,
+                                          port_faults.OverloadSchedule())
+    pods = [s.pod(f"p{i}", cpu="100m") for i in range(3)]
+    chaos.assign(s.infos(pods), s.snapshot())
+    assert chaos.census_kind == "torch"
+    telem = chaos.drain_batch_telemetry()
+    assert [(t["pods"], t["feasible_nodes"]) for t in telem] == [(3, 1)]
+    census = chaos.device_census(variants=("plain",))
+    assert list(census) == ["plain"] and census["plain"]["waves"] >= 1
 
 
 # -- ChurnStormSchedule (tests/test_churn_storm.py TestChurnStormSchedule) -

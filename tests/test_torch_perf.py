@@ -112,10 +112,13 @@ def test_bench_module_prints_one_row():
 
 
 def test_bench_host_profile_reads_threads():
-    """The bench's diagnostics: host_profile adds the sampling profiler's
-    stage seconds and each pipeline thread's CPU seconds to the row."""
+    """The bench's diagnostics: the sampling profiler armed (--host-profile,
+    ProfilingPolicy(enabled=True)) adds its stage seconds and each pipeline
+    thread's CPU seconds to the row."""
+    from kubernetes_tpu_torch.scheduler.config import ProfilingPolicy
     res = bench.run_once("SchedulingBasicLarge", 50, 300, 128,
-                         depth=2, device="cpu", host_profile=True)
+                         depth=2, device="cpu",
+                         profiling_policy=ProfilingPolicy(enabled=True))
     assert "error" not in res
     cpu = res["detail"]["thread_cpu_s"]
     assert {"MainThread", "sched-loop", "informer-pods"} <= set(cpu)
@@ -127,39 +130,11 @@ def _cfg():
     return tiny_basic(port_perf)
 
 
-def _census_on_torch_backend():
-    """A Scheduler whose batch profile is a TorchBatchBackend, armed for
-    the census the way scheduler_from_config's profiling: stanza arms it."""
-    from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
-    from kubernetes_tpu_torch.scheduler import (Profile, Scheduler,
-                                                new_default_framework)
-    client = LocalClient(kv.MemoryStore())
-    factory = SharedInformerFactory(client)
-    backend = port_backend.make_batch_backend(
-        "tpu", port_perf.caps_for_nodes(8), batch_size=16, device="cpu")
-    sched = Scheduler(client, factory, {"default-scheduler": Profile(
-        new_default_framework(client, factory), batch_backend=backend,
-        batch_size=16)})
-    sched.configure_profiling(None, None, census=True)
-    try:
-        sched.run_device_census()
-    finally:
-        client.close()
-
-
-def _census_policy():
-    from kubernetes_tpu_torch.scheduler.config import ProfilingPolicy
-    return ProfilingPolicy(census=True)
-
-
 NOT_PORTED = {
     "via_http": lambda: port_perf.setup_cluster(via_http=True),
     "via_http_process": lambda: port_perf.setup_cluster(
         via_http="process"),
     "remote_seam": lambda: port_perf.setup_cluster(remote_seam="grpc"),
-    "census": lambda: port_perf.setup_cluster(
-        profiling_policy=_census_policy(), device="cpu"),
-    "census_run_device_census": _census_on_torch_backend,
     "run_named_workload_via_http": lambda: port_perf.run_named_workload(
         _cfg(), via_http=True, device="cpu"),
     "backend_sharded": lambda: port_backend.make_batch_backend(
