@@ -147,6 +147,26 @@ Phases (each prints its wall time; any failed check exits non-zero):
      window for that wave (1 ms).  SyncGuard sees what torch's sync debug
      mode reports, which torch calls incomplete: its counts are lower
      bounds.
+ 22. the device worker in a separate process on the card (python3 -m
+     kubernetes_tpu_torch.cmd.tpu_worker --port 0 --device cuda), and
+     SchedulingBasic and Scheduling100k (the bench configs of 8-9)
+     through the Scheduler with its batch backend behind the HTTP seam to
+     that worker (RemoteTorchBatchBackend), held to 8-9's checks, pods/s
+     printed beside 8-9's; then the worker's /debug/timeline, whose
+     device-step intervals must be there;
+ 23. the RemoteSeamGrpc row (perf.bench.run_seam, bench.py's
+     run_seam_micro: 5,000 nodes, six rounds of 4,096 plain pods through
+     an in-process gRPC worker and through the in-process backend): pods/s
+     both ways and their ratio, every round placed, the placements equal;
+ 24. the RemoteSeamFaulty row: seeded drops, delays and corrupt frames,
+     one worker kill and resync, an outage that opens the failover
+     breaker into the in-process rung and fails back; every round placed,
+     the remote rung's rounds after the resync equal to the in-process
+     run's, the breaker closed at the end, the faults printed.  23-24 run
+     the HTTP seam, and say so, where grpc does not import;
+ 25. PreemptionBasic (two passes) through the Scheduler over the worker
+     process of 22, held to 11's checks; the worker must have served
+     /preempt.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -157,10 +177,14 @@ claims kernel must have launched, in (a)-(d) no kernel (the full variant
 reaches no hand kernel; 13-15 run it every batch), in 17 nothing, in f
 and 11-12 the preempt kernel;
 every claims launch of 5 and 6 is recorded by shape (pods, live pods,
-nodes, noise) with its time between CUDA events.  The last two lines are
-a JSON line of per-kernel numbers (launches: claims in phases 6 and 9,
-preempt_dry_run in f, 11 and 12) and the device line.  Without a CUDA
-device the script exits 2 and prints no result.
+nodes, noise) with its time between CUDA events.  In 22 and 25 the
+kernels launch in the worker process: its counts (GET /debug/kernels)
+are zeroed before each pass and read after it, and the claims kernel
+must have launched in 22, the preempt kernel in 25.  The last two lines
+are a JSON line of per-kernel numbers (launches: claims in phases 6, 9
+and 22's Scheduling100k, preempt_dry_run in f, 11, 12 and 25) and the
+device line.  Without a CUDA device the script exits 2 and prints no
+result.
 
 --compare TAG=DIR loads the kubernetes_tpu_torch package of another
 checkout (e.g. an earlier revision, unpacked with git archive) under its
@@ -168,6 +192,12 @@ own name, and times its claims wrapper against this one's in phase 7 and
 its dry_run_planes against this one's at phase e's 100k cases and phase
 f's first chunk, in turns (this, other, other, this) on the same inputs,
 after checking that both return the same answers.
+
+--only seam runs phases 1-2 and 22-25; --until 4 stops after phase 4
+(--build-dir DIR builds the kernels there); --slice-runs N runs phases
+1-4 in N fresh processes, each building the kernels cold into a
+directory of its own, two at a time, with a process keeping the card busy
+beside the second half (ROADMAP Q4).  None of them prints a result line.
 """
 
 import argparse
@@ -177,6 +207,7 @@ import importlib.util
 import inspect
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -1963,12 +1994,282 @@ def observability_phase(dev, smi, rounds=OBS_ROUNDS):
         sync_census_other_paths(dev, smi)
 
 
+# phases 22-25: the device worker seam (ops/remote.py) on the card
+SEAM_LOOP_ROWS = ("SchedulingBasic", "Scheduling100k")
+WORKER_START_S = 300.0
+
+
+class WorkerProcess:
+    """`python3 -m kubernetes_tpu_torch.cmd.tpu_worker --port 0 --device
+    cuda` as a subprocess of this script: its URL is read from the line
+    it prints once it serves; its output is drained by a thread (the last
+    lines are printed when a check fails); stop() sends SIGTERM and
+    reaps it (SIGKILL after 30 s)."""
+
+    def __init__(self, device="cuda"):
+        import threading
+        self.lines = []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.cmd.tpu_worker",
+             "--port", "0", "--device", device],
+            cwd=str(Path(__file__).resolve().parent),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.url = None
+        ready = threading.Event()
+
+        def drain():
+            for line in self.proc.stdout:
+                self.lines = (self.lines + [line.rstrip()])[-200:]
+                if line.startswith("tpu-worker listening on "):
+                    self.url = line.split()[-1]
+                    ready.set()
+            ready.set()
+        threading.Thread(target=drain, daemon=True).start()
+        ready.wait(WORKER_START_S)
+        if self.url is None:
+            self.stop()
+            raise SystemExit("CHECK FAILED: the worker process printed no "
+                             "URL: " + "\n".join(self.lines[-20:]))
+
+    def get(self, path):
+        import urllib.request
+        with urllib.request.urlopen(self.url + path, timeout=120) as r:
+            return json.loads(r.read())
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def row_over_worker(name, worker, smi, rows_inproc):
+    """One bench config through the Scheduler with the batch backend
+    behind the worker process (bench.run_config(remote_seam=URL)), every
+    pass held to check_pass's invariants, the launches read from the
+    worker (its counts are zeroed before each pass and read, then zeroed,
+    in the pass's `after` hook); pods/s printed beside this run's
+    in-process row.  Returns the main path's launches over the passes."""
+    from kubernetes_tpu_torch.api import meta
+    from kubernetes_tpu_torch.client.clientset import PODS
+    from kubernetes_tpu_torch.perf import bench
+    cfg = bench.CONFIGS[name]
+    preempting = name.startswith("Preemption")
+    passes = []
+
+    def after(cluster):
+        seen = {"pass": len(passes) + 1,
+                "launches": worker.get("/debug/kernels?reset=1")["launches"],
+                "escapes": pass_escapes(cluster)}
+        if preempting:
+            pods, _ = cluster.store.list(PODS)
+            hp = [p for p in pods if (p["spec"].get("priority") or 0) > 0]
+            seen["high"] = dict(count=len(hp), bound=sum(
+                1 for p in hp if meta.pod_node_name(p)))
+        passes.append(seen)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    worker.get("/debug/kernels?reset=1")
+    try:
+        row, results = bench.run_config(name, remote_seam=worker.url,
+                                        after=after)
+    except BaseException:
+        print("\n".join(worker.lines[-20:]), flush=True)
+        raise
+    print(json.dumps(row), flush=True)
+    check(len(results) == len(passes) == (2 if cfg.get("two_pass") else 1),
+          f"{name} over the worker: {len(results)} passes, "
+          f"{len(passes)} read")
+    for res, seen in zip(results, passes):
+        check_pass(f"{name} over the worker", cfg, res, seen, smi,
+                   preempting, False)
+    check("error" not in row["detail"],
+          f"{name} over the worker: {row['detail'].get('error')}")
+    launches = {k: sum(p["launches"].get(k, 0) for p in passes)
+                for k in passes[0]["launches"]}
+    inproc = rows_inproc.get(name)
+    print(f"   {name} through the Scheduler over the worker process: "
+          f"{row['value']} pods/s (in process, this run: "
+          f"{inproc['value'] if inproc else 'not run'} pods/s); launches in "
+          f"the worker over the passes {launches} [{smi}]", flush=True)
+    return launches
+
+
+def seam_phases(dev, smi, rows_inproc):
+    """Phases 22-25.  22: a worker in a separate process on the card
+    (cmd.tpu_worker), SchedulingBasic and Scheduling100k through the
+    Scheduler over HTTP to it, then its /debug/timeline's device-step
+    intervals.  23: the RemoteSeamGrpc row (bench.run_seam: 5,000 nodes,
+    six rounds of 4,096) with an in-process worker, the remote and
+    in-process placements equal.  24: RemoteSeamFaulty: seeded faults, a
+    kill and resync, an outage that opens the breaker and fails back.
+    25: PreemptionBasic (two passes) over the worker process, /preempt
+    served there.  23-24 run gRPC where grpc imports, else HTTP, and say
+    so.  Returns the launches of 22's Scheduling100k and 25 (the worker's
+    counts)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.remote import grpc_available
+    from kubernetes_tpu_torch.perf import bench
+    launches = {}
+    worker = WorkerProcess()
+    try:
+        with Phase("22 SchedulingBasic and Scheduling100k over a worker "
+                   "process"):
+            print(f"   worker process {worker.proc.pid} at {worker.url}",
+                  flush=True)
+            for name in SEAM_LOOP_ROWS:
+                launches[name] = row_over_worker(name, worker, smi,
+                                                 rows_inproc)
+                check(launches[name].get("claims", 0) > 0,
+                      f"{name} over the worker: no claims launch")
+            tl = worker.get("/debug/timeline")
+            steps = [r for r in tl.get("interval_rows", [])
+                     if r.get("stage") == "device-step"]
+            check(bool(steps) and all(r["t1_unix_s"] > r["t0_unix_s"]
+                                      for r in steps),
+                  f"the worker's timeline holds no device-step interval: "
+                  f"{str(tl)[:300]}")
+            ms = sorted((r["t1_unix_s"] - r["t0_unix_s"]) * 1e3
+                        for r in steps)
+            print(f"   worker /debug/timeline: {len(steps)} device-step "
+                  f"intervals, ms p50 {statistics.median(ms):.3f} max "
+                  f"{ms[-1]:.3f} [{smi}]", flush=True)
+        kind = "grpc" if grpc_available() else "http"
+        if kind == "http":
+            print("   gRPC seam not run: the grpc package does not import "
+                  "here; phases 23-24 run the HTTP seam (DeviceWorker)",
+                  flush=True)
+        with Phase(f"23 RemoteSeamGrpc row over {kind}"):
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            res = bench.run_seam(kind, device=dev)
+            print(f"   {res['seam']}: {res['nodes']} nodes, {res['rounds']} "
+                  f"rounds of {res['batch']}: inproc_pods_per_s "
+                  f"{res['inproc_pods_per_s']} remote_pods_per_s "
+                  f"{res['remote_pods_per_s']} seam_cost_ratio "
+                  f"{res['seam_cost_ratio']}; placed {res['placed']}; "
+                  f"launches {dict(kernels.LAUNCHES)} [{smi}]", flush=True)
+            check(min(res["placed"]) == res["batch"],
+                  f"seam row: placed {res['placed']}")
+            check(res["assignments_equal"],
+                  "seam row: the remote and in-process placements differ")
+            check(kernels.LAUNCHES["claims"] > 0, "seam row: no claims "
+                  "launch")
+        with Phase(f"24 RemoteSeamFaulty row over {kind}"):
+            res = bench.run_seam(kind, faulty=True, device=dev)
+            fo = res["failover"]
+            print(f"   {res['seam']}: inproc_pods_per_s "
+                  f"{res['inproc_pods_per_s']} remote_pods_per_s "
+                  f"{res['remote_pods_per_s']} seam_cost_ratio "
+                  f"{res['seam_cost_ratio']}; placed {res['placed']}; "
+                  f"injected {res['injected']}; served by "
+                  f"{res['served_by']}; ladder {fo}; breakers "
+                  f"{res['breakers']}; requeues {res['bench_requeues']} "
+                  f"[{smi}]", flush=True)
+            check(min(res["placed"]) == res["batch"],
+                  f"faulty row: placed {res['placed']}")
+            check(res["injected"]["kill"] == 1 and fo["remote_resyncs"] >= 1,
+                  f"faulty row: kill {res['injected']}, ladder {fo}")
+            check(res["remote_rounds_equal"],
+                  "faulty row: the remote rung's rounds after the resync "
+                  "differ from an uninterrupted run's")
+            check(fo["failovers"] >= 1 and fo["recloses"] >= 1
+                  and res["breakers"]["remote"] == 0.0,
+                  f"faulty row: breaker {res['breakers']}, ladder {fo}")
+        with Phase("25 PreemptionBasic over the worker process"):
+            launches["PreemptionBasic"] = row_over_worker(
+                "PreemptionBasic", worker, smi, rows_inproc)
+            served = worker.get("/debug/kernels")["served"]
+            print(f"   the worker served {served} [{smi}]", flush=True)
+            check(served.get("/preempt", 0) > 0
+                  and launches["PreemptionBasic"].get("preempt", 0) > 0,
+                  f"PreemptionBasic over the worker: /preempt served "
+                  f"{served}, launches {launches['PreemptionBasic']}")
+    finally:
+        worker.stop()
+    return launches
+
+
+def busy_card(seconds):
+    """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
+    a = torch.randn(4096, 4096, device="cuda")
+    t_end = time.monotonic() + seconds
+    while time.monotonic() < t_end:
+        for _ in range(20):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+    return 0
+
+
+def slice_runs(n_runs, parallel=2):
+    """ROADMAP Q4: phases 1-4 of this script in `n_runs` fresh processes
+    (`parallel` at a time), each building the kernels cold into a
+    directory of its own; a process that keeps the card busy with
+    matmuls runs beside the second half.  Phase 4 in each holds the GPU
+    slice to the CPU's at both noises; a process fails when it does not
+    agree (or any check of phases 1-4 fails)."""
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="slice-runs-"))
+    me = str(Path(__file__).resolve())
+    busy = None
+    results, running = [], []
+    for i in range(n_runs):
+        if i == n_runs // 2:
+            busy = subprocess.Popen([sys.executable, me, "--busy", "3600"])
+        while len(running) >= parallel:
+            results.append(_reap(running.pop(0)))
+        running.append((i, busy is not None, subprocess.Popen(
+            [sys.executable, me, "--until", "4", "--build-dir",
+             str(tmp / f"build-{i}")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    while running:
+        results.append(_reap(running.pop(0)))
+    if busy is not None:
+        busy.terminate()
+        busy.wait()
+    bad = [r for r in results if r["rc"] != 0]
+    print(f"   slice runs: {len(results)} fresh processes of phases 1-4 "
+          f"({n_runs // 2} alone, {n_runs - n_runs // 2} beside a busy "
+          f"card), {len(bad)} failed: {[r['i'] for r in bad]}", flush=True)
+    return 1 if bad else 0
+
+
+def _reap(entry):
+    i, busy, proc = entry
+    out, _ = proc.communicate()
+    lines = out.strip().splitlines()
+    agree = [ln.strip() for ln in lines if "bit-identical; waves" in ln]
+    built = [ln.strip() for ln in lines if ln.strip().startswith("build ")]
+    print(f"   run {i} (busy card {busy}) rc {proc.returncode}: "
+          f"{built[-1] if built else ''}; {agree}", flush=True)
+    if proc.returncode != 0:
+        print("\n".join(lines[-40:]), flush=True)
+    return {"i": i, "rc": proc.returncode, "busy": busy}
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[],
                     metavar="TAG=DIR",
                     help="a checkout of another revision whose claims "
                          "and dry-run wrappers to time beside this one's")
+    ap.add_argument("--only", choices=("seam",),
+                    help="phases 1-2 and then only these (22-25); prints "
+                         "no result line")
+    ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
+                    help="phases 1-4 in N fresh processes with cold builds, "
+                         "a busy card beside the second half (ROADMAP Q4); "
+                         "prints no result line")
+    ap.add_argument("--until", choices=("4",),
+                    help="stop after phase 4; prints no result line")
+    ap.add_argument("--build-dir", default=None,
+                    help="build the kernels into this directory")
+    ap.add_argument("--busy", type=float, default=0.0,
+                    help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -2030,6 +2331,64 @@ def time_in_turns(kernels, others, args, raw, noise, pod_ids, label, smi,
         t = [time_cuda(fn, n) for fn in (ours, theirs, theirs, ours)]
         print(f"   {label} A/B this vs {tag}: this {t[0]:.4f} {t[3]:.4f} "
               f"ms, {tag} {t[1]:.4f} {t[2]:.4f} ms [{smi}]", flush=True)
+
+
+class PlaneRecorder:
+    """Within the block, every CPU call of kernels.sin_noise and
+    kernels.fit_score (the planes the plain claims version computes its
+    cells from) keeps a hash of each row of its result (the sum of the
+    row's f32 bit patterns), so that a divergence can say which plane, and
+    which rows of it, came out otherwise than a recomputation does,
+    without keeping the planes."""
+
+    NAMES = ("sin_noise", "fit_score")
+
+    def __init__(self, kernels):
+        self.kernels, self.rows = kernels, {n: [] for n in self.NAMES}
+
+    @staticmethod
+    def row_hash(plane):
+        return plane.contiguous().view(torch.int32).to(torch.int64).sum(-1)
+
+    def __enter__(self):
+        self.inner = {n: getattr(self.kernels, n) for n in self.NAMES}
+        for name in self.NAMES:
+            def wrap(*args, name=name):
+                out = self.inner[name](*args)
+                if out.device.type == "cpu":
+                    self.rows[name].append(self.row_hash(out))
+                return out
+            setattr(self.kernels, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.inner.items():
+            setattr(self.kernels, name, fn)
+        return False
+
+    def explain(self, rec):
+        """Each CPU launch's planes, recomputed from its kept inputs,
+        against the row hashes taken when it ran."""
+        k = self.kernels
+        for i, inputs in enumerate(rec.inputs):
+            static, _active, _used, used_nz, _npods, noise, ids = inputs
+            P, N, _R = static["shape"]
+            again = {"fit_score": k.fit_score(*k.utilizations(
+                static["req_nz"], static["alloc"], used_nz))}
+            if noise == "sin":
+                again["sin_noise"] = k.sin_noise(
+                    torch.arange(P, dtype=torch.int32) if ids is None
+                    else ids, N)
+            for name, plane in again.items():
+                calls = self.rows[name]
+                j = sum(1 for inp in rec.inputs[:i]
+                        if name == "fit_score" or inp[5] == "sin")
+                if j >= len(calls):
+                    continue
+                bad = (self.row_hash(plane) != calls[j]).nonzero().flatten()
+                print(f"   CPU launch {i} {name}: {bad.numel()} rows differ "
+                      f"from the run's, {bad[:1].tolist()}-"
+                      f"{bad[-1:].tolist()} of {P}", flush=True)
 
 
 def explain_divergence(kernels, gpu, cpu):
@@ -2125,6 +2484,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if opts.busy:
+        return busy_card(opts.busy)
+    if opts.slice_runs:
+        print(f"== phase Q4: phases 1-4 in {opts.slice_runs} fresh "
+              f"processes", flush=True)
+        return slice_runs(opts.slice_runs)
     from kubernetes_tpu_torch.models import carry
     from kubernetes_tpu_torch.ops import _build, kernels
 
@@ -2138,9 +2503,13 @@ def main(argv=None) -> int:
               f"count {torch.cuda.device_count()}")
         print(f"   nvcc {_build.nvcc_path()} ninja {shutil.which('ninja')}; "
               f"PyYAML importable: "
-              f"{importlib.util.find_spec('yaml') is not None}", flush=True)
+              f"{importlib.util.find_spec('yaml') is not None}; grpc "
+              f"importable (the gRPC seam, phases 23-24): "
+              f"{importlib.util.find_spec('grpc') is not None}", flush=True)
 
     with Phase("2 kernel build"):
+        if opts.build_dir:
+            _build.BUILD_DIR = Path(opts.build_dir)
         t0 = time.monotonic()
         built = _build.build()
         for name, info in built.items():
@@ -2175,6 +2544,11 @@ def main(argv=None) -> int:
         if others:
             print(f"   built {sorted(others)} in "
                   f"{time.monotonic() - t0:.3f} s", flush=True)
+
+    if opts.only == "seam":
+        seam_phases(dev, smi, {})
+        print("partial run (--only seam): no result line")
+        return 0
 
     with Phase("3 kernel vs plain version"):
         # (P, N, seed, options): random cases, ragged P and N, identical
@@ -2212,11 +2586,13 @@ def main(argv=None) -> int:
         for noise in ("murmur", "sin"):
             runs = by_noise[noise] = {}
             for device in (dev, torch.device("cpu")):
-                with ClaimsRecorder(kernels, keep=True) as rec:
+                with ClaimsRecorder(kernels, keep=True) as rec, \
+                        PlaneRecorder(kernels) as planes:
                     label = f"slice-{device.type}-{noise}"
                     backend, _outs, _secs, waves = drive(
                         build_cluster(5000, 7), make_batches(2, 4096, label),
                         device, label, 4096, claims_noise=noise)
+                rec.planes = planes
                 if device.type == "cuda":
                     kept += rec.inputs
                 state, _ = carry.state_to_numpy(backend._state)
@@ -2235,6 +2611,7 @@ def main(argv=None) -> int:
                 print(f"   {noise}: waves per batch GPU {g[2]} CPU {c[2]}",
                       flush=True)
                 explain_divergence(kernels, g[3], c[3])
+                c[3].planes.explain(c[3])
             check(agree,
                 f"{noise}: GPU and CPU result vectors differ: " + "; ".join(
                     f"vector {i} slots {d[:8].tolist()} GPU {a[d[:8]].tolist()}"
@@ -2248,6 +2625,9 @@ def main(argv=None) -> int:
                   f"state are bit-identical; waves per batch {g[2]}",
                   flush=True)
         del by_noise
+    if opts.until == "4":
+        print("partial run (--until 4): no result line")
+        return 0
 
     summaries = {}
     for label, n_nodes, n_batches in (("5k", 5000, 3), ("100k", 100_000, 12)):
@@ -2356,11 +2736,13 @@ def main(argv=None) -> int:
     pre = preempt_phase(dev, smi, others=others_preempt)
 
     # the scheduler loop above BatchBackend
-    loop_launches, _rows = loop_phases(smi)
+    loop_launches, rows = loop_phases(smi)
     # checkpoint / warm start
     warm_start_phase(dev, smi)
     # observability: spans, the wave timeline, the census, the sanitizers
     observability_phase(dev, smi)
+    # the device worker seam: a worker process on the card, the seam rows
+    seam_launches = seam_phases(dev, smi, rows)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     print(smi)
@@ -2368,7 +2750,8 @@ def main(argv=None) -> int:
         "name": "claims", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/claims.cu",
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:171",
-        "launches": launches + loop_launches["Scheduling100k"]["claims"],
+        "launches": (launches + loop_launches["Scheduling100k"]["claims"]
+                     + seam_launches["Scheduling100k"]["claims"]),
         "max_abs_err": max(errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
@@ -2377,7 +2760,8 @@ def main(argv=None) -> int:
         "replaces": "kubernetes_tpu/models/preempt.py:124",
         "launches": (pre["launches"]
                      + loop_launches["PreemptionBasic"]["preempt"]
-                     + loop_launches["PreemptionDense"]["preempt"]),
+                     + loop_launches["PreemptionDense"]["preempt"]
+                     + seam_launches["PreemptionBasic"]["preempt"]),
         "max_abs_err": pre["max_abs_err"], "ms": pre["ms"],
         "launch_ms": pre["launch_ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],

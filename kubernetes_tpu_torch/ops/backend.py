@@ -45,7 +45,10 @@ _WaveClock) and a device census (device_census: one step of each variant
 on a clone of the resident state, under torch.profiler, a dispatch-mode
 byte count and the FLOP counter).
 
-Not yet ported (ROADMAP queue 1): the remote device worker.
+The remote device worker (ops/remote.py) holds this class's device half
+in another process: RemoteTorchBatchBackend overrides the methods that
+touch the device (_device_step, _upload_static, _ensure_vict,
+_preempt_step, _full_refresh, _restore_state_from_mirror, warmup).
 """
 
 from __future__ import annotations
@@ -253,7 +256,10 @@ def _trace_parent():
 def _to_host(*tensors) -> list[np.ndarray]:
     """One device-to-host pull: CUDA tensors are copied into pinned host
     memory behind a single CUDA event, which is then waited on; CPU
-    tensors are copied."""
+    tensors are copied; numpy arrays (planes that arrived over the remote
+    seam) pass through."""
+    if tensors and not torch.is_tensor(tensors[0]):
+        return list(tensors)
     if not tensors or tensors[0].device.type != "cuda":
         return [t.numpy().copy() for t in tensors]
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -1615,6 +1621,12 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                      if parent is not None else None)
             # host-array: the host tensors' valid rows
             feasible = int(self.tensors.valid.sum())
+            # a no-fit verdict on a pod riding a collided selector bucket is
+            # re-proved pod by pod (the bucket's counts are upper bounds),
+            # but only where a node exists: with no valid row (a batch that
+            # ran ahead of the node informer) nothing could have fit, so the
+            # verdict is exact and the pods stay UNSCHEDULABLE
+            nofit = set(batch.nofit_oracle) if feasible else set()
             telem = {
                 "pods": n_live,
                 "feasible_nodes": feasible,
@@ -1840,8 +1852,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             out = decode_results(assignments, n, self.batch_size,
                                  set(batch.escape), row_names,
                                  "no feasible node (GPU batch filter)",
-                                 nofit_escapes=set(batch.nofit_oracle))
-            self._tally_batch_escapes(batch, n, assignments)
+                                 nofit_escapes=nofit)
+            self._tally_batch_escapes(batch, n, assignments, nofit)
             telem["waves"] = batch_waves
             with self._esc_lock:
                 self._telemetry_pending.append(telem)
@@ -1914,13 +1926,14 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 pend[key] = pend.get(key, 0) + cnt
 
     def _tally_batch_escapes(self, batch: PodBatch, n: int,
-                             assignments=None) -> None:
+                             assignments=None, nofit=None) -> None:
         """Accumulate this batch's per-(plugin, reason) escape counts.
         Encoder escapes carry their reason from flatten.escape_reasons;
-        a no-fit verdict on a nofit_oracle pod is a per-pod re-proof: a
-        nominated pod's carries the encoder's ("DefaultPreemption",
-        "nominated_node_stale"), a collided-bucket pod's is attributed to
-        the encoder's shared-bucket transport."""
+        a no-fit verdict on a pod of `nofit` (default: the batch's
+        nofit_oracle) is a per-pod re-proof: a nominated pod's carries the
+        encoder's ("DefaultPreemption", "nominated_node_stale"), a
+        collided-bucket pod's is attributed to the encoder's shared-bucket
+        transport."""
         pend: dict = {}
         esc = set(batch.escape)
         for i in esc:
@@ -1928,7 +1941,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 key = (batch.escape_reasons.get(i)
                        or ("BatchEncoder", "unencodable"))
                 pend[key] = pend.get(key, 0) + 1
-        for i in set(batch.nofit_oracle):
+        for i in (set(batch.nofit_oracle) if nofit is None else nofit):
             if (i < n and i not in esc and i < self.batch_size
                     and (assignments is None or assignments[i] < 0)):
                 key = (batch.escape_reasons.get(i)
@@ -2210,8 +2223,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
                 # host copies for the post-claim feasibility bound: the
                 # resident aggregates the dry run reads, in one pull
                 alloc_h = np.asarray(t.alloc, np.float32)
-                used_h, npods_h = _to_host(self._state["used"],
-                                           self._state["npods"])
+                used_h, npods_h = self._resident_aggregates()
                 maxpods_h = np.asarray(t.maxpods, np.float32)
                 taint_h = np.asarray(t.taint_mask, np.float32)
                 vict_prio_h = np.asarray(t.vict_prio, np.int32)
@@ -2411,6 +2423,11 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
     def _pull(self, *planes) -> list[np.ndarray]:
         """The dry run's planes to the host: one pull per chunk."""
         return _to_host(*planes)
+
+    def _resident_aggregates(self) -> list[np.ndarray]:
+        """Host copies of the resident used and npods, in one pull: what
+        the dry run reads, for preempt_batch's post-claim bound."""
+        return _to_host(self._state["used"], self._state["npods"])
 
 
 def make_batch_backend(kind: str = "tpu", caps: Caps | None = None,

@@ -19,11 +19,24 @@ assert the system converges).  Every schedule is deterministic two ways:
     draw happens per step, before the script lookup, so adding a scripted
     entry never shifts the random stream of the steps around it.
 
-The remote seam's transport faults (FaultSchedule, FaultyTransport) come
-with the remote device worker (ROADMAP queue 1 item 6), the scale-out
-churners with the scale-out layer (item 10).  A chaos wrapper is applied
-only when a caller asks for it (the harness's chaos_schedule, the
-nodeStorm opcode); it never stands in for a failed device.
+The transport half (FaultSchedule, FaultyTransport) wraps the remote
+seam's client transport (ops/remote.py): every failure mode the seam's
+error ladder claims to handle is injected on a seeded schedule:
+
+  DROP    -> raise TransientSeamError (the request never reaches the
+             worker); the client's bounded backoff retry absorbs it.
+  DELAY   -> sleep, then forward (tail latency; deadlines still apply).
+  CORRUPT -> forward, then flip bytes in the response frame; the CRC
+             framing detects it and the seq dedup makes the retry serve
+             the original bytes without re-applying the step.
+  KILL    -> call on_kill() (DeviceWorker.simulate_restart) BEFORE
+             forwarding: the call lands on a state-lost worker and the
+             client runs its checkpoint + journal resync.
+
+The scale-out churners come with the scale-out layer (ROADMAP item 10).
+A chaos wrapper is applied only when a caller asks for it (the harness's
+chaos_schedule, the nodeStorm opcode, the RemoteSeamFaulty row); it never
+stands in for a failed device.
 """
 
 from __future__ import annotations
@@ -33,6 +46,102 @@ import threading
 import time
 
 NONE = "none"
+
+# -- transport faults under the remote seam -------------------------------
+
+DROP = "drop"
+DELAY = "delay"
+CORRUPT = "corrupt"
+KILL = "kill"
+
+
+class FaultSchedule:
+    """Seeded, reproducible fault decisions, one per transport call.
+
+    `action(i, verb)` is consulted with a global call index; subclass it
+    for stateful schedules (a kill keyed on the Nth /step rather than an
+    absolute call index)."""
+
+    def __init__(self, seed: int = 0, drop_rate: float = 0.0,
+                 delay_rate: float = 0.0, corrupt_rate: float = 0.0,
+                 delay_s: float = 0.01,
+                 script: dict[int, str] | None = None):
+        self.rng = random.Random(seed)
+        self.drop_rate = drop_rate
+        self.delay_rate = delay_rate
+        self.corrupt_rate = corrupt_rate
+        self.delay_s = delay_s
+        self.script = dict(script or {})
+
+    def action(self, call_index: int, verb: str) -> str:
+        # one draw per call REGARDLESS of the script, so scripted entries
+        # don't shift the stream for later calls
+        u = self.rng.random()
+        scripted = self.script.get(call_index)
+        if scripted is not None:
+            return scripted
+        if u < self.drop_rate:
+            return DROP
+        if u < self.drop_rate + self.delay_rate:
+            return DELAY
+        if u < self.drop_rate + self.delay_rate + self.corrupt_rate:
+            return CORRUPT
+        return NONE
+
+
+def _corrupt(blob: bytes) -> bytes:
+    """Flip a spray of bytes across the frame header and early payload:
+    it breaks either the magic or the CRC check."""
+    out = bytearray(blob)
+    for i in range(0, min(len(out), 33), 8):
+        out[i] ^= 0xFF
+    return bytes(out)
+
+
+class FaultyTransport:
+    """A client transport wrapper that injects schedule-driven faults:
+    the inner transport's `post` signature, handed to
+    RemoteTorchBatchBackend as `transport=`.  `injected` counts what
+    fired, by action; `calls` is the number of posts seen."""
+
+    def __init__(self, inner, schedule: FaultSchedule, on_kill=None):
+        self.inner = inner
+        self.kind = getattr(inner, "kind", "?")
+        self.schedule = schedule
+        self.on_kill = on_kill
+        self.calls = 0
+        self.injected = {DROP: 0, DELAY: 0, CORRUPT: 0, KILL: 0}
+        self._lock = threading.Lock()
+
+    def post(self, verb: str, body: bytes, *, timeout: float,
+             epoch: int | None = None, seq: int | None = None,
+             traceparent: str | None = None) -> bytes:
+        from .remote import TransientSeamError
+        with self._lock:
+            i = self.calls
+            self.calls += 1
+            act = self.schedule.action(i, verb)
+        if act == DROP:
+            self.injected[DROP] += 1
+            raise TransientSeamError(verb, f"injected drop (call {i})")
+        if act == KILL and self.on_kill is not None:
+            # restart BEFORE forwarding: this very call arrives at a
+            # state-lost worker
+            self.injected[KILL] += 1
+            self.on_kill()
+        if act == DELAY:
+            self.injected[DELAY] += 1
+            time.sleep(self.schedule.delay_s)
+        out = self.inner.post(verb, body, timeout=timeout, epoch=epoch,
+                              seq=seq, traceparent=traceparent)
+        if act == CORRUPT:
+            self.injected[CORRUPT] += 1
+            return _corrupt(out)
+        return out
+
+    def close(self) -> None:
+        self.inner.close()
+
 
 # -- overload chaos -------------------------------------------------------
 #

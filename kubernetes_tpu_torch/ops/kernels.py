@@ -219,22 +219,77 @@ def fma32(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+# pi/2 as four parts of 26 significant bits each: k * part is exact in f64
+# for |k| < 2^27, so sin64's first reduction step is exact
+_PIO2 = (1.5707963109016418, 1.5893254712295857e-08, 6.123233932053594e-17,
+         6.368317055225283e-25)
+# fdlibm's __kernel_sin and __kernel_cos coefficients (k_sin.c, k_cos.c)
+_SIN_C = (-1.66666666666666324348e-01, 8.33333333332248946124e-03,
+          -1.98412698298579493134e-04, 2.75573137070700676789e-06,
+          -2.50507602534068634195e-08, 1.58969099521155010221e-10)
+_COS_C = (4.16666666666666019037e-02, -1.38888888888741095749e-03,
+          2.48015872894767294178e-05, -2.75573143513906633035e-07,
+          2.08757232129817482790e-09, -1.13596475577881948265e-11)
+
+
+def _horner(z, coef):
+    out = torch.full_like(z, coef[-1])
+    for c in coef[-2::-1]:
+        out = out * z + c
+    return out
+
+
+def sin64(x):
+    """sin of an f64 tensor with |x| < 2^26, within one ulp, from IEEE
+    additions and multiplications alone: a Cody-Waite reduction by pi/2
+    in four 26-bit parts (the remainder kept as a double-double), then
+    fdlibm's sin and cos kernels on [-pi/4, pi/4].  So the answer is the
+    same bits on every device and every CPU thread.  torch.sin on f64
+    CPU tensors is not: on the H100 machine's CPU, one intra-op thread's
+    chunk of a [4096, 5632] plane came back from another code path in
+    about one fresh process in ten (ROADMAP Q4)."""
+    k = torch.round(x * 0.6366197723675814)
+    t = x - k * _PIO2[0]                     # exact
+    b = -(k * _PIO2[1])                      # exact
+    hi = t + b                               # TwoSum(t, b)
+    bb = hi - t
+    lo = ((t - (hi - bb)) + (b - bb)) - k * _PIO2[2] - k * _PIO2[3]
+    r = hi + lo                              # Fast2Sum: r + y = hi + lo
+    y = lo - (r - hi)
+    z = r * r
+    v = z * r
+    s = r - ((z * (0.5 * y - v * _horner(z, _SIN_C[1:]))) - y
+             - v * _SIN_C[0])
+    zr = z * _horner(z, _COS_C)
+    ax = r.abs()
+    # fdlibm's qx: |r| / 4 with the low 32 bits cleared, 0.28125 above
+    # 0.78125, 0 below 0.3
+    q4 = ((ax * 0.25).view(torch.int64) & ~0xFFFFFFFF).view(torch.float64)
+    qx = torch.where(ax > 0.78125, torch.full_like(ax, 0.28125),
+                     torch.where(ax < 0.3, torch.zeros_like(ax), q4))
+    c = (1.0 - qx) - ((0.5 * z - qx) - (z * zr - r * y))
+    quad = k.to(torch.int64) & 3
+    out = torch.where((quad & 1) == 1, c, s)
+    return torch.where(quad >= 2, -out, out)
+
+
 def sin_noise(pod_ids, n_nodes: int):
     """f32[len(pod_ids), n_nodes] sin-hash noise of the Pallas kernel.
     The argument is fma(gn, 78.233, gp * 12.9898): the reference kernel,
     compiled by XLA on the CPU, fuses the node term's product into the
     sum (unfused, some cells get another argument and so an unrelated
-    noise).  sin itself is taken in f64 and rounded to f32, i.e. the
-    correctly rounded f32 sin: torch's f32 sin on the CPU is not
-    reproducible from run to run (a thread's chunk can come back ~1e-4
-    off), and the f64 route is."""
+    noise).  sin itself is taken in f64 (sin64) and rounded to f32,
+    i.e. the correctly rounded f32 sin but where the f64 value lies
+    within an ulp of an f32 rounding boundary: torch's f32 sin on the
+    CPU is not reproducible from run to run (a thread's chunk can come
+    back ~1e-4 off), and neither, rarely, is its f64 sin."""
     dev = pod_ids.device
     gp = pod_ids.to(torch.float32)[:, None]
     gn = torch.arange(n_nodes, dtype=torch.float32, device=dev)[None, :]
     # sync-point: a constant uploaded (the plain version)
     c2 = torch.tensor(78.233, dtype=torch.float32, device=dev)
     arg = fma32(gn, c2, gp * 12.9898)
-    h = torch.sin(arg.double()).float() * 43758.5453
+    h = sin64(arg.double()).float() * 43758.5453
     return (h - torch.floor(h)) * SIN_NOISE
 
 

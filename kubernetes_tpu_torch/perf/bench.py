@@ -58,6 +58,13 @@ KTPU_STAGE_DEBUG=1 adds the per-batch stage latencies (stage_latency),
 --host-profile the sampling profiler's seconds per pipeline stage
 (host_stages) and each thread's CPU seconds over the run (thread_cpu_s).
 
+The seam rows (bench.py's RemoteSeamGrpc and RemoteSeamFaulty, run_seam):
+5,000 nodes, six rounds of 4,096 plain pods through a device worker (an
+in-process GrpcDeviceWorker, --seam http for DeviceWorker, or the worker
+at --worker-url) and through the in-process backend; RemoteSeamFaulty
+adds the seeded faults, a worker kill and resync and an outage that trips
+the failover breaker and fails back.
+
 The observatory read-outs (the JAX bench.py's --profile and --timeline):
     python3 -m kubernetes_tpu_torch.perf.bench --profile [--out PATH]
     python3 -m kubernetes_tpu_torch.perf.bench --timeline [--out PATH]
@@ -68,6 +75,9 @@ and the SLO tracker; --timeline: the wave timeline), then the same pass
 with it off, print one JSON line (the armed pass's numbers, both passes'
 pods/s and their ratio) and write the artifact to --out (default
 kubernetes_tpu_torch/_build/{profile,timeline}_SchedulingBasicLarge.json).
+--trace (bench.py's) runs the same pass over the gRPC device worker seam
+(--seam http for HTTP) with every batch traced, then untraced, and writes
+both sides' spans as Chrome trace JSON (trace_SchedulingBasicLarge.json).
 """
 
 from __future__ import annotations
@@ -84,6 +94,7 @@ from ..api import meta
 from ..api.resources import node_allocatable, pod_request
 from ..client.clientset import NODES, PODS
 from ..component_base import profiling
+from ..ops.faults import DROP, KILL, FaultSchedule
 from ..store import kv
 from . import caps_for_nodes, load_workloads, run_named_workload
 from .scheduler_perf import is_measured
@@ -183,7 +194,21 @@ CONFIGS = {
     "SchedulingChurnStorm": {"workload": "SchedulingChurnStorm",
                              "batch": 4096, "depth": 2,
                              "overload": "default"},
+    # the device-worker seam's cost: identical plain batches through the
+    # in-process backend and through a gRPC device worker (run_seam)
+    "RemoteSeamGrpc": {"seam": "grpc", "timeout": 600.0},
+    # the same seam under seeded chaos: drops, delays, corrupt frames, one
+    # worker kill and resync, and an outage that trips the breaker into
+    # the in-process rung and back (ops/faults.py, ops/failover.py)
+    "RemoteSeamFaulty": {"seam": "grpc", "faulty": True, "timeout": 900.0},
 }
+
+# run_seam's sizes: bench.py's run_seam_micro (BENCH_SEAM_NODES and
+# BENCH_SEAM_BATCH defaults, six rounds) and its fault schedule's seed,
+# rates, kill and outage
+SEAM_NODES = 5000
+SEAM_BATCH = 4096
+SEAM_ROUNDS = 6
 
 
 def overload_shape(batch: int):
@@ -393,7 +418,7 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
              admission_ms: float = 0.0, device=None, after=None,
              null_device: bool = False, pct_nodes: int = 0,
              overload=None, profile_pods: int = 0, tracing_provider=None,
-             profiling_policy=None) -> dict:
+             profiling_policy=None, remote_seam: str | None = None) -> dict:
     """One full workload pass in this process (the JAX bench's run_once,
     device-backed by TorchBatchBackend on `device`; null_device=True nulls
     the device step instead).  pct_nodes is the profile's
@@ -404,7 +429,9 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
     under torch.profiler (profile_batch; the row's profiled_batch: device
     busy ms and idle share).  `tracing_provider` traces the batches and
     `profiling_policy` (a ProfilingPolicy) arms the profiling: stanza
-    (census, timeline, sampler) as run_named_workload does; with the
+    (census, timeline, sampler) as run_named_workload does; `remote_seam`
+    ("http", "grpc" or a worker's URL) runs the batch backend behind the
+    device worker seam (setup_cluster); with the
     sampling host profiler armed (`enabled`) its per-stage host seconds
     land in the row as host_stages (they count a thread's samples whether
     it runs or waits) and each thread's CPU seconds over the run are read
@@ -467,7 +494,7 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
         null_device=null_device, percentage_of_nodes_to_score=pct_nodes,
         overload=policy, chaos_schedule=chaos, device=device, store=store,
         profiling_policy=profiling_policy, tracing_provider=tracing_provider,
-        after=after_run)
+        remote_seam=remote_seam, after=after_run)
     wall = time.monotonic() - t0
     detail = summary.to_dict()
     detail["placements"] = placements
@@ -554,22 +581,238 @@ def pass_args(name: str, nodes: int | None = None, pods: int | None = None,
                 pct_nodes=c.get("pct_nodes", 0), overload=c.get("overload"))
 
 
+class BenchFaultSchedule(FaultSchedule):
+    """bench.py's _BenchFaultSchedule: seeded weather (seed 42: 2% drops,
+    5% delays of 5 ms, 2% corrupt frames), one worker kill at the 3rd
+    /step (the untimed warm round) and one hard outage from the 8th /step
+    on, every call dropped for (max_retries + 1) * failure_threshold = 4
+    calls: enough to open the breaker, gone by the first probe."""
+
+    def __init__(self):
+        super().__init__(seed=42, drop_rate=0.02, delay_rate=0.05,
+                         corrupt_rate=0.02, delay_s=0.005)
+        self.steps = 0
+        self.killed = False
+        self.outage_from: int | None = None
+        self.outage_calls = 4
+
+    def action(self, i, verb):
+        if verb.startswith("/step"):
+            self.steps += 1
+            if self.steps == 3 and not self.killed:
+                self.killed = True
+                self.rng.random()
+                return KILL
+            if self.steps == 8 and self.outage_from is None:
+                self.outage_from = i
+        if (self.outage_from is not None
+                and i < self.outage_from + self.outage_calls):
+            self.rng.random()
+            return DROP
+        return super().action(i, verb)
+
+
+def run_seam(kind: str = "grpc", faulty: bool = False, device=None,
+             nodes: int | None = None, batch: int | None = None,
+             rounds: int = SEAM_ROUNDS, worker_url: str | None = None
+             ) -> dict:
+    """The seam rows (bench.py's run_seam_micro): `rounds` batches of
+    `batch` plain pods (10m, 16Mi) on `nodes` nodes (64 CPU, 256Gi, 1,000
+    pods), assign() through a RemoteTorchBatchBackend and then through an
+    in-process TorchBatchBackend on `device`, the first round of each
+    untimed; pods/s both ways and their ratio.  The worker is an
+    in-process DeviceWorker ("http") or GrpcDeviceWorker ("grpc") on
+    `device`, or the one at `worker_url` (another process).  Returns the
+    row's detail plus `placements` (node names per round, each way) and
+    `assignments_equal`.
+
+    faulty=True drives the remote rung through FaultyTransport under
+    BenchFaultSchedule behind a FailoverBatchBackend [remote, in-process
+    on `device`] (breaker threshold 2, probe 0.2 s; RemoteSeamPolicy with
+    one retry), retrying a failed batch as the scheduler's requeue does,
+    then untimed 64-pod rounds until the breaker fails back; the detail
+    adds the ladder's counters, the breakers, the injected faults, the
+    requeues, which rung served each round (`served_by`) and whether the
+    remote rung's rounds before the outage equal the in-process run's
+    (`remote_rounds_equal`: the resync after the kill rebuilt the state
+    bit for bit)."""
+    from ..ops.backend import TorchBatchBackend
+    from ..ops.flatten import Caps
+    from ..ops.remote import RemoteTorchBatchBackend, make_worker
+    from ..scheduler.cache import Cache, Snapshot
+    from ..scheduler.types import PodInfo
+    from ..testing import make_node, make_pod
+
+    n_nodes = nodes or SEAM_NODES
+    n_batch = batch or SEAM_BATCH
+    caps = Caps(n_cap=max(1024, -(-int(n_nodes * 1.1) // 256) * 256),
+                l_cap=128, kl_cap=62, t_cap=16, pt_cap=16,
+                s_cap=3, sg_cap=16, asg_cap=16)
+    cache = Cache()
+    cache.add_nodes([make_node(f"n{i}").capacity(cpu="64", mem="256Gi",
+                                                 pods=1000).build()
+                     for i in range(n_nodes)])
+    snap = cache.update_snapshot(Snapshot())
+
+    def batches(tag, count=n_batch, n=rounds):
+        return [[PodInfo(make_pod(f"{tag}{r}-{i}").req(cpu="10m",
+                                                        mem="16Mi").build())
+                 for i in range(count)] for r in range(n)]
+
+    def drive(backend, tag, assign):
+        backend.warmup()
+        names = [[nm for nm, _ in assign(b)] for b in batches(tag)[:1]]
+        t0 = time.monotonic()
+        for b in batches(tag)[1:]:
+            names.append([nm for nm, _ in assign(b)])
+        rate = (rounds - 1) * n_batch / (time.monotonic() - t0)
+        return names, rate
+
+    if faulty and worker_url:
+        raise ValueError("run_seam: the faulty row kills the worker in "
+                         "process; it takes no worker_url")
+    worker = None
+    if worker_url is None:
+        worker = make_worker(kind, device=device).start()
+        worker_url = worker.url
+    detail: dict = {}
+    try:
+        if faulty:
+            names, remote_rate, detail = _drive_faulty(
+                worker, caps, n_batch, device, batches, drive, snap)
+        else:
+            remote = RemoteTorchBatchBackend(worker_url, caps,
+                                             batch_size=n_batch)
+            try:
+                names, remote_rate = drive(
+                    remote, "r", lambda b: remote.assign(b, snap))
+            finally:
+                remote.close()
+    finally:
+        if worker is not None:
+            worker.stop()
+    local = TorchBatchBackend(caps, batch_size=n_batch, device=device)
+    local_names, local_rate = drive(local, "l",
+                                    lambda b: local.assign(b, snap))
+    out = {"seam": kind + ("_faulty" if faulty else ""),
+           "nodes": n_nodes, "batch": n_batch, "rounds": rounds,
+           "inproc_pods_per_s": round(local_rate, 1),
+           "remote_pods_per_s": round(remote_rate, 1),
+           "seam_cost_ratio": round(local_rate / max(remote_rate, 1e-9), 4),
+           "placed": [sum(1 for nm in r if nm) for r in names],
+           "assignments_equal": names == local_names, **detail,
+           "placements": {"remote": names, "inproc": local_names}}
+    if faulty:
+        served = detail["served_by"]
+        before = [r for r in range(rounds) if served[r] == "remote"
+                  and all(s == "remote" for s in served[:r + 1])]
+        out["remote_rounds_equal"] = bool(before) and all(
+            names[r] == local_names[r] for r in before)
+    return out
+
+
+def _drive_faulty(worker, caps, n_batch, device, batches, drive, snap):
+    """run_seam's faulty remote half: (names per round, pods/s, detail)."""
+    from ..ops.backend import TorchBatchBackend
+    from ..ops.failover import FailoverBatchBackend
+    from ..ops.faults import FaultyTransport
+    from ..ops.remote import RemoteTorchBatchBackend, transport_for
+    from ..scheduler.config import RemoteSeamPolicy
+    from ..scheduler.scheduler import BackendUnavailableError
+    from ..scheduler.types import PodInfo
+    from ..testing import make_pod
+
+    schedule = BenchFaultSchedule()
+    transport = FaultyTransport(transport_for(worker.url), schedule,
+                                on_kill=worker.simulate_restart)
+    policy = RemoteSeamPolicy(max_retries=1, retry_base=0.01, retry_max=0.05,
+                              probe_interval=0.2)
+    remote = RemoteTorchBatchBackend(worker.url, caps, batch_size=n_batch,
+                                     transport=transport, policy=policy)
+    ladder = FailoverBatchBackend(
+        [("remote", remote),
+         ("inproc", TorchBatchBackend(caps, batch_size=n_batch,
+                                      device=device))],
+        failure_threshold=2, probe_interval=0.2)
+    requeues = 0
+    served = []
+
+    def assign_retry(batch):
+        # the scheduler's requeue loop in miniature: a failed batch
+        # re-enters with backoff until a rung serves it
+        nonlocal requeues
+        for _ in range(20):
+            r0 = remote.stats["batches"]
+            try:
+                out = ladder.assign(batch, snap)
+            except BackendUnavailableError:
+                requeues += 1
+                time.sleep(0.02)
+                continue
+            served.append("remote" if remote.stats["batches"] > r0
+                          else "inproc")
+            return out
+        raise RuntimeError("bench: batch never recovered")
+
+    try:
+        names, rate = drive(ladder, "r", assign_retry)
+        # recovery rounds (untimed): wait out probe windows until the
+        # breaker half-opens, probes the recovered worker and fails back
+        for n in range(5):
+            time.sleep(policy.probe_interval + 0.05)
+            assign_retry([PodInfo(make_pod(f"rrec{n}-{i}").req(
+                cpu="10m", mem="16Mi").build()) for i in range(64)])
+            if ladder.breaker_state().get("remote") == 0.0:
+                break
+    finally:
+        remote.close()
+    return names, rate, {"failover": ladder.seam_snapshot(),
+                         "breakers": ladder.breaker_state(),
+                         "injected": dict(transport.injected),
+                         "bench_requeues": requeues, "served_by": served}
+
+
+def seam_row(name: str, device=None, nodes: int | None = None,
+             batch: int | None = None, kind: str | None = None,
+             worker_url: str | None = None) -> dict:
+    """A seam config's row: run_seam at its parameters (`kind` overrides
+    the transport, `worker_url` drives a worker in another process),
+    pods/s through the seam as the value; the per-round placements are
+    left out of the row."""
+    c = CONFIGS[name]
+    res = run_seam(kind or c["seam"], bool(c.get("faulty")), device,
+                   nodes, batch, worker_url=worker_url)
+    extra = {"config": name,
+             **{k: v for k, v in res.items() if k != "placements"}}
+    bad = (not res["assignments_equal"] if not c.get("faulty") else not (
+        res["remote_rounds_equal"]
+        and res["breakers"].get("remote") == 0.0))
+    if bad or min(res["placed"]) < res["batch"]:
+        extra["error"] = "seam row check failed"
+    return row(res["remote_pods_per_s"], res["nodes"],
+               res["rounds"] * res["batch"], res["batch"], extra)
+
+
 def run_config(name: str, device=None, nodes: int | None = None,
                pods: int | None = None, batch: int | None = None,
                profiling_policy=None, after=None,
-               profile_pods: int = 0) -> tuple:
+               profile_pods: int = 0, remote_seam: str | None = None
+               ) -> tuple:
     """Run a named config (sizes optionally overridden); returns (the row,
     every pass's run_once result in run order).  A two_pass config runs
     twice; the row keeps the better pass (the higher pods/s, or for a
     paced config the lower p99) and puts the other in
     detail.second_pass.  A pass that failed makes the row's error, even
     when the other pass is the one kept.  `after` runs after each
-    pass."""
+    pass; `remote_seam` goes to run_once.  A seam config (RemoteSeamGrpc,
+    RemoteSeamFaulty) runs seam_row instead: (the row, [])."""
+    if "seam" in CONFIGS[name]:
+        return seam_row(name, device, nodes, batch), []
     args = pass_args(name, nodes, pods, batch)
     paced = bool(args["rate"])
     results = [run_once(**args, device=device,
                         profiling_policy=profiling_policy, after=after,
-                        profile_pods=profile_pods)
+                        profile_pods=profile_pods, remote_seam=remote_seam)
                for _ in range(2 if CONFIGS[name].get("two_pass") else 1)]
 
     def worse(r):
@@ -731,6 +974,47 @@ def run_timeline(out_path: str | None = None, device=None, nodes: int = 1000,
             "barrier_ok": stats_t.get("barrier_ok", False)}
 
 
+def run_trace(out_path: str | None = None, device=None, nodes: int = 1000,
+              pods: int = 5000, batch: int = 1024, seam: str = "grpc"
+              ) -> dict:
+    """--trace (bench.py's run_trace): one SchedulingBasicLarge pass over
+    the `seam` device worker (gRPC unless --seam http) with every batch
+    traced, written as Chrome trace-event JSON (chrome://tracing,
+    Perfetto) holding both sides of the seam: the scheduler's spans and
+    the worker's worker.<verb> spans, parented into the same traces by the
+    propagated traceparent; then the same pass untraced, for the
+    overhead."""
+    from ..component_base import tracing
+    out_path = out_path or os.path.join(ARTIFACT_DIR,
+                                        "trace_SchedulingBasicLarge.json")
+    caps = caps_for_nodes(nodes)
+    provider = tracing.TracerProvider(sampling_rate_per_million=1_000_000,
+                                      max_spans=65536, max_traces=8192)
+    summary_t, stats_t = run_named_workload(
+        _basic_large(nodes, pods), caps=caps, batch_size=batch,
+        pipeline_depth=2, remote_seam=seam, tracing_provider=provider,
+        device=device)
+    spans = provider.snapshot() + list(stats_t.get("worker_spans") or ())
+    path = _write_artifact(out_path, tracing.to_chrome_trace(spans))
+    summary_u, _ = run_named_workload(
+        _basic_large(nodes, pods), caps=caps, batch_size=batch,
+        pipeline_depth=2, remote_seam=seam, device=device)
+    names: dict[str, int] = {}
+    for sp in spans:
+        names[sp.name] = names.get(sp.name, 0) + 1
+    return {"nodes": nodes, "pods": pods, "batch": batch, "seam": seam,
+            "trace_file": path, "events": len(spans),
+            "span_names": dict(sorted(names.items())),
+            "worker_spans_parented": sum(
+                1 for sp in spans if sp.name.startswith("worker.")
+                and sp.parent_span_id is not None),
+            "traced_pods_per_s": round(summary_t.average, 1),
+            "untraced_pods_per_s": round(summary_u.average, 1),
+            "overhead_ratio": round(summary_u.average
+                                    / max(summary_t.average, 1e-9), 3),
+            "barrier_ok": stats_t.get("barrier_ok", False)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default=["SchedulingBasic"], nargs="+",
@@ -760,16 +1044,31 @@ def main(argv=None) -> int:
                       help="SchedulingBasicLarge with profiling.timeline "
                            "armed, then off; writes the timeline artifact "
                            "to --out")
+    mode.add_argument("--trace", action="store_true",
+                      help="SchedulingBasicLarge over the device worker "
+                           "seam, every batch traced, then untraced; "
+                           "writes the Chrome trace to --out")
     ap.add_argument("--out", default=None,
-                    help="the --profile / --timeline artifact's path "
-                         f"(default under {ARTIFACT_DIR})")
+                    help="the --profile / --timeline / --trace artifact's "
+                         f"path (default under {ARTIFACT_DIR})")
+    ap.add_argument("--seam", default=None, choices=("grpc", "http"),
+                    help="the seam rows' and --trace's transport (default: "
+                         "the row's, gRPC)")
+    ap.add_argument("--worker-url", default=None,
+                    help="a seam row drives the device worker at this URL "
+                         "(python -m kubernetes_tpu_torch.cmd.tpu_worker) "
+                         "instead of one in this process")
     args = ap.parse_args(argv)
-    if args.profile or args.timeline:
-        run = run_profile if args.profile else run_timeline
+    if args.profile or args.timeline or args.trace:
         sizes = {k: v for k, v in (("nodes", args.nodes),
                                    ("pods", args.pods),
                                    ("batch", args.batch)) if v is not None}
-        out = run(args.out, args.device, **sizes)
+        if args.trace:
+            out = run_trace(args.out, args.device, seam=args.seam or "grpc",
+                            **sizes)
+        else:
+            run = run_profile if args.profile else run_timeline
+            out = run(args.out, args.device, **sizes)
         print(json.dumps(out), flush=True)
         return 0 if out["barrier_ok"] else 1
     failed = False
@@ -778,9 +1077,13 @@ def main(argv=None) -> int:
         from ..scheduler.config import ProfilingPolicy
         policy = ProfilingPolicy(enabled=True)
     for name in args.config:
-        out, _results = run_config(
-            name, args.device, args.nodes, args.pods, args.batch,
-            profiling_policy=policy, profile_pods=args.profile_pods)
+        if "seam" in CONFIGS[name]:
+            out = seam_row(name, args.device, args.nodes, args.batch,
+                           kind=args.seam, worker_url=args.worker_url)
+        else:
+            out, _results = run_config(
+                name, args.device, args.nodes, args.pods, args.batch,
+                profiling_policy=policy, profile_pods=args.profile_pods)
         print(json.dumps(out), flush=True)
         failed |= "error" in out["detail"]
     return 1 if failed else 0

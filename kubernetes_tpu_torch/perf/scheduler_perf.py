@@ -206,9 +206,17 @@ class PerfCluster:
     client: LocalClient
     factory: SharedInformerFactory
     scheduler: Scheduler
+    worker: object = None       # in-process device worker (remote_seam)
 
     def shutdown(self) -> None:
         self.scheduler.stop()
+        # after scheduler.stop(): the final flush still needs the seam
+        for p in self.scheduler.profiles.values():
+            close = getattr(p.batch_backend, "close", None)
+            if close is not None:
+                close()
+        if self.worker is not None:
+            self.worker.stop()
         self.factory.stop()
         self.client.close()  # event-broadcaster thread
 
@@ -256,8 +264,17 @@ def setup_cluster(caps=None, batch_size: int = 512,
     wraps it in FlightDelayBackend (every wave's flight pinned to at least
     that wall time).
 
-    Not ported (they raise NotImplementedError, naming the ROADMAP item):
-    via_http (the apiserver), remote_seam (ops/remote.py).
+    remote_seam routes the batch backend through the device worker seam
+    (ops/remote.py): "http" or "grpc" starts an in-process DeviceWorker
+    or GrpcDeviceWorker on `device` (PerfCluster.worker, stopped at
+    shutdown after the backend's transport closes), and a URL
+    ("http://host:port", "grpc://host:port") drives a worker that runs in
+    another process (python -m kubernetes_tpu_torch.cmd.tpu_worker).
+    Either way the profile's backend is a RemoteTorchBatchBackend; the
+    device is the worker's.
+
+    Not ported (it raises NotImplementedError, naming the ROADMAP item):
+    via_http (the apiserver).
     profiling_policy.census runs the backend's device census after its
     warmup (TorchBatchBackend.device_census: one step of each variant on a
     clone of the resident state).
@@ -265,9 +282,6 @@ def setup_cluster(caps=None, batch_size: int = 512,
     if via_http:
         raise _not_ported("via_http (the apiserver front door)",
                           "ROADMAP queue 1 item 10")
-    if remote_seam:
-        raise _not_ported("remote_seam (ops/remote.py)",
-                          "ROADMAP queue 1 item 6")
     from ..utils.gctune import tune_for_throughput
     tune_for_throughput()  # CPython gen-2 pauses cost ~35% at bench scale
     store = store or kv.MemoryStore(history=1_000_000)
@@ -275,10 +289,26 @@ def setup_cluster(caps=None, batch_size: int = 512,
     factory = SharedInformerFactory(client)
     from ..ops.backend import make_batch_backend
     from ..ops.flatten import Caps
-    backend = make_batch_backend("null" if null_device else backend_kind,
-                                 caps or Caps(), batch_size=batch_size,
-                                 device=device)
-    backend.warmup()
+    worker = None
+    if remote_seam and not null_device:
+        from ..ops.remote import RemoteTorchBatchBackend, make_worker
+        url = remote_seam
+        if "://" not in remote_seam:
+            worker = make_worker(remote_seam, device=device).start()
+            url = worker.url
+        try:
+            backend = RemoteTorchBatchBackend(url, caps or Caps(),
+                                              batch_size=batch_size)
+            backend.warmup()
+        except BaseException:
+            if worker is not None:
+                worker.stop()
+            raise
+    else:
+        backend = make_batch_backend("null" if null_device
+                                     else backend_kind, caps or Caps(),
+                                     batch_size=batch_size, device=device)
+        backend.warmup()
     if chaos_schedule is not None:
         from ..ops.faults import ChaosBatchBackend
         backend = ChaosBatchBackend(backend, chaos_schedule)
@@ -331,7 +361,7 @@ def setup_cluster(caps=None, batch_size: int = 512,
     factory.start()
     factory.wait_for_cache_sync()
     sched.run()
-    return PerfCluster(store, client, factory, sched)
+    return PerfCluster(store, client, factory, sched, worker=worker)
 
 
 # -- workload ops (scheduler_perf_test.go opcodes) -------------------------
@@ -787,6 +817,10 @@ def run_named_workload(config: dict, caps=None,
         if stagelat.ENABLED:
             stats["stage_latency"] = stagelat.summary()
             stagelat.reset()  # don't bleed into the next workload
+        if tracing_provider is not None and cluster.worker is not None:
+            # worker-side spans (parented into the client trace through
+            # the propagated traceparent), for the Chrome export
+            stats["worker_spans"] = cluster.worker.tracer_provider.snapshot()
         for p in cluster.scheduler.profiles.values():
             if p.batch_backend is not None:
                 stats["backend_stats"] = dict(p.batch_backend.stats)

@@ -582,3 +582,47 @@ def test_group_registered_after_own_binds_keeps_the_pod_caps():
     assert per_node == {"n0": 110, "n1": 110, "n2": 110}
     assert placed == 330 - 250
     assert backend.stats.get("epoch_skips", 0) == skips
+
+
+def test_collided_buckets_on_an_empty_cluster_stay_unschedulable(
+        monkeypatch):
+    """ROADMAP Q5.  SchedulingHighCardinality's first batch can run ahead
+    of the node informer: 64 pods of 64 anti-affinity services (eight
+    selector-group slots, so the buckets collide) against a cache with no
+    node yet.  Nothing can fit there, so the device's no-fit verdicts
+    are exact: the port reports every pod UNSCHEDULABLE and escapes none.
+    (The JAX backend re-proves the collided pods one by one, 63 escapes
+    with ("BatchEncoder", "bucket_collision"): the reference quirk R10.)
+    Once the nodes arrive, the same pods go through a forced full refresh
+    on the collided buckets and all bind, one service a host, with no
+    escape, as in the JAX backend."""
+    monkeypatch.setenv("KTPU_PALLAS", "0")
+    from kubernetes_tpu_torch.perf import load_workloads
+    from kubernetes_tpu_torch.perf.scheduler_perf import _default_pod
+    caps = dict(CAPS, n_cap=64, sg_cap=8, asg_cap=8, c_cap=2, ns_cap=256)
+    op = copy.deepcopy(load_workloads()["SchedulingHighCardinality"]
+                       ["workloadTemplate"][1])
+    pods = [_default_pod(i, op) for i in range(64)]
+    got = {}
+    for name, s in (("port", port_side(64, caps)),
+                    ("jax", jax_side(64, caps))):
+        s.backend.warmup()
+        view = s.cache.flatten_view()
+        first = outcome(s.backend.dispatch(s.infos(pods), view)())
+        escapes = s.backend.drain_escape_reasons()
+        for i in range(50):
+            s.cache.add_node(s.testing.make_node(f"n{i}").labels(
+                **{HOST: f"n{i}"}).capacity(cpu="32", mem="256Gi",
+                                            pods=110).build())
+        s.backend.abandon_wave()    # the next dispatch refreshes in full
+        second = s.backend.dispatch(s.infos(pods), view)()
+        got[name] = (first, escapes, outcome(second),
+                     s.backend.drain_escape_reasons(), dict(s.backend.stats))
+    first, escapes, second, escapes2, stats = got["port"]
+    assert first == [(None, port_types.UNSCHEDULABLE)] * 64
+    assert escapes == {}
+    assert stats["full_refresh"] >= 2 and stats["waves_reflattened"] >= 1
+    assert escapes2 == {} and all(n is not None for n, _c in second)
+    assert second == got["jax"][2] and got["jax"][3] == {}
+    # the reference re-proves the collided pods instead (R10)
+    assert got["jax"][1] == {("BatchEncoder", "bucket_collision"): 63}

@@ -4,9 +4,9 @@ against the JAX package's bench.py, and the new row kinds run on the CPU.
 Every single-device row of bench.py's EXTRA_CONFIGS is in the port with
 bench.py's own parameters (workload, sizes, batch, depth, admission
 window, rate, percentage of nodes to score, two passes, the nulled device,
-the overload shape, the barrier budget); the rows bench.py runs through
-the apiserver or the remote device worker are the only ones left out
-(ROADMAP items 10 and 6).  The overload shape builds the same policy and
+the overload shape, the barrier budget; the seam rows' transport, faults
+and timeout); the rows bench.py runs through the apiserver are the only
+ones left out (ROADMAP item 10).  The overload shape builds the same policy and
 chaos schedule as bench.py's.  At a tiny size on the CPU: a two_pass row
 runs twice and keeps the better pass (a failed pass fails the row), the
 host-ceiling row runs on the
@@ -26,10 +26,10 @@ from kubernetes_tpu_torch.perf import bench
 ROOT = Path(__file__).resolve().parent.parent
 # bench.py rows that need modules the port does not have yet
 NOT_PORTED = {"SchedulingBasicHTTP": "item 10", "SchedulingBasicHTTPProc":
-              "item 10", "RemoteSeamGrpc": "item 6",
-              "RemoteSeamFaulty": "item 6"}
+              "item 10"}
 PARAMS = ("workload", "nodes", "pods", "batch", "depth", "admission_ms",
-          "rate", "pct_nodes", "two_pass", "null", "overload")
+          "rate", "pct_nodes", "two_pass", "null", "overload", "seam",
+          "faulty")
 
 
 @pytest.fixture(scope="module")
@@ -184,3 +184,54 @@ def test_profiled_batch_of_the_rows_own_pods(name, pods):
     assert prof["wall_ms"] > 0 and prof["busy_ms"] >= 0
     assert d["placements"]["pods"] == res["stats"]["created_pods"]
     assert d["waves_per_batch"] >= 1
+
+
+def test_seam_sizes_and_fault_schedule_equal_bench_py(jax_bench,
+                                                      monkeypatch):
+    """run_seam's sizes are run_seam_micro's defaults, and the faulty
+    row's schedule decides as bench.py's _BenchFaultSchedule on the same
+    calls (weather, the kill at the 3rd /step, the 4-call outage from the
+    8th)."""
+    import inspect
+    src = inspect.getsource(jax_bench.run_seam_micro)
+    assert f'"BENCH_SEAM_NODES", "{bench.SEAM_NODES}"' in src
+    assert f'"BENCH_SEAM_BATCH", "{bench.SEAM_BATCH}"' in src
+    assert f"ROUNDS = {bench.SEAM_ROUNDS}" in src
+    # bench.py builds its schedule inside run_seam_micro: capture it
+    from kubernetes_tpu.ops import faults as jax_faults
+    made = []
+    real = jax_faults.FaultyTransport
+
+    class Capture(real):
+        def __init__(self, inner, schedule, on_kill=None):
+            made.append(schedule)
+            raise RuntimeError("captured")
+    monkeypatch.setattr(jax_faults, "FaultyTransport", Capture)
+    monkeypatch.setenv("BENCH_SEAM_NODES", "4")
+    with pytest.raises(RuntimeError, match="captured"):
+        jax_bench.run_seam_micro("http", faulty=True)
+    theirs, ours = made[0], bench.BenchFaultSchedule()
+    verbs = (["/init", "/static", "/refresh"]
+             + ["/step?variant=plain", "/static"] * 20)
+    assert [ours.action(i, v) for i, v in enumerate(verbs)] == [
+        theirs.action(i, v) for i, v in enumerate(verbs)]
+
+
+@pytest.mark.parametrize("name", ["RemoteSeamGrpc", "RemoteSeamFaulty"])
+def test_seam_rows_on_the_cpu(name):
+    """Each seam row at a tiny size: every round placed; the clean row's
+    remote and in-process placements equal; the faulty row kills, resyncs,
+    fails over and back, and its remote rounds before the outage equal the
+    in-process run's."""
+    pytest.importorskip("grpc")
+    row, results = bench.run_config(name, device="cpu", nodes=60, batch=64)
+    d = row["detail"]
+    assert results == [] and "error" not in d, d
+    assert d["placed"] == [64] * 6
+    if name == "RemoteSeamGrpc":
+        assert d["assignments_equal"] and d["seam"] == "grpc"
+    else:
+        assert d["injected"]["kill"] == 1
+        assert d["failover"]["remote_resyncs"] >= 1
+        assert d["failover"]["failovers"] >= 1
+        assert d["breakers"]["remote"] == 0.0 and d["remote_rounds_equal"]

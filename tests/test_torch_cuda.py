@@ -324,3 +324,52 @@ def test_timeline_on_the_card_reads_cuda_events(cuda):
     dev, d2h = rows["device-step"], rows["d2h"]
     assert t0 - 1e-3 <= dev["t0_unix_s"] <= d2h["t0_unix_s"]
     assert d2h["t1_unix_s"] <= dev["t1_unix_s"] + 1e-6 <= t1 + 1e-3
+
+
+def test_worker_step_on_the_card_equals_in_process(cuda):
+    """A device worker in this process on the card (ops/remote.py
+    DeviceWorker): /step's result vector, posted with the bytes an
+    in-process TorchBatchBackend on the card steps on, equals that
+    backend's bit for bit, batch after batch (the claims kernel runs on
+    both sides)."""
+    from kubernetes_tpu_torch.ops.remote import (
+        DeviceWorker, RemoteTorchBatchBackend,
+    )
+    s = port_side(SEQ_BATCH, SEQ_CAPS, device=cuda, noise="sin")
+    views = {}
+    for name in ("local", "remote"):
+        # each backend syncs from a cache of its own: a flatten view's
+        # change tracking serves one consumer
+        c = s.cache_mod.Cache() if name == "remote" else s.cache
+        for i in range(20):
+            c.add_node(s.node(f"n{i}", cpu="4", mem="8Gi", pods=8))
+        views[name] = c.flatten_view()
+    worker = DeviceWorker(device=cuda).start()
+    try:
+        remote = RemoteTorchBatchBackend(
+            worker.url, s.backend.caps, batch_size=SEQ_BATCH,
+            claims_noise="sin")
+        got = {}
+        for name, b in (("local", s.backend), ("remote", remote)):
+            view = views[name]
+            steps = []
+            real = b._device_step
+
+            def record(variant, staged, clock=None, real=real, steps=steps):
+                res = real(variant, staged, clock)
+                steps.append(res.get().copy())
+                return res
+            b._device_step = record
+            b.warmup()
+            del steps[:]
+            for k in range(3):
+                pods = [s.pod(f"w{k}-{i}", cpu="300m", mem="256Mi")
+                        for i in range(SEQ_BATCH)]
+                b.assign(s.infos(pods), view)
+            got[name] = steps
+        remote.close()
+    finally:
+        worker.stop()
+    assert len(got["remote"]) == len(got["local"]) == 3
+    for r, loc in zip(got["remote"], got["local"]):
+        np.testing.assert_array_equal(r, loc)

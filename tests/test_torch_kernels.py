@@ -159,3 +159,36 @@ def test_prepare_static_pads_mask_rows(P):
     assert not mask[:, P:].any()
     got, _ = run_claims(c, "murmur")
     np.testing.assert_array_equal(got, run_jax_xla_murmur(c))
+
+
+# -- the sin noise's sin (ROADMAP Q4) ------------------------------------------
+
+def test_sin_noise_takes_no_library_sin(monkeypatch):
+    """The plain version's sin noise is built from IEEE additions and
+    multiplications alone (kernels.sin64): a torch.sin that answers
+    otherwise (as torch's f64 sin on the H100 machine's CPU did for one
+    intra-op thread's chunk, ROADMAP Q4) leaves it unchanged."""
+    ids = torch.arange(300, dtype=torch.int32)
+    want = kernels.sin_noise(ids, 700)
+    monkeypatch.setattr(torch, "sin", lambda x: torch.zeros_like(x))
+    assert torch.equal(kernels.sin_noise(ids, 700), want)
+
+
+def test_sin64_is_the_correctly_rounded_f32_sin():
+    """sin64 stays within one f64 ulp of the C library's sin on the noise's
+    arguments (f32 values up to 2^24) and on small ones, and rounds to the
+    same f32 on every one of them, computed whole or a row at a time."""
+    import math
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.uniform(0, 8.8e6, 40000),
+                        rng.uniform(-10, 10, 10000),
+                        np.arange(0, 20000)]).astype(np.float32)
+    x = torch.from_numpy(x.astype(np.float64))
+    got = kernels.sin64(x)
+    want = torch.tensor([math.sin(v) for v in x.tolist()],
+                        dtype=torch.float64)
+    eps = torch.finfo(torch.float64).eps
+    assert bool(((got - want).abs() <= eps * want.abs()).all())
+    assert torch.equal(got.float(), want.float())
+    rows = torch.cat([kernels.sin64(r) for r in x.view(100, -1)])
+    assert torch.equal(rows, got)

@@ -4,7 +4,8 @@ The workload file is the JAX package's, converted to JSON; a tiny
 SchedulingBasic runs end to end through the port's Scheduler on a
 TorchBatchBackend(device="cpu") and binds what the JAX harness binds; the
 bench module prints one row in bench.py's shape; the harness branches
-that reach modules outside the port raise NotImplementedError, and the
+that reach modules outside the port (and the census over the remote
+seam, whose step lives in the worker) raise NotImplementedError, and the
 entry points refuse to run without a GPU unless the caller names the CPU.
 """
 
@@ -130,11 +131,32 @@ def _cfg():
     return tiny_basic(port_perf)
 
 
+def _remote_census():
+    """The census over the remote seam: the step it runs lives in the
+    worker's process (a worker on the CPU, stopped before returning)."""
+    from kubernetes_tpu_torch.ops.flatten import Caps
+    from kubernetes_tpu_torch.ops.remote import (
+        DeviceWorker, RemoteTorchBatchBackend,
+    )
+    worker = DeviceWorker(device="cpu").start()
+    try:
+        client = RemoteTorchBatchBackend(
+            worker.url, Caps(n_cap=16, l_cap=16, kl_cap=8, t_cap=4,
+                             pt_cap=4, s_cap=1, sg_cap=2, asg_cap=2),
+            batch_size=4)
+        try:
+            client.device_census()
+        finally:
+            client.close()
+    finally:
+        worker.stop()
+
+
 NOT_PORTED = {
     "via_http": lambda: port_perf.setup_cluster(via_http=True),
     "via_http_process": lambda: port_perf.setup_cluster(
         via_http="process"),
-    "remote_seam": lambda: port_perf.setup_cluster(remote_seam="grpc"),
+    "remote_seam": _remote_census,
     "run_named_workload_via_http": lambda: port_perf.run_named_workload(
         _cfg(), via_http=True, device="cpu"),
     "backend_sharded": lambda: port_backend.make_batch_backend(

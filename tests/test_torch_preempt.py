@@ -8,8 +8,8 @@ ties and k past the feasible count.
 
 Backend level: TorchBatchBackend(device="cpu").preempt_batch against
 TPUBatchBackend.preempt_batch on every scenario of
-tests/test_preempt_batch.py (the remote-seam ones aside: the port has no
-remote worker yet): node, sorted victims, violations, escapes and the
+tests/test_preempt_batch.py, the remote-seam ones over a port worker (HTTP and
+gRPC) too: node, sorted victims, violations, escapes and the
 wave order must be identical, and the port's answers must equal its own
 sequential Evaluator oracle.  Then the victim channel: a second wave
 after binds on two nodes takes the row-overwrite path and answers as a
@@ -630,3 +630,79 @@ def test_batch_escape_tallies_match_jax(pallas_off):
     assert got["port"] == got["jax"]
     assert got["port"][1] == {("NodeAffinity", "gt_lt_operator"): 1,
                               ("DefaultPreemption", "nominated_node_stale"): 1}
+
+
+# -- the remote seam (tests/test_preempt_batch.py TestRemoteSeamParity) ------
+
+@pytest.fixture(params=["http", "grpc"])
+def seam_workers(request, pallas_off):
+    """A port worker (CPU) and a JAX worker over the same transport,
+    stopped in the finalizer."""
+    pytest.importorskip("grpc")
+    from kubernetes_tpu.ops import remote as jax_remote
+    from kubernetes_tpu_torch.ops import remote as port_remote
+    started = {}
+    try:
+        started[PORT_PKG] = port_remote.make_worker(request.param,
+                                                    device="cpu").start()
+        started[JAX] = (jax_remote.GrpcDeviceWorker() if request.param ==
+                        "grpc" else jax_remote.DeviceWorker()).start()
+        yield started
+    finally:
+        for w in started.values():
+            w.stop()
+
+
+def remote_cluster(testing):
+    nodes = [testing.make_node(f"n{i}").capacity(cpu="2", mem="8Gi").build()
+             for i in range(4)]
+    victims = [testing.make_pod(f"v{i}").priority(1 + i % 3)
+               .req(cpu=f"{400 + 200 * (i % 3)}m").node(f"n{i % 4}").build()
+               for i in range(10)]
+    pre = [testing.make_pod(f"p{j}").priority(10).req(cpu="1800m").build()
+           for j in range(4)]
+    return nodes, victims, pre
+
+
+def remote_side(pkg, worker):
+    """`pkg`'s Side with its synced backend swapped for a remote client on
+    `worker`."""
+    nodes, victims, pre = remote_cluster(
+        importlib.import_module(f"{pkg}.testing"))
+    side = Side(pkg, nodes, victims)
+    remote_mod = importlib.import_module(f"{pkg}.ops.remote")
+    caps = importlib.import_module(f"{pkg}.ops.flatten").Caps(**SMALL_CAPS)
+    cls = (remote_mod.RemoteTPUBatchBackend if pkg == JAX
+           else remote_mod.RemoteTorchBatchBackend)
+    local = side.backend
+    side.backend = cls(worker.url, caps, batch_size=8)
+    side.backend.assign([], side.snap)
+    return side, local, pre
+
+
+@pytest.mark.parametrize("kill", [False, True],
+                         ids=["remote_matches_local", "kill_resync"])
+def test_remote_seam_preempt_matches_jax(seam_workers, kill):
+    """The dry run over the wire: the victim tensors ride /static, the
+    kernel runs worker-side through /preempt, and the answers equal the
+    in-process backend's and the JAX package's over its own worker.  With
+    kill: the worker restarts between two waves, the client's resync
+    replays the victim-carrying static checkpoint, and the second wave
+    answers as the first."""
+    got = {}
+    for pkg in (PORT_PKG, JAX):
+        side, local, pre = remote_side(pkg, seam_workers[pkg])
+        try:
+            first = side.wave(pre)
+            if kill:
+                seam_workers[pkg].simulate_restart()
+                second = side.wave(pre)
+                assert side.backend.seam_stats["resyncs"] >= 1
+                assert second == first
+            side.backend, remote = local, side.backend
+            want = side.wave(pre)
+        finally:
+            remote.close()
+        assert first == want and first[1] == {}
+        got[pkg] = first
+    assert got[PORT_PKG] == got[JAX]
