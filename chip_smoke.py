@@ -166,7 +166,28 @@ Phases (each prints its wall time; any failed check exits non-zero):
      the HTTP seam, and say so, where grpc does not import;
  25. PreemptionBasic (two passes) through the Scheduler over the worker
      process of 22, held to 11's checks; the worker must have served
-     /preempt.
+     /preempt;
+ 26. the multi-device sharded path (parallel/) at 100,000 nodes: the
+     claims kernel at every shard's node_offset under 4 shards (P=16,384 x
+     N=27,520, murmur) against its plain version, bit for bit, each launch
+     timed; ShardedTorchBatchBackend.assign on make_mesh() (every visible
+     card, one shard each) and on 4 shards of cuda:0, beside
+     TorchBatchBackend at murmur noise, each on its own copy of phase 6's
+     cluster, 4 batches of 16,384 plain pods: the placements equal batch
+     by batch, pods/s for each, the claims kernel launched once a shard
+     per wave; the census's collective bytes a wave by kind on the 4-shard
+     mesh (counts of a 4-device mesh: the shards share one card);
+     SyncGuard's syncs a sharded wave over 2 more batches; one constraint
+     batch of (a)'s mix at 5,000 nodes (zones round-robin, so every zone
+     spans every shard) on 4 shards, equal to the single device's full
+     variant pod for pod;
+ 27. Scheduling100k through the Scheduler with backend: sharded on
+     make_mesh(), at bench.py's headline configuration (census and
+     timeline armed), held to 9's checks, every batch plain and the
+     claims kernel launched once a shard per wave, pods/s and p50/p99
+     beside 9's; then TopologySpreading (15's row, two passes) on 4
+     shards of cuda:0, held to 15's checks.  The two phases print their
+     wall together, and the script its whole wall.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -175,14 +196,17 @@ just before each (before each pass in 8-19) and read just after (before
 a pass's profiled batch); in 5, 6, 8-12, 16, 18 and 19 the
 claims kernel must have launched, in (a)-(d) no kernel (the full variant
 reaches no hand kernel; 13-15 run it every batch), in 17 nothing, in f
-and 11-12 the preempt kernel;
+and 11-12 the preempt kernel; in 26 the counts are zeroed just before
+each sharded assign and read just after it (the single-device comparison
+is not counted), in 27 before each pass;
 every claims launch of 5 and 6 is recorded by shape (pods, live pods,
 nodes, noise) with its time between CUDA events.  In 22 and 25 the
 kernels launch in the worker process: its counts (GET /debug/kernels)
 are zeroed before each pass and read after it, and the claims kernel
 must have launched in 22, the preempt kernel in 25.  The last two lines
-are a JSON line of per-kernel numbers (launches: claims in phases 6, 9
-and 22's Scheduling100k, preempt_dry_run in f, 11, 12 and 25) and the
+are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
+22's Scheduling100k, 26's sharded assigns and 27's Scheduling100k;
+preempt_dry_run in f, 11, 12 and 25) and the
 device line.  Without a CUDA device the script exits 2 and prints no
 result.
 
@@ -193,7 +217,9 @@ its dry_run_planes against this one's at phase e's 100k cases and phase
 f's first chunk, in turns (this, other, other, this) on the same inputs,
 after checking that both return the same answers.
 
---only seam runs phases 1-2 and 22-25; --until 4 stops after phase 4
+--only seam runs phases 1-2 and 22-25, --only sharded phases 1-2 and
+26-27 (27 then prints no single-device row beside its own); --until 4
+stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
 directory of its own, two at a time, with a process keeping the card busy
@@ -360,7 +386,10 @@ class ClaimsRecorder:
         inner = self.inner = self.kernels.claims
 
         def claims(static, active, used, used_nz, npods, noise="sin",
-                   pod_ids=None):
+                   pod_ids=None, node_offset=0):
+            # the kept inputs replay at offset 0: the single device's
+            check(not (self.keep and node_offset),
+                  "ClaimsRecorder keeps single-device launches only")
             if self.keep:
                 self.inputs.append((
                     {k: v.clone() if torch.is_tensor(v) else v
@@ -372,7 +401,7 @@ class ClaimsRecorder:
             t0 = time.monotonic()
             e0.record()
             out = inner(static, active, used, used_nz, npods, noise=noise,
-                        pod_ids=pod_ids)
+                        pod_ids=pod_ids, node_offset=node_offset)
             if self.keep:
                 self.outputs.append(tuple(t.clone() for t in out))
             e1.record()
@@ -2194,6 +2223,335 @@ def seam_phases(dev, smi, rows_inproc):
     return launches
 
 
+# -- phases 26-27: the multi-device sharded path (parallel/) on the card ---
+
+SHARD_BATCHES = 4          # phase 26: batches of 16,384 at 100k nodes
+SHARD_GUARD_BATCHES = 2    # phase 26: batches under SyncGuard
+SHARD_SPLIT = 4            # the one-card mesh: shards of cuda:0
+
+
+def shard_offsets_phase(kernels, dev, smi, n_cap=110_080, P=16384,
+                        shards=SHARD_SPLIT):
+    """The claims kernel at every shard's node offset under `shards`
+    shards of n_cap rows, at one shard's shape (P pods x n_cap / shards
+    nodes, murmur): held bit for bit against its plain version at the same
+    offset, each launch timed between CUDA events.  Returns (max |best|
+    error, {offset: ms})."""
+    n_loc = n_cap // shards
+    args = random_claims_case(P, n_loc, 26, dev)
+    errs, times = [], {}
+    for s in range(shards):
+        off = s * n_loc
+        got, best = kernels.claims(*args, noise="murmur", node_offset=off)
+        want, want_best = kernels.claims_reference(*args, noise="murmur",
+                                                   node_offset=off)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)) and bool(torch.equal(best,
+                                                                want_best)),
+              f"shard {s} (offset {off}): claims not bit-identical")
+        errs.append(float((best - want_best).abs().max()))
+        times[off] = time_cuda(lambda off=off: kernels.claims(
+            *args, noise="murmur", node_offset=off), 10)
+        print(f"   shard {s}/{shards} {P}x{n_loc} murmur at node_offset "
+              f"{off}: bit-identical to the plain version; "
+              f"{times[off]:.4f} ms/launch (median of 10) [{smi}]",
+              flush=True)
+    base, _ = kernels.claims(*args, noise="murmur")
+    shifted, _ = kernels.claims(*args, noise="murmur", node_offset=n_loc)
+    print(f"   the offset moves the noise: {int((base != shifted).sum())} "
+          f"of {P} claims differ between offsets 0 and {n_loc}", flush=True)
+    return max(errs), times
+
+
+def sharded_plain_phase(kernels, dev, smi, n_nodes=100_000, batch=16384,
+                        n_batches=SHARD_BATCHES):
+    """ShardedTorchBatchBackend.assign on make_mesh() (every visible card)
+    and on SHARD_SPLIT shards of cuda:0, and TorchBatchBackend at murmur
+    noise, each on the same batches of plain pods on phase 6's cluster:
+    per batch all three see the same cache and must place every pod
+    alike, then the placements are assumed.  The claims count is zeroed
+    just before each sharded assign and read just after (the single-device
+    comparison's launches are not counted).  Then the census's collective
+    bytes on the split mesh and SyncGuard over SHARD_GUARD_BATCHES more
+    batches on it.  Returns the sharded assigns' claims launches."""
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.parallel.backend import ShardedTorchBatchBackend
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.testing.sanitizers import (
+        BuildCounter, SyncGuard,
+    )
+    # a cache feeds one backend (its flatten view drains the node delta):
+    # each backend gets its own copy of the cluster
+    backends, caches = {}, {}
+    for label, mesh in (("mesh", make_mesh()),
+                        (f"{SHARD_SPLIT} shards of cuda:0",
+                         make_mesh("cuda:0", shards=SHARD_SPLIT)),
+                        ("single device, murmur", None)):
+        t0 = time.monotonic()
+        caches[label] = build_cluster(n_nodes, 1)
+        if mesh is None:
+            b = TorchBatchBackend(caps_for_nodes(n_nodes), batch_size=batch,
+                                  device=dev, claims_noise="murmur")
+        else:
+            b = ShardedTorchBatchBackend(caps_for_nodes(n_nodes),
+                                         batch_size=batch, mesh=mesh)
+        b.prefetch(caches[label].flatten_view())
+        b.warmup()
+        print(f"   {label} {mesh or dev}: n_cap {b.caps.n_cap}, "
+              f"{b.caps.n_cap // (mesh.size if mesh else 1)} rows a "
+              f"shard; setup {time.monotonic() - t0:.3f} s", flush=True)
+        backends[label] = b
+    secs = {k: [] for k in backends}
+    launched = {k: 0 for k in backends if k != "single device, murmur"}
+    for bi, infos in enumerate(make_batches(n_batches, batch, "shard")):
+        outs = {}
+        for label, b in backends.items():
+            sharded = label in launched
+            if sharded:
+                kernels.LAUNCHES["claims"] = 0
+            w0 = b.stats["waves"]
+            t0 = time.monotonic()
+            outs[label] = b.assign(infos, caches[label].flatten_view())
+            torch.cuda.synchronize()
+            secs[label].append(time.monotonic() - t0)
+            if sharded:
+                n = kernels.LAUNCHES["claims"]
+                waves = b.stats["waves"] - w0
+                check(n == waves * b.mesh.size,
+                      f"{label}: {n} claims launches for {waves} waves on "
+                      f"{b.mesh.size} shards")
+                launched[label] += n
+        want = outcome_names(outs["single device, murmur"])
+        for label, out in outs.items():
+            check(outcome_names(out) == want,
+                  f"batch {bi}: {label} places otherwise than the single "
+                  f"device at murmur")
+        for label, out in outs.items():
+            assume(caches[label], infos, out)
+        print(f"   batch {bi}: {len(want)} pods placed alike by "
+              f"{len(outs)} backends", flush=True)
+    for label, s in secs.items():
+        print(f"   {label}: {n_batches * batch / sum(s):.1f} pods/s over "
+              f"{n_batches} batches, {(n_batches - 1) * batch / sum(s[1:]):.1f}"
+              f" over the last {n_batches - 1} (batch wall s "
+              f"{[round(x, 4) for x in s]}); waves "
+              f"{backends[label].stats['waves']} [{smi}]", flush=True)
+    split = backends[f"{SHARD_SPLIT} shards of cuda:0"]
+    shard_ms = main_path_shard_launches(kernels, split, dev, smi, batch)
+    t0 = time.monotonic()
+    census = split.device_census()
+    for variant, rec in census.items():
+        per_wave = {r["op"]: r["bytes"] * r["count"]
+                    for r in rec["collectives"].values() if r["per_wave"]}
+        per_call = {r["op"]: r["bytes"] * r["count"]
+                    for r in rec["collectives"].values()
+                    if not r["per_wave"]}
+        print(f"   census on {SHARD_SPLIT} shards at 100k, {variant} "
+              f"({rec['batch']['pods']} pods, {rec['waves']} waves): "
+              f"collective bytes a wave by kind {per_wave} (total "
+              f"{rec['per_wave_bytes']:.1f}), a call {per_call}; device "
+              f"{rec['device_ms']:.3f} ms (counts of a mesh of "
+              f"{SHARD_SPLIT} devices, not a transfer: the shards share "
+              f"one card) [{smi}]", flush=True)
+    check(census["plain"]["per_wave_bytes"] > 0,
+          "census: the plain variant counted no collective")
+    print(f"   census {time.monotonic() - t0:.3f} s", flush=True)
+    cache = caches[f"{SHARD_SPLIT} shards of cuda:0"]
+    view = cache.flatten_view()
+    for label in ("single device, murmur", "mesh"):
+        del backends[label], caches[label]
+    w0 = split.stats["waves"]
+    guard_infos = make_batches(SHARD_GUARD_BATCHES, batch, "shard-guard")
+    with SyncGuard("warn") as guard, BuildCounter() as built:
+        for infos in guard_infos:
+            assume(cache, infos, split.assign(infos, view))
+    guard_report(guard, built, f"sharded plain batches on {SHARD_SPLIT} "
+                 f"shards", [(SHARD_GUARD_BATCHES, "batch", "batches"),
+                             (split.stats["waves"] - w0, "sharded wave",
+                              "sharded waves")], smi)
+    return sum(launched.values()), shard_ms
+
+
+def main_path_shard_launches(kernels, backend, dev, smi, batch):
+    """Each shard's claims launch of a wave on the main path's inputs: a
+    batch of `batch` SchedulingBasic pods (every node statically eligible)
+    on the state the batches left on `backend`'s shards, at the shard's
+    node offset: held bit for bit against the plain version, the kernel
+    timed between CUDA events beside the plain version (shard 0).
+    Returns {offset: ms}."""
+    from kubernetes_tpu_torch.ops.kernels import prepare_static
+    pods = backend.encoder.encode(make_batches(1, batch, "probe")[0])
+    req = torch.from_numpy(pods.req).to(dev)
+    req_nz = torch.from_numpy(pods.req_nz).to(dev)
+    active = torch.ones(batch, dtype=torch.bool, device=dev)
+    out = {}
+    for s in range(backend.mesh.size):
+        st = {k: backend._state[k][s] for k in ("used", "used_nz", "npods")}
+        node = {k: backend._static_node[k][s]
+                for k in ("alloc", "maxpods", "valid")}
+        n_loc = node["alloc"].shape[0]
+        smask = node["valid"][:, None].expand(n_loc, batch)
+        args = (prepare_static(req, req_nz, node["alloc"], node["maxpods"],
+                               smask), active, st["used"], st["used_nz"],
+                st["npods"])
+        off = backend.comm.my_offset(s)
+        got = kernels.claims(*args, noise="murmur", node_offset=off)
+        want = kernels.claims_reference(*args, noise="murmur",
+                                        node_offset=off)
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+              f"shard {s} on the main path's inputs: not bit-identical")
+        out[off] = time_cuda(lambda: kernels.claims(
+            *args, noise="murmur", node_offset=off), 10)
+        plain = ""
+        if s == 0:
+            plain_ms = time_cuda(lambda: kernels.claims_reference(
+                *args, noise="murmur", node_offset=off), 3, warmup=1)
+            plain = f"; plain version {plain_ms:.4f} ms"
+        print(f"   shard {s} main-path launch {batch}x{n_loc} murmur at "
+              f"node_offset {off}: bit-identical; {out[off]:.4f} "
+              f"ms/launch (median of 10){plain} [{smi}]", flush=True)
+    return out
+
+
+def outcome_names(out):
+    return [name for name, _st in out]
+
+
+def sharded_full_phase(dev, smi, n_nodes=5000, batch=1024):
+    """One constraint batch of phase (a)'s mix on n_nodes zoned nodes
+    (zones round-robin, so every zone spans every shard) through the
+    sharded backend on SHARD_SPLIT shards of cuda:0 and through
+    TorchBatchBackend's full variant at the batch size: the same
+    placements.  The sharded full step's wave ceiling is the JAX core's
+    128, so the batch must finish below it to compare."""
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.parallel.backend import ShardedTorchBatchBackend
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+    infos = [PodInfo(mixed_pod(f"s26-{i}", i)) for i in range(batch)]
+    got = {}
+    for label, b in (
+            ("sharded", ShardedTorchBatchBackend(
+                caps_for_nodes(n_nodes), batch_size=batch,
+                mesh=make_mesh("cuda:0", shards=SHARD_SPLIT))),
+            ("single", TorchBatchBackend(
+                caps_for_nodes(n_nodes), batch_size=batch, device=dev,
+                claims_noise="murmur", full_batch_cap=batch))):
+        view = build_zoned_cluster(n_nodes, 3, disk_labels=True) \
+            .flatten_view()
+        b.prefetch(view)
+        b.warmup()
+        t0 = time.monotonic()
+        got[label] = b.assign(infos, view)
+        torch.cuda.synchronize()
+        waves = b.stats["waves"]
+        print(f"   {label}: {time.monotonic() - t0:.3f} s, {waves} waves, "
+              f"placed {sum(1 for n, _ in got[label] if n)} of {batch} "
+              f"[{smi}]", flush=True)
+        check(waves < 128, f"{label}: {waves} waves reach the sharded "
+                           f"step's ceiling; the comparison does not hold")
+    check([(n, st and st.code) for n, st in got["sharded"]]
+          == [(n, st and st.code) for n, st in got["single"]],
+          "the sharded full variant places otherwise than the single "
+          "device's")
+    print(f"   the constraint batch on {SHARD_SPLIT} shards equals the "
+          f"single device's full variant, pod for pod", flush=True)
+
+
+def sharded_phases(dev, smi, rows):
+    """Phases 26-27: the multi-device sharded path (parallel/mesh.py,
+    parallel/backend.py).  26: the claims kernel at every shard's node
+    offset, the sharded backend on the machine's mesh and on four shards
+    of one card against the single device at murmur on phase 6's cluster,
+    the census's collective bytes, SyncGuard a sharded wave, and one
+    constraint batch on four shards against the single device's full
+    variant.  27: Scheduling100k through the Scheduler with backend:
+    sharded on make_mesh() at bench.py's headline configuration (census
+    and timeline armed) held to phase 9's checks, the claims kernel
+    launched once a shard per plain wave; then TopologySpreading on four
+    shards of one card held to phase 15's.  Returns (the claims launches
+    of 26's sharded assigns and 27's passes, max |best| error of the
+    offsets, {"random" | "main path": {offset: ms}})."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+    from kubernetes_tpu_torch.perf import bench
+
+    def zero():
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+    t0 = time.monotonic()
+    with Phase("26 the sharded seam, 100k nodes"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        err, offset_ms = shard_offsets_phase(kernels, dev, smi)
+        launches, shard_ms = sharded_plain_phase(kernels, dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded_full_phase(dev, smi)
+    for num, name, mesh in (
+            ("27", "Scheduling100k", make_mesh()),
+            ("27", "TopologySpreading",
+             make_mesh("cuda:0", shards=SHARD_SPLIT))):
+        with Phase(f"{num} {name} through the Scheduler, backend: sharded "
+                   f"on {mesh}"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = bench.CONFIGS[name]
+            passes = []
+
+            def after(cluster, passes=passes):
+                backend = cluster.scheduler.profiles[
+                    "default-scheduler"].batch_backend
+                passes.append({"pass": len(passes) + 1,
+                               "launches": dict(kernels.LAUNCHES),
+                               "escapes": pass_escapes(cluster),
+                               "stats": dict(backend.stats)})
+                zero()
+            zero()
+            row, results = bench.run_config(name, after=after,
+                                            backend_kind="sharded",
+                                            mesh=mesh)
+            print(json.dumps(row), flush=True)
+            check(len(results) == len(passes)
+                  == (2 if cfg.get("two_pass") else 1),
+                  f"{name} sharded: {len(results)} passes, {len(passes)} "
+                  f"read")
+            for res, seen in zip(results, passes):
+                check_pass(name, cfg, res, seen, smi, False, False)
+                st = seen["stats"]
+                if name not in CONSTRAINT_ROWS:
+                    n = seen["launches"].get("claims", 0)
+                    check(st.get("plain", 0) == st["batches"]
+                          and n == st["waves"] * mesh.size,
+                          f"{name} sharded: {n} claims launches for "
+                          f"{st['waves']} waves on {mesh.size} shards "
+                          f"({st.get('plain', 0)} of {st['batches']} "
+                          f"batches plain)")
+                    launches += n
+                d = res["detail"]
+                print(f"   {name} sharded pass {seen['pass']}: census "
+                      f"{d.get('tpu_wave_collective_bytes')}; timeline "
+                      f"device idle share {d.get('device_idle_share')}; "
+                      f"waves {st['waves']} in {st['batches']} batches",
+                      flush=True)
+            check("error" not in row["detail"],
+                  f"{name} sharded: {row['detail'].get('error')}")
+            single = rows.get(name, {}).get("detail", {})
+            d = row["detail"]
+            print(f"   {name}: sharded {row['value']} pods/s, pod e2e "
+                  f"p50/p99 {d.get('pod_e2e_p50_ms')} / "
+                  f"{d.get('pod_e2e_p99_ms')} ms; single-device phase "
+                  f"{'9' if name == 'Scheduling100k' else '15'} "
+                  f"{rows.get(name, {}).get('value')} pods/s, "
+                  f"{single.get('pod_e2e_p50_ms')} / "
+                  f"{single.get('pod_e2e_p99_ms')} ms [{smi}]", flush=True)
+    print(f"   phases 26-27 wall {time.monotonic() - t0:.3f} s", flush=True)
+    return launches, err, {"random": offset_ms, "main path": shard_ms}
+
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -2257,9 +2615,9 @@ def parse_args(argv):
                     metavar="TAG=DIR",
                     help="a checkout of another revision whose claims "
                          "and dry-run wrappers to time beside this one's")
-    ap.add_argument("--only", choices=("seam",),
-                    help="phases 1-2 and then only these (22-25); prints "
-                         "no result line")
+    ap.add_argument("--only", choices=("seam", "sharded"),
+                    help="phases 1-2 and then only these (seam: 22-25, "
+                         "sharded: 26-27); prints no result line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -2549,6 +2907,10 @@ def main(argv=None) -> int:
         seam_phases(dev, smi, {})
         print("partial run (--only seam): no result line")
         return 0
+    if opts.only == "sharded":
+        sharded_phases(dev, smi, {})
+        print("partial run (--only sharded): no result line")
+        return 0
 
     with Phase("3 kernel vs plain version"):
         # (P, N, seed, options): random cases, ragged P and N, identical
@@ -2743,6 +3105,8 @@ def main(argv=None) -> int:
     observability_phase(dev, smi)
     # the device worker seam: a worker process on the card, the seam rows
     seam_launches = seam_phases(dev, smi, rows)
+    # the multi-device sharded path
+    shard_launches, shard_err, _offset_ms = sharded_phases(dev, smi, rows)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     print(smi)
@@ -2751,8 +3115,9 @@ def main(argv=None) -> int:
         "source": "kubernetes_tpu_torch/ops/csrc/claims.cu",
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:171",
         "launches": (launches + loop_launches["Scheduling100k"]["claims"]
-                     + seam_launches["Scheduling100k"]["claims"]),
-        "max_abs_err": max(errs), "ms": ms,
+                     + seam_launches["Scheduling100k"]["claims"]
+                     + shard_launches),
+        "max_abs_err": max(errs + [shard_err]), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
         "name": "preempt_dry_run", "route": "cuda",

@@ -25,6 +25,21 @@ JAX main loop and its compacted tail give the same answers, because a wave
 is row-wise up to the claims and an inactive or claimless pod takes part in
 no conflict (every [P,P] term is gated by both pods' claims).
 
+One step serves one device and a mesh of node shards alike (make_step
+over a _Comm, the counterpart of JAX's shard_map'd core, A:93-173 and
+A:292-792): every node-side array is a list of per-shard row slabs, the
+pod side and the replicated count tables live on the first shard's
+device, and every reduction over the node axis goes through the comm
+(psum, row max/min, the global first-index argmax, gathers by global
+node).  On a plain wave each shard launches the claims kernel over its
+own nodes at its node offset; on a full wave each shard builds its
+[rows, n_loc] planes.  The resolve reads the claimed nodes' columns
+through gather_cols, the constraint slots' [H,H] blocks are resolved per
+pod slab, and each shard commits the accepted claims in its slab.  With
+one shard every collective is the identity and the step is the
+single-device one (build_packed_assign_fn).  The sharded path's plain
+noise is murmur (quirk R3: JAX's sharded path never runs Pallas).
+
 The full step marks its stages for torch.profiler (record_function
 "full.static", "full.claims", "full.resolve" and, inside the resolve,
 "full.cohort"); without a profiler they cost a few microseconds a wave.
@@ -33,7 +48,8 @@ Differences from the JAX version, none of which changes a result:
   * the wave loop is a Python loop; its condition reads one count from
     the device per wave;
   * the resident state is updated in place (JAX donated it);
-  * commits go through index_add_ / scatter_add_ over the accepted claims
+  * commits go through index_add_ / scatter_add_ over the claims, the
+    rejected ones (and, per shard, the other shards' nodes) adding zeros,
     instead of [P,N] one-hot matmuls.  Both are bit-equal whenever every
     per-node sum is exact in f32, which holds for integer milli-CPU and
     byte counts at MiB granularity (flatten.py _encode_resource) and for
@@ -304,57 +320,275 @@ def static_mask_t(valid, node_taint_bits, untol_bits) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Collectives: the node axis split across shards
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-reduce", "reduce-scatter", "all-gather",
+                    "broadcast")
+INF = float("inf")
+
+
+class _Comm:
+    """The reduction layer of the wave step (A:93-173) over a mesh of node
+    shards driven by one controller: shard s holds node rows
+    [s * n_loc, (s + 1) * n_loc) on devices[s]; the pod side and the
+    replicated aggregates live on devices[0] (`home`).  A collective is
+    torch arithmetic on the shards' tensors, with a copy where two shards'
+    devices differ (none when shards share a card or the CPU).  A
+    replicated result is a list with one copy per shard, so shard s reads
+    its own.  With one shard every operation is the identity, as
+    axis_name=None is in JAX.
+
+    Each collective adds the bytes of one shard's result to `counts`
+    (phase -> kind -> bytes; calls under kind + " calls"), the quantity the
+    JAX census reads off the HLO: all-reduce the whole result,
+    reduce-scatter one slab, all-gather the gathered array.  "broadcast" is
+    the port's own kind: pod-side arrays and aggregates computed once on
+    home and copied to the shards, which JAX computes or holds on every
+    shard.  `phase` ("call" or "wave") says which tally counts; a
+    one-shard comm counts nothing.  The counts are those of a mesh of
+    distinct devices, whether or not the shards share one."""
+
+    def __init__(self, devices, n_loc: int = 0):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices or len({d.type for d in self.devices}) > 1:
+            raise ValueError("a mesh is one or more devices of one type")
+        self.n_shards = len(self.devices)
+        self.home = self.devices[0]
+        self.n_loc = n_loc
+        self.phase = "call"
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.counts = {ph: {k: 0 for kind in COLLECTIVE_KINDS
+                            for k in (kind, kind + " calls")}
+                       for ph in ("call", "wave")}
+
+    def _count(self, kind: str, t) -> None:
+        if self.n_shards > 1:
+            tally = self.counts[self.phase]
+            tally[kind] += t.numel() * t.element_size()
+            tally[kind + " calls"] += 1
+
+    def to(self, x, s: int):
+        """x on shard s's device."""
+        d = self.devices[s]
+        return x if x.device == d else x.to(d, non_blocking=True)
+
+    def replicated(self, x) -> list:
+        """One copy of home's x per shard, uncounted (a result's spread)."""
+        return [self.to(x, s) for s in range(self.n_shards)]
+
+    def bcast(self, x) -> list:
+        """A home array computed once, copied to every shard."""
+        self._count("broadcast", x)
+        return self.replicated(x)
+
+    def bcast_tree(self, tree: dict) -> list[dict]:
+        """bcast of every array of a dict: one dict per shard."""
+        if self.n_shards == 1:
+            return [tree]
+        per = {k: self.bcast(v) for k, v in tree.items()}
+        return [{k: v[s] for k, v in per.items()}
+                for s in range(self.n_shards)]
+
+    def my_offset(self, s: int) -> int:
+        return s * self.n_loc
+
+    def slabs(self, rows: int) -> list[tuple[int, int, int]]:
+        """(shard, lo, hi): the contiguous row slab each shard resolves."""
+        S = self.n_shards
+        return [(s, s * rows // S, (s + 1) * rows // S) for s in range(S)]
+
+    def _reduce(self, xs, op) -> list:
+        if self.n_shards == 1:
+            return list(xs)
+        out = xs[0]
+        for x in xs[1:]:
+            out = op(out, x.to(self.home, non_blocking=True))
+        self._count("all-reduce", out)
+        return self.replicated(out)
+
+    def psum(self, xs) -> list:
+        return self._reduce(xs, torch.add)
+
+    def por(self, flags) -> list:
+        """any across shards of each shard's bool array (JAX: a psum of
+        int32, then > 0)."""
+        if self.n_shards == 1:
+            return list(flags)
+        return [t > 0 for t in self.psum([f.to(torch.int32) for f in flags])]
+
+    def any_rows(self, ms) -> list:
+        """any over the node axis of [P, n_loc] bool -> [P]."""
+        return self.por([m.any(-1) for m in ms])
+
+    def rowmax(self, xs, masks, fill) -> list:
+        return self._reduce([torch.where(m, x, fill).amax(-1, keepdim=True)
+                             for x, m in zip(xs, masks)], torch.maximum)
+
+    def rowmin(self, xs, masks, fill) -> list:
+        return self._reduce([torch.where(m, x, fill).amin(-1, keepdim=True)
+                             for x, m in zip(xs, masks)], torch.minimum)
+
+    def all_gather(self, xs) -> list:
+        """The shards' pieces concatenated along dim 0 (tiled)."""
+        if self.n_shards == 1:
+            return list(xs)
+        out = torch.cat([x.to(self.home, non_blocking=True) for x in xs])
+        self._count("all-gather", out)
+        return self.replicated(out)
+
+    def row_argmax(self, bests, idxs) -> tuple[list, list]:
+        """Global (index, best) per row from each shard's first-index
+        argmax over its nodes (A:120-131): the first shard among equal
+        bests, then that shard's local index."""
+        if self.n_shards == 1:
+            return list(idxs), list(bests)
+        best_all = torch.stack([b.to(self.home, non_blocking=True)
+                                for b in bests])
+        idx_all = torch.stack([i.to(self.home, non_blocking=True)
+                               for i in idxs])
+        self._count("all-gather", best_all)
+        self._count("all-gather", idx_all)
+        shard = torch.argmax(best_all, 0)           # first among equals
+        p = torch.arange(best_all.shape[1], device=self.home)
+        j = (shard * self.n_loc).to(idx_all.dtype) + idx_all[shard, p]
+        return self.replicated(j), self.replicated(best_all[shard, p])
+
+    def _owned(self, arrs, gidx):
+        """Each shard's addends of a gather by global column: its own
+        columns' values, zeros elsewhere; and which columns it owns."""
+        vals, seen = [], []
+        for s, (arr, g) in enumerate(zip(arrs, gidx)):
+            local = g - self.my_offset(s)
+            inr = (local >= 0) & (local < self.n_loc) & (g >= 0)
+            v = arr.index_select(-1, local.clamp(0, self.n_loc - 1).long())
+            vals.append(torch.where(inr, v, torch.zeros((), dtype=v.dtype,
+                                                        device=v.device)))
+            seen.append(inr)
+        return vals, seen
+
+    def _fill(self, outs, seen, fill) -> list:
+        if fill == 0:
+            return outs
+        seen = self.por(seen)
+        return [torch.where(sn, o, fill if o.is_floating_point()
+                            else int(fill)) for o, sn in zip(outs, seen)]
+
+    def gather_cols(self, arrs, gidx, fill=0.0) -> list:
+        """arr[..., gidx] for GLOBAL node indices gidx (replicated: one
+        copy per shard), where arrs[s] holds shard s's columns (node axis
+        last).  The psum of the owners' values, as JAX's: exactly one shard
+        owns a column and the others add zeros (so an owner's -0.0 comes
+        out +0.0 on a mesh, as in JAX).  An out-of-range index (-1) yields
+        `fill`."""
+        vals, seen = self._owned(arrs, gidx)
+        return self._fill(self.psum(vals), seen, fill)
+
+    def gather_cols_rs(self, arrs, gidx, fill=0.0) -> list:
+        """gather_cols, slab form: the same addends, but shard s keeps only
+        its s-th slab of the leading axis (a reduce-scatter), so it
+        receives 1/S of the all-reduce's bytes.  The leading axis must
+        divide by the mesh size."""
+        S = self.n_shards
+        if S == 1:
+            return self.gather_cols(arrs, gidx, fill)
+        L = arrs[0].shape[0]
+        if L % S:
+            raise ValueError(f"gather_cols_rs: {L} rows do not divide by "
+                             f"{S} shards")
+        w = L // S
+        vals, seen = self._owned(arrs, gidx)
+        slabs = []
+        for s in range(S):
+            slab = self.to(vals[0][s * w:(s + 1) * w], s)
+            for v in vals[1:]:
+                slab = slab + self.to(v[s * w:(s + 1) * w], s)
+            slabs.append(slab)
+        self._count("reduce-scatter", slabs[0])
+        return self._fill(slabs, seen, fill)
+
+
+# ---------------------------------------------------------------------------
+# The plain variant
+# ---------------------------------------------------------------------------
+
 class _SubBatch:
-    """The pod-side inputs one wave loop reads."""
+    """The pod-side inputs one wave loop reads: the claims kernel's static
+    inputs on every shard (requests, the shard's node arrays and static
+    mask [n_loc, P]), the noise keys and rule, and the [P,P] queue order."""
 
-    def __init__(self, req, req_nz, smask_t, pod_ids, static, earlier):
-        self.kstatic = kernels.prepare_static(req, req_nz, static["alloc"],
-                                              static["maxpods"], smask_t)
-        self.req, self.req_nz = self.kstatic["req"], self.kstatic["req_nz"]
-        self.pod_ids = pod_ids
+    def __init__(self, comm, nodes, req, req_nz, smasks, pod_ids, earlier,
+                 noise):
+        reqs, req_nzs = comm.bcast(req), comm.bcast(req_nz)
+        self.kstatic = [kernels.prepare_static(reqs[s], req_nzs[s],
+                                               nd["alloc"], nd["maxpods"],
+                                               smasks[s])
+                        for s, nd in enumerate(nodes)]
+        self.reqs = [k["req"] for k in self.kstatic]
+        self.req_nzs = [k["req_nz"] for k in self.kstatic]
+        self.req = self.reqs[0]
+        self.pod_ids = comm.bcast(pod_ids)
         self.earlier = earlier
+        self.noise = noise
 
 
-def _wave(static, state, b: _SubBatch, assigned, active, noise):
+def _commit_rows(comm, cl, weight, n_loc: int, s: int):
+    """(local rows, weights) of shard s's commit: the claims that land in
+    its slab keep their weight, the others (and -1) add zeros."""
+    local = cl - comm.my_offset(s)
+    inside = (local >= 0) & (local < n_loc)
+    return local.clamp(0, n_loc - 1).long(), weight * inside
+
+
+def _wave(comm, nodes, b: _SubBatch, assigned, active):
     """One wave: claims, conflict resolution in pod order, commit.
-    Mutates the state aggregates in place; returns (assigned, active)."""
-    used, used_nz, npods = state["used"], state["used_nz"], state["npods"]
-    alloc, maxpods = static["alloc"], static["maxpods"]
-    n = alloc.shape[0]
-    avail = alloc - used
-    claims, _best = kernels.claims(b.kstatic, active, used, used_nz, npods,
-                                   noise=noise, pod_ids=b.pod_ids)
-    has = claims >= 0
+    Mutates the shards' aggregates in place; returns (assigned, active).
+    Each shard claims over its own nodes (the kernel at its node offset),
+    the shards' bests combine through row_argmax, the resolve runs on the
+    home device over the claimed nodes' gathered columns, and each shard
+    commits the accepted claims that land in its slab."""
+    n_loc = nodes[0]["alloc"].shape[0]
+    actives = comm.bcast(active)
+    got = [kernels.claims(b.kstatic[s], actives[s], nd["used"],
+                          nd["used_nz"], nd["npods"], noise=b.noise,
+                          pod_ids=b.pod_ids[s],
+                          node_offset=comm.my_offset(s))
+           for s, nd in enumerate(nodes)]
+    has_r = comm.por([c >= 0 for c, _best in got])
+    idx_r, _best_r = comm.row_argmax([bst for _c, bst in got],
+                                     [c for c, _bst in got])
+    cl_r = [torch.where(h, j, -1) for h, j in zip(has_r, idx_r)]
+    claims, has = cl_r[0], has_r[0]
     # E[p, q] = 1 when q < p claimed the same node (both claims live)
     E = ((claims[:, None] == claims[None, :]) & has[:, None] & has[None, :]
          & b.earlier).to(torch.float32)
     prefR = E @ b.req                                    # [P,R]
     prefN = E.sum(1)                                     # [P]
-    cl = claims.clamp(0, n - 1).long()
-    hasf = has[:, None]
-    zero = torch.zeros((), dtype=torch.float32, device=used.device)
-    avail_claim = torch.where(hasf, avail[cl], zero)
-    npods_claim = torch.where(has, npods[cl], zero)
-    maxp_claim = torch.where(has, maxpods[cl], zero)
+    avail_claim = comm.gather_cols(
+        [(nd["alloc"] - nd["used"]).T for nd in nodes], cl_r)[0].T
+    npods_claim = comm.gather_cols([nd["npods"] for nd in nodes], cl_r)[0]
+    maxp_claim = comm.gather_cols([nd["maxpods"] for nd in nodes], cl_r)[0]
     res_ok = (b.req + prefR <= avail_claim).all(1)
     res_ok &= npods_claim + prefN + 1.0 <= maxp_claim
     accept = has & active & res_ok
-    # commit: index_add_ of exact per-node sums == the JAX one-hot matmul
-    # sync-point: a boolean-mask gather reads the accepted count back
-    rows = cl[accept]
-    # sync-point: a boolean-mask gather reads the accepted count back
-    used.index_add_(0, rows, b.req[accept])
-    # sync-point: a boolean-mask gather reads the accepted count back
-    used_nz.index_add_(0, rows, b.req_nz[accept])
-    npods.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float32))
+    # commit: index_add_ of exact per-node sums == the JAX one-hot matmul;
+    # rejected claims add zeros
+    accfs = comm.bcast(accept.to(torch.float32))
+    for s, nd in enumerate(nodes):
+        rows, wt = _commit_rows(comm, cl_r[s], accfs[s], n_loc, s)
+        nd["used"].index_add_(0, rows, b.reqs[s] * wt[:, None])
+        nd["used_nz"].index_add_(0, rows, b.req_nzs[s] * wt[:, None])
+        nd["npods"].index_add_(0, rows, wt)
     assigned = torch.where(accept, claims, assigned)
     progress = accept.any()
     active = active & ~accept & progress  # no progress -> give up
     return assigned, active
 
 
-def _wave_loop(static, state, b, assigned, active, noise, waves,
-               max_waves, stop_at):
+def _wave_loop(comm, nodes, b, assigned, active, waves, max_waves, stop_at):
     """Run waves while some pod is active, under the wave ceiling, and
     while more than `stop_at` pods are active (one count read per
     wave).  Returns (assigned, active, waves)."""
@@ -363,7 +597,7 @@ def _wave_loop(static, state, b, assigned, active, noise, waves,
         n_active = int(active.sum())
         if n_active == 0 or n_active <= stop_at:
             break
-        assigned, active = _wave(static, state, b, assigned, active, noise)
+        assigned, active = _wave(comm, nodes, b, assigned, active)
         waves += 1
     return assigned, active, waves
 
@@ -426,21 +660,30 @@ def _any_id(table_t, ids, slots):
     return out
 
 
-class _Full:
-    """One call's batch-wide inputs of the full variant: the pod fields,
-    the node-side tables derived from the static arrays, which selector
-    groups, id slots, constraint kinds, ports and existing-anti groups the
-    batch uses (read once, so the waves skip what no pod needs), and the
-    [P,N] static planes."""
+# the pod-side fields the shards read (copied to each shard once a call)
+_SHARD_POD_KEYS = ("req", "req_nz", "untol_bits", "prefer_bits", "port_bits",
+                   "keyforb_bits", "sel_active", "key_active", "node_row",
+                   "c_kind", "c_selfmatch", "c_maxskew", "c_weight",
+                   "sel_ids", "forb_ids", "key_ids")
 
-    def __init__(self, caps: Caps, static: dict, pod: dict, noise, w: dict):
-        self.caps, self.static, self.pod, self.noise, self.w = (
-            caps, static, pod, noise, w)
-        dev = pod["req"].device
-        N = static["alloc"].shape[0]
-        self.N = N
-        self.node_idx = torch.arange(N, device=dev)
-        _fold_ns_masks(static, pod)
+
+class _Full:
+    """One call's batch-wide inputs of the full variant: the pod fields
+    (on home, and the ones the shards read on every shard), the node
+    shards and the replicated arrays, which selector groups, id slots,
+    constraint kinds, ports and existing-anti groups the batch uses (read
+    once, so the waves skip what no pod needs), and each shard's
+    [P, n_loc] static planes."""
+
+    def __init__(self, caps: Caps, comm, nodes: list, rep: dict, pod: dict,
+                 noises: list, w: dict):
+        self.caps, self.comm, self.nodes, self.rep, self.pod = (
+            caps, comm, nodes, rep, pod)
+        self.noises, self.w = noises, w
+        self.n_loc = N = nodes[0]["alloc"].shape[0]
+        self.node_idx = [comm.my_offset(s) + torch.arange(N, device=d)
+                         for s, d in enumerate(comm.devices)]
+        _fold_ns_masks(rep, pod)
         self.c_sg = pod["c_sg"].clamp(min=0).long()
         self.match_bits = _bit_columns(pod["match_asg"]).to(torch.int32)
         P = pod["req"].shape[0]
@@ -478,211 +721,306 @@ class _Full:
         self.asg_slots = used(caps.asg_cap)
         self.any_ports, self.any_prefer, self.any_keyforb, self.any_match = (
             take(4))
-        self.sel_mask = torch.empty((P, N), dtype=torch.bool, device=dev)
-        self.static_mask = torch.empty((P, N), dtype=torch.bool, device=dev)
-        self.static_score = (torch.empty((P, N), dtype=torch.float32,
-                                         device=dev)
-                             if self.any_prefer else None)
+        self.pods = comm.bcast_tree(
+            {**{k: pod[k] for k in _SHARD_POD_KEYS}, "c_sg": self.c_sg,
+             "match_bits": self.match_bits})
+
+        def plane(dtype):
+            return [torch.empty((P, N), dtype=dtype, device=d)
+                    for d in comm.devices]
+        self.sel_mask = plane(torch.bool)
+        self.static_mask = plane(torch.bool)
+        self.static_score = plane(torch.float32) if self.any_prefer else None
         with torch.profiler.record_function("full.static"):
             self._static_mask_and_score()
 
     def _static_mask_and_score(self) -> None:
         """Vectorized P x N feasibility independent of in-batch placements
-        (A:176-225), in chunks of rows: sel_mask (node selector and
-        affinity only: the spread min-match domain set), static_mask
+        (A:176-225), in chunks of rows, per shard: sel_mask (node selector
+        and affinity only: the spread min-match domain set), static_mask
         (sel_mask and taints and the nodeName pin) and static_score (the
-        PreferNoSchedule score, 0..100; None when no pod of the batch
-        fails to tolerate a PreferNoSchedule taint: then it is 100 in
-        every cell, as mx == 0 makes it)."""
-        st, pod = self.static, self.pod
-        valid = st["valid"].bool()
-        label_t = (st["label_mask"] > 0).T.contiguous()     # [L, N]
-        key_t = (st["key_mask"] > 0).T.contiguous()         # [KL, N]
-        tbits = taint_bits(st["taint_mask"])
-        kbits = _bit_columns(st["key_mask"]) if self.any_keyforb else None
-        P = pod["req"].shape[0]
-        for lo, hi in _row_chunks(P, self.N):
-            sel = valid[None, :].expand(hi - lo, self.N).clone()
-            for g in self.groups:
-                hits = _any_id(label_t, pod["sel_ids"][lo:hi, g],
-                               self.sel_slots[g])
-                sel &= hits | ~pod["sel_active"][lo:hi, g, None]
-            for g in self.key_groups:
-                hits = _any_id(key_t, pod["key_ids"][lo:hi, g],
-                               self.key_slots[g])
-                sel &= hits | ~pod["key_active"][lo:hi, g, None]
-            if self.forb_slots:
-                sel &= ~_any_id(label_t, pod["forb_ids"][lo:hi],
-                                self.forb_slots)
-            if kbits is not None:
-                sel &= (pod["keyforb_bits"][lo:hi, None] & kbits[None, :]) == 0
-            self.sel_mask[lo:hi] = sel
-            row = pod["node_row"][lo:hi, None]
-            smask = (sel & ((pod["untol_bits"][lo:hi, None] & tbits[None, :])
-                            == 0)
-                     & ((row < 0) | (self.node_idx[None, :] == row)))
-            self.static_mask[lo:hi] = smask
+        PreferNoSchedule score, 0..100, its row max over every shard; None
+        when no pod of the batch fails to tolerate a PreferNoSchedule
+        taint: then it is 100 in every cell, as mx == 0 makes it)."""
+        tabs = []
+        for st in self.nodes:
+            tabs.append({
+                "valid": st["valid"].bool(),
+                "label_t": (st["label_mask"] > 0).T.contiguous(),  # [L, N]
+                "key_t": (st["key_mask"] > 0).T.contiguous(),      # [KL, N]
+                "tbits": taint_bits(st["taint_mask"]),
+                "kbits": (_bit_columns(st["key_mask"]) if self.any_keyforb
+                          else None)})
+        P = self.pod["req"].shape[0]
+        for lo, hi in _row_chunks(P, self.n_loc):
+            smasks, cnts = [], []
+            for s, (tab, pod) in enumerate(zip(tabs, self.pods)):
+                sel = tab["valid"][None, :].expand(hi - lo, self.n_loc).clone()
+                for g in self.groups:
+                    hits = _any_id(tab["label_t"], pod["sel_ids"][lo:hi, g],
+                                   self.sel_slots[g])
+                    sel &= hits | ~pod["sel_active"][lo:hi, g, None]
+                for g in self.key_groups:
+                    hits = _any_id(tab["key_t"], pod["key_ids"][lo:hi, g],
+                                   self.key_slots[g])
+                    sel &= hits | ~pod["key_active"][lo:hi, g, None]
+                if self.forb_slots:
+                    sel &= ~_any_id(tab["label_t"], pod["forb_ids"][lo:hi],
+                                    self.forb_slots)
+                if tab["kbits"] is not None:
+                    sel &= (pod["keyforb_bits"][lo:hi, None]
+                            & tab["kbits"][None, :]) == 0
+                self.sel_mask[s][lo:hi] = sel
+                row = pod["node_row"][lo:hi, None]
+                smask = (sel & ((pod["untol_bits"][lo:hi, None]
+                                 & tab["tbits"][None, :]) == 0)
+                         & ((row < 0) | (self.node_idx[s][None, :] == row)))
+                self.static_mask[s][lo:hi] = smask
+                smasks.append(smask)
+                if self.static_score is not None:
+                    cnts.append(_popcount(pod["prefer_bits"][lo:hi, None]
+                                          & tab["tbits"][None, :])
+                                .to(torch.float32))
             if self.static_score is not None:
-                cnt = _popcount(pod["prefer_bits"][lo:hi, None]
-                                & tbits[None, :]).to(torch.float32)
-                mx = torch.where(smask, cnt, 0.0).amax(1, keepdim=True)
-                self.static_score[lo:hi] = torch.where(
-                    mx > 0, (mx - cnt) * 100.0 / torch.clamp(mx, min=1.0),
-                    100.0)
+                mxs = self.comm.rowmax(cnts, smasks, 0.0)
+                for s, (mx, cnt) in enumerate(zip(mxs, cnts)):
+                    self.static_score[s][lo:hi] = torch.where(
+                        mx > 0, (mx - cnt) * 100.0 / torch.clamp(mx, min=1.0),
+                        100.0)
 
 
-def _node_side(f: _Full, state: dict) -> dict:
-    """Per-wave node-side inputs: free capacity, the pod-count cap, the
-    host-port and existing-anti-group bitmasks, and the [SG,N] domain
-    counts gathered once at the group level (A:401-442)."""
-    st = f.static
-    dom_sg, dom_asg = st["dom_sg"], st["dom_asg"]
-    out = {"avail": st["alloc"] - state["used"],
-           "cap_ok": state["npods"] + 1.0 <= st["maxpods"],
-           "gath_sg_all": torch.where(
-               dom_sg >= 0,
-               state["cd_sg"].gather(1, dom_sg.clamp(min=0).long()), 0.0)}
-    if f.any_ports:
-        out["port_bits"] = _bit_columns(state["port_mask"]).to(torch.int32)
-    if f.any_match:
-        acnt = torch.where(
-            dom_asg >= 0,
-            state["cd_asg"].gather(1, dom_asg.clamp(min=0).long()), 0.0)
-        out["asg_bits"] = _bit_columns((acnt > 0).T).to(torch.int32)
+def _node_side(f: _Full) -> list[dict]:
+    """Per-wave node-side inputs of every shard: free capacity, the
+    pod-count cap, the host-port and existing-anti-group bitmasks, and the
+    [SG, n_loc] domain counts gathered once at the group level (A:401-442)
+    from its copy of the replicated count tables."""
+    cds = f.comm.bcast(f.rep["cd_sg"])
+    cdas = f.comm.bcast(f.rep["cd_asg"]) if f.any_match else None
+    out = []
+    for s, st in enumerate(f.nodes):
+        dom_sg, dom_asg = st["dom_sg"], st["dom_asg"]
+        nd = {"avail": st["alloc"] - st["used"],
+              "cap_ok": st["npods"] + 1.0 <= st["maxpods"],
+              "cd_sg": cds[s],
+              "gath_sg_all": torch.where(
+                  dom_sg >= 0, cds[s].gather(1, dom_sg.clamp(min=0).long()),
+                  0.0)}
+        if f.any_ports:
+            nd["port_bits"] = _bit_columns(st["port_mask"]).to(torch.int32)
+        if f.any_match:
+            acnt = torch.where(
+                dom_asg >= 0,
+                cdas[s].gather(1, dom_asg.clamp(min=0).long()), 0.0)
+            nd["asg_bits"] = _bit_columns((acnt > 0).T).to(torch.int32)
+        out.append(nd)
     return out
 
 
-def _claims_full(f: _Full, state: dict, node: dict, rows):
+def _claims_full(f: _Full, node: list, rows):
     """The XLA wave body (A:411-492) for pod rows `rows`: the fit, host-
     port and existing-anti masks, LeastAllocated + BalancedAllocation, the
     PreferNoSchedule score, the constraint-slot loop (required spread,
     affinity and anti-affinity masks, spread and preferred-affinity
-    scores), murmur noise and the masked first-index argmax.  Returns
-    (claims int64 [rows] with -1 where nothing is feasible, minmatch f32
-    [rows, C], affinity-bootstrap flags bool [rows, C])."""
-    pod, st, w = f.pod, f.static, f.w
-    dom_sg, cd_sg = st["dom_sg"], state["cd_sg"]
+    scores), murmur noise and the masked first-index argmax, each shard
+    over its own nodes, the node-axis reductions through the comm.
+    Returns (claims int64 [rows] of global nodes, -1 where nothing is
+    feasible; minmatch f32 [rows, C]; affinity-bootstrap flags bool
+    [rows, C]), on home."""
+    comm, w = f.comm, f.w
     R, C = f.caps.r, f.caps.c_cap
-    dev = rows.device
+    dev = comm.home
     B = rows.shape[0]
     claims = torch.empty(B, dtype=torch.int64, device=dev)
     minm = torch.zeros((B, C), dtype=torch.float32, device=dev)
     boot = torch.zeros((B, C), dtype=torch.bool, device=dev)
-    # sync-point: a constant uploaded, once a full wave
-    inf = torch.tensor(float("inf"), device=dev)
-    for lo, hi in _row_chunks(B, f.N):
-        r = rows[lo:hi]
-        req = pod["req"][r]
-        mask = f.static_mask[r] & node["cap_ok"][None, :]
-        for k in range(R):
-            mask &= req[:, k, None] <= node["avail"][None, :, k]
-        if f.any_ports:
-            mask &= (pod["port_bits"][r, None] & node["port_bits"][None, :]) == 0
-        if f.any_match:
-            mask &= (f.match_bits[r, None] & node["asg_bits"][None, :]) == 0
-        score = kernels.fit_score(*kernels.utilizations(
-            pod["req_nz"][r], st["alloc"], state["used_nz"]))
-        score = score + (f.static_score[r] if f.static_score is not None
-                         else 100.0)
+    rows_r = comm.bcast(rows)
+    shards = list(zip(f.nodes, node, f.pods))
+    for lo, hi in _row_chunks(B, f.n_loc):
+        rr = [r[lo:hi] for r in rows_r]
+        masks, scores = [], []
+        for s, (st, nd, pod) in enumerate(shards):
+            r = rr[s]
+            req = pod["req"][r]
+            mask = f.static_mask[s][r] & nd["cap_ok"][None, :]
+            for k in range(R):
+                mask &= req[:, k, None] <= nd["avail"][None, :, k]
+            if f.any_ports:
+                mask &= (pod["port_bits"][r, None]
+                         & nd["port_bits"][None, :]) == 0
+            if f.any_match:
+                mask &= (pod["match_bits"][r, None]
+                         & nd["asg_bits"][None, :]) == 0
+            score = kernels.fit_score(*kernels.utilizations(
+                pod["req_nz"][r], st["alloc"], st["used_nz"]))
+            masks.append(mask)
+            scores.append(score + (f.static_score[s][r]
+                                   if f.static_score is not None else 100.0))
         for c in f.slots:
             kinds = f.kinds[c]
-            kind = pod["c_kind"][r, c]
-            sg = f.c_sg[r, c]
-            kb = kind[:, None]
-            gathered = node["gath_sg_all"][sg]                 # [rows, N]
-            has_dom = dom_sg[sg] >= 0
+            kind = [pod["c_kind"][r, c] for (_st, _nd, pod), r
+                    in zip(shards, rr)]
+            sg = [pod["c_sg"][r, c] for (_st, _nd, pod), r in zip(shards, rr)]
+            gathered = [nd["gath_sg_all"][g] for (_st, nd, _p), g
+                        in zip(shards, sg)]                # [rows, n_loc]
+            has_dom = [st["dom_sg"][g] >= 0 for (st, _nd, _p), g
+                       in zip(shards, sg)]
             if kinds & {C_SPREAD_HARD, C_AFFINITY, C_ANTI_AFFINITY}:
-                selfm = pod["c_selfmatch"][r, c]
-                ok = torch.ones_like(mask)
+                selfm = [pod["c_selfmatch"][r, c] for (_st, _nd, pod), r
+                         in zip(shards, rr)]
+                oks = [torch.ones_like(m) for m in masks]
                 if C_SPREAD_HARD in kinds:
-                    elig = f.sel_mask[r] & has_dom
-                    mm = torch.where(elig, gathered, inf).amin(1)
-                    mm = torch.where(torch.isfinite(mm), mm, 0.0)
-                    minm[lo:hi, c] = mm
-                    spread_ok = ((gathered + selfm[:, None] - mm[:, None])
-                                 <= pod["c_maxskew"][r, c, None]) & has_dom
-                    ok = torch.where(kb == C_SPREAD_HARD, spread_ok, ok)
+                    mms = comm.rowmin(
+                        gathered, [f.sel_mask[s][r] & hd for s, (r, hd)
+                                   in enumerate(zip(rr, has_dom))], INF)
+                    mms = [torch.where(torch.isfinite(mm), mm, 0.0)
+                           for mm in mms]
+                    minm[lo:hi, c] = mms[0][:, 0]
+                    for s, (_st, _nd, pod) in enumerate(shards):
+                        spread_ok = ((gathered[s] + selfm[s][:, None]
+                                      - mms[s])
+                                     <= pod["c_maxskew"][rr[s], c, None]
+                                     ) & has_dom[s]
+                        oks[s] = torch.where(kind[s][:, None] == C_SPREAD_HARD,
+                                             spread_ok, oks[s])
                 if C_AFFINITY in kinds:
-                    bt = (cd_sg[sg].sum(1) == 0) & (selfm > 0)
-                    boot[lo:hi, c] = (kind == C_AFFINITY) & bt
-                    aff_ok = ((gathered > 0) | bt[:, None]) & has_dom
-                    ok = torch.where(kb == C_AFFINITY, aff_ok, ok)
+                    for s, (_st, nd, _pod) in enumerate(shards):
+                        bt = (nd["cd_sg"][sg[s]].sum(1) == 0) & (selfm[s] > 0)
+                        if s == 0:
+                            boot[lo:hi, c] = (kind[0] == C_AFFINITY) & bt
+                        aff_ok = ((gathered[s] > 0) | bt[:, None]) \
+                            & has_dom[s]
+                        oks[s] = torch.where(kind[s][:, None] == C_AFFINITY,
+                                             aff_ok, oks[s])
                 if C_ANTI_AFFINITY in kinds:
-                    anti_ok = ~has_dom | (gathered == 0)
-                    ok = torch.where(kb == C_ANTI_AFFINITY, anti_ok, ok)
-                mask &= ok
+                    for s in range(len(shards)):
+                        anti_ok = ~has_dom[s] | (gathered[s] == 0)
+                        oks[s] = torch.where(
+                            kind[s][:, None] == C_ANTI_AFFINITY, anti_ok,
+                            oks[s])
+                for m, ok in zip(masks, oks):
+                    m &= ok
             if C_SPREAD_SCORE in kinds:
-                smx = torch.where(mask, gathered, 0.0).amax(1, keepdim=True)
-                smn = torch.where(mask, gathered, inf).amin(1, keepdim=True)
-                smn = torch.where(torch.isfinite(smn), smn, 0.0)
-                rng = torch.clamp(smx - smn, min=1.0)
-                spread_score = (smx - gathered) * 100.0 / rng
-                score = score + torch.where(kb == C_SPREAD_SCORE,
-                                            w["spread"] * spread_score, 0.0)
+                smxs = comm.rowmax(gathered, masks, 0.0)
+                smns = comm.rowmin(gathered, masks, INF)
+                for s in range(len(shards)):
+                    smn = torch.where(torch.isfinite(smns[s]), smns[s], 0.0)
+                    rng = torch.clamp(smxs[s] - smn, min=1.0)
+                    spread_score = (smxs[s] - gathered[s]) * 100.0 / rng
+                    scores[s] = scores[s] + torch.where(
+                        kind[s][:, None] == C_SPREAD_SCORE,
+                        w["spread"] * spread_score, 0.0)
             if C_PREF_AFFINITY in kinds:
-                cw = (w["affinity"] * pod["c_weight"][r, c])[:, None]
-                score = score + torch.where(kb == C_PREF_AFFINITY,
-                                            cw * gathered, 0.0)
-        masked = torch.where(mask, score + f.noise[r], kernels.NEG)
-        _best, idx = torch.max(masked, dim=1)   # first index of the max
-        claims[lo:hi] = torch.where(mask.any(1), idx, -1)
+                for s, (_st, _nd, pod) in enumerate(shards):
+                    cw = (w["affinity"] * pod["c_weight"][rr[s], c])[:, None]
+                    scores[s] = scores[s] + torch.where(
+                        kind[s][:, None] == C_PREF_AFFINITY,
+                        cw * gathered[s], 0.0)
+        bests, idxs = [], []
+        for s, (m, sc) in enumerate(zip(masks, scores)):
+            masked = torch.where(m, sc + f.noises[s][rr[s]], kernels.NEG)
+            best, idx = torch.max(masked, dim=1)   # first index of the max
+            bests.append(best)
+            idxs.append(idx)
+        has = comm.any_rows(masks)[0]
+        j = comm.row_argmax(bests, idxs)[0][0]
+        claims[lo:hi] = torch.where(has, j, -1)
     return claims, minm, boot
 
 
-def _rowmin_masked(f: _Full, vals_sg, rows_pod, sg):
-    """min over the node axis of vals_sg[sg] where the pod's sel_mask and
-    the group's domain allow, inf -> 0 (the cohort's floor)."""
+def _rowmin_masked(f: _Full, gath, rows_pod, sg):
+    """min over the node axis, across the shards, of gath[s][sg] where
+    the pod's sel_mask and the group's domain allow, inf -> 0 (the
+    cohort's floor)."""
+    comm = f.comm
     out = torch.empty(rows_pod.shape[0], dtype=torch.float32,
-                      device=rows_pod.device)
-    dom_sg = f.static["dom_sg"]
-    for lo, hi in _row_chunks(rows_pod.shape[0], f.N):
-        s = sg[lo:hi]
-        elig = f.sel_mask[rows_pod[lo:hi]] & (dom_sg[s] >= 0)
-        out[lo:hi] = torch.where(elig, vals_sg[s], float("inf")).amin(1)
+                      device=comm.home)
+    rows_r, sg_r = comm.bcast(rows_pod), comm.bcast(sg)
+    for lo, hi in _row_chunks(rows_pod.shape[0], f.n_loc):
+        eligs, vals = [], []
+        for s, st in enumerate(f.nodes):
+            g = sg_r[s][lo:hi]
+            eligs.append(f.sel_mask[s][rows_r[s][lo:hi]]
+                         & (st["dom_sg"][g] >= 0))
+            vals.append(gath[s][g])
+        out[lo:hi] = comm.rowmin(vals, eligs, INF)[0][:, 0]
     return torch.where(torch.isfinite(out), out, 0.0)
 
 
-def _resolve_and_commit(f: _Full, state: dict, node: dict, idx, cl, minm,
-                        boot):
+def _slot_slabs(f: _Full, dom_cl, pc, c, kinds):
+    """Slot c's [H,H] conflict block, resolved per pod slab (A:532-559,
+    the rs form): shard s builds rows [lo, hi) of M[p, q] = "q < p claimed
+    into p's domain under p's selector group and increments it" from its
+    copy of the claimed nodes' domain table dom_cl [SG, H] (a row-select:
+    no [H,H] collective), and its rows' counts come back through an
+    all-gather.  Returns (the slabs of M, k_same f32 [H], and for an
+    affinity slot whether any earlier claimant increments p's group)."""
+    comm = f.comm
+    Ms, k_same, inc_any = [], [], []
+    for s, lo, hi in comm.slabs(dom_cl[0].shape[1]):
+        d = comm.devices[s]
+        H = dom_cl[s].shape[1]
+        sg = pc[s]["c_sg"][lo:hi, c]
+        p_ix = torch.arange(lo, hi, device=d)
+        earlier = torch.arange(H, device=d)[None, :] < p_ix[:, None]
+        Dpq = dom_cl[s][sg]                               # dom of q's claim
+        own = Dpq[torch.arange(hi - lo, device=d), p_ix]  # under p's sg
+        q_incs = pc[s]["inc_sg_t"][sg]                    # [rows, H]
+        M = earlier & (Dpq == own[:, None]) & (own[:, None] >= 0) & q_incs
+        del Dpq
+        Ms.append(M)
+        k_same.append(M.sum(1).to(torch.float32))
+        if C_AFFINITY in kinds:
+            inc_any.append((earlier & q_incs).any(1))
+    return (Ms, comm.all_gather(k_same)[0],
+            comm.all_gather(inc_any)[0] if inc_any else None)
+
+
+def _resolve_and_commit(f: _Full, node: list, idx, cl, minm, boot):
     """Conflict resolution in pod order among the claimants `idx` (pod
-    rows, ascending) of nodes `cl`, then the commit (A:494-739, the
-    single-device form): the resource prefix sums, host-port conflicts,
-    per-slot anti-affinity serialization, the static spread quota and the
-    affinity bootstrap, existing-anti conflicts, the spread cohort's
-    water-filling, and the commit of every aggregate.  Returns the accept
-    mask over the claimants."""
-    pod, st = f.pod, f.static
-    used, used_nz, npods = state["used"], state["used_nz"], state["npods"]
-    cd_sg, cd_asg = state["cd_sg"], state["cd_asg"]
-    dom_sg, dom_asg = st["dom_sg"], st["dom_asg"]
+    rows, ascending) of global nodes `cl`, then the commit (A:494-739):
+    the resource prefix sums, host-port conflicts, per-slot anti-affinity
+    serialization, the static spread quota and the affinity bootstrap,
+    existing-anti conflicts, the spread cohort's water-filling, and the
+    commit of every aggregate.  The claimed nodes' columns come through
+    gather_cols; the constraint slots' [H,H] blocks are resolved per pod
+    slab (_slot_slabs); each shard commits the accepted claims in its
+    slab, and the replicated count tables commit on home.  Returns the
+    accept mask over the claimants."""
+    comm, pod, rep = f.comm, f.pod, f.rep
+    cd_sg, cd_asg = rep["cd_sg"], rep["cd_asg"]
     H = idx.shape[0]
-    dev = idx.device
+    dev = comm.home
     ar = torch.arange(H, device=dev)
     earlier = ar[None, :] < ar[:, None]                   # q < p
+    cl_r = comm.bcast(cl)
+    avail_cl = comm.gather_cols([nd["avail"].T for nd in node], cl_r)[0].T
+    npods_cl = comm.gather_cols([st["npods"] for st in f.nodes], cl_r)[0]
+    maxp_cl = comm.gather_cols([st["maxpods"] for st in f.nodes], cl_r)[0]
+    dom_cl = comm.gather_cols([st["dom_sg"] for st in f.nodes], cl_r,
+                              fill=-1)                    # [SG,H] per shard
+    dom_acl = comm.gather_cols([st["dom_asg"] for st in f.nodes], cl_r,
+                               fill=-1)[0]                # [ASG,H]
     req, req_nz = pod["req"][idx], pod["req_nz"][idx]
     E = (cl[:, None] == cl[None, :]) & earlier            # earlier same-node
     Ef = E.to(torch.float32)
     prefR = Ef @ req                                      # [H,R]
     prefN = Ef.sum(1)
-    res_ok = (req + prefR <= node["avail"][cl]).all(1)
-    res_ok &= npods[cl] + prefN + 1.0 <= st["maxpods"][cl]
+    res_ok = (req + prefR <= avail_cl).all(1)
+    res_ok &= npods_cl + prefN + 1.0 <= maxp_cl
     bad = ~res_ok
     if f.any_ports:
         pb = pod["port_bits"][idx]
         bad |= (E & ((pb[:, None] & pb[None, :]) != 0)).any(1)
     spread_over = torch.zeros(H, dtype=torch.bool, device=dev)
     inc_sg_t = pod["inc_sg"][idx].T > 0                  # [SG,H]
+    pc = comm.bcast_tree({"c_sg": f.c_sg[idx], "inc_sg_t": inc_sg_t})
     slot = {}
     for c in f.slots:
         kinds = f.kinds[c]
         kind = pod["c_kind"][idx, c]
         sg = f.c_sg[idx, c]
-        Dpq = dom_sg[sg[:, None], cl[None, :]]           # dom of q's claim
-        own = dom_sg[sg, cl]                              # under p's sg
-        q_incs = inc_sg_t[sg]                             # [H,H]
-        M = earlier & (Dpq == own[:, None]) & (own[:, None] >= 0) & q_incs
-        del Dpq
-        k_same = M.sum(1).to(torch.float32)
+        own = dom_cl[0][sg, ar]                          # p's own domain
+        Ms, k_same, inc_any = _slot_slabs(f, dom_cl, pc, c, kinds)
         if C_ANTI_AFFINITY in kinds:
             bad |= (kind == C_ANTI_AFFINITY) & (k_same > 0)
         if C_SPREAD_HARD in kinds:
@@ -691,10 +1029,10 @@ def _resolve_and_commit(f: _Full, state: dict, node: dict, idx, cl, minm,
                     - minm[:, c]) > pod["c_maxskew"][idx, c]
             spread_over |= (kind == C_SPREAD_HARD) & (own >= 0) & over
         if C_AFFINITY in kinds:
-            bad |= boot[:, c] & (earlier & q_incs).any(1)
-        slot[c] = (M, own, sg, kind)
+            bad |= boot[:, c] & inc_any
+        slot[c] = (Ms, own, sg, kind)
     for a in f.asg_slots:
-        dom_a = dom_asg[a, cl]
+        dom_a = dom_acl[a]
         same = (dom_a[:, None] == dom_a[None, :]) & (dom_a[:, None] >= 0)
         carriers = pod["inc_asg"][idx, a] > 0
         bad |= (pod["match_asg"][idx, a] > 0) & (
@@ -706,34 +1044,38 @@ def _resolve_and_commit(f: _Full, state: dict, node: dict, idx, cl, minm,
         cand = ~bad & spread_over & (n_hard <= 1)
         pools = {}
         for c in hard:
-            _M, own, _sg, kind = slot[c]
+            _Ms, own, _sg, kind = slot[c]
             is_spread = (kind == C_SPREAD_HARD) & (own >= 0)
             # sync-point: the spread cohort's pods, read back per slot
             rows = torch.nonzero(cand & is_spread).squeeze(1)
             pools[c] = (is_spread, rows)
         if any(rows.numel() for _s, rows in pools.values()):
             with torch.profiler.record_function("full.cohort"):
-                accept = _cohort(f, state, idx, cl, accept, cand, slot,
+                accept = _cohort(f, idx, dom_cl[0], accept, cand, slot,
                                  pools, inc_sg_t)
-    # ---- commit: rejected claims add zeros ----
+    # ---- commit: rejected claims (and other shards' nodes) add zeros ----
     accf = accept.to(torch.float32)
-    used.index_add_(0, cl, req * accf[:, None])
-    used_nz.index_add_(0, cl, req_nz * accf[:, None])
-    npods.index_add_(0, cl, accf)
-    if f.any_ports:
-        state["port_mask"].index_add_(0, cl, pod["ports"][idx]
-                                      * accf[:, None])
-        state["port_mask"].clamp_(max=1.0)
-    dom_acc = dom_sg[:, cl]                               # [SG,H]
+    pcom = comm.bcast_tree({"accf": accf, "req": req, "req_nz": req_nz,
+                            **({"ports": pod["ports"][idx]}
+                               if f.any_ports else {})})
+    for s, st in enumerate(f.nodes):
+        rows, wt = _commit_rows(comm, cl_r[s], pcom[s]["accf"], f.n_loc, s)
+        st["used"].index_add_(0, rows, pcom[s]["req"] * wt[:, None])
+        st["used_nz"].index_add_(0, rows, pcom[s]["req_nz"] * wt[:, None])
+        st["npods"].index_add_(0, rows, wt)
+        if f.any_ports:
+            st["port_mask"].index_add_(0, rows,
+                                       pcom[s]["ports"] * wt[:, None])
+            st["port_mask"].clamp_(max=1.0)
+    dom_acc = dom_cl[0]                                   # [SG,H]
     cd_sg.scatter_add_(1, dom_acc.clamp(min=0).long(),
                        pod["inc_sg"][idx].T * accf * (dom_acc >= 0))
-    dom_acc_a = dom_asg[:, cl]                            # [ASG,H]
-    cd_asg.scatter_add_(1, dom_acc_a.clamp(min=0).long(),
-                        pod["inc_asg"][idx].T * accf * (dom_acc_a >= 0))
+    cd_asg.scatter_add_(1, dom_acl.clamp(min=0).long(),
+                        pod["inc_asg"][idx].T * accf * (dom_acl >= 0))
     return accept
 
 
-def _cohort(f: _Full, state, idx, cl, accept, cand, slot, pools, inc_sg_t):
+def _cohort(f: _Full, idx, dom_acc0, accept, cand, slot, pools, inc_sg_t):
     """The spread cohort's water-filling admission (A:606-705): a pour
     onto a current-minimum domain is always sequentially valid, so a
     candidate at new-rank r' in domain d admits when count_d +
@@ -741,13 +1083,15 @@ def _cohort(f: _Full, state, idx, cl, accept, cand, slot, pools, inc_sg_t):
     committed + pool) + maxSkew.  COHORT_ITERS fixpoint rounds.  `pools`
     maps each hard-spread slot to (its spread claimants, the candidates
     among them): the floor is only read for candidates, so it is only
-    computed for them."""
-    pod, dom_sg = f.pod, f.static["dom_sg"]
-    cd_sg = state["cd_sg"]
-    dom_acc0 = dom_sg[:, cl]                              # [SG,H]
+    computed for them.  dom_acc0 [SG,H] holds the claimed nodes' domains;
+    r' counts through each slot's M slabs, the floor through a rowmin
+    across the shards."""
+    comm, pod = f.comm, f.pod
+    cd_sg = f.rep["cd_sg"]
     ix0 = dom_acc0.clamp(min=0).long()
     inc0 = inc_sg_t & (dom_acc0 >= 0)
-    dom_ix = dom_sg.clamp(min=0).long()
+    dom_ix = [st["dom_sg"].clamp(min=0).long() for st in f.nodes]
+    slabs = comm.slabs(idx.shape[0])
     committed = accept
     for _it in range(COHORT_ITERS):
         new_ok = cand & ~committed
@@ -755,17 +1099,21 @@ def _cohort(f: _Full, state, idx, cl, accept, cand, slot, pools, inc_sg_t):
             1, ix0, (inc0 & committed[None, :]).to(torch.float32))
         pool = torch.zeros_like(cd_sg).scatter_add_(
             1, ix0, (inc0 & new_ok[None, :]).to(torch.float32))
-        fill = cd_sg + m_sg + pool
-        gath = torch.where(dom_sg >= 0, fill.gather(1, dom_ix), float("inf"))
+        fills = comm.bcast(cd_sg + m_sg + pool)
+        gath = [torch.where(st["dom_sg"] >= 0, fl.gather(1, ix), INF)
+                for st, fl, ix in zip(f.nodes, fills, dom_ix)]
+        new_oks = comm.bcast(new_ok)
         ok_all = new_ok
         for c, (is_spread, rows) in pools.items():
-            M, own, sg, _kind = slot[c]
+            Ms, own, sg, _kind = slot[c]
             level = torch.zeros(idx.shape[0], dtype=torch.float32,
                                 device=idx.device)
             if rows.numel():
                 level[rows] = _rowmin_masked(f, gath, idx[rows], sg[rows])
             level = level + pod["c_maxskew"][idx, c]
-            rprime = (M & new_ok[None, :]).sum(1).to(torch.float32)
+            rprime = comm.all_gather([
+                (M & new_oks[s][None, :]).sum(1).to(torch.float32)
+                for (s, _lo, _hi), M in zip(slabs, Ms)])[0]
             own_ix = own.clamp(min=0).long()
             cond = (cd_sg[sg, own_ix] + m_sg[sg, own_ix] + rprime
                     + pod["c_selfmatch"][idx, c]) <= level
@@ -774,22 +1122,168 @@ def _cohort(f: _Full, state, idx, cl, accept, cand, slot, pools, inc_sg_t):
     return committed
 
 
-def _full_wave(f: _Full, state: dict, assigned, active, act):
+def _full_wave(f: _Full, assigned, active, act):
     """One wave of the full variant over the active pods `act`
     (ascending): the claims, the resolve among the claimants, the commit.
-    Mutates the state aggregates, `assigned` and `active` in place."""
+    Mutates the aggregates, `assigned` and `active` in place."""
     with torch.profiler.record_function("full.claims"):
-        node = _node_side(f, state)
-        claims, minm, boot = _claims_full(f, state, node, act)
+        node = _node_side(f)
+        claims, minm, boot = _claims_full(f, node, act)
     # sync-point: the claiming pods' count sizes the conflict pass
     h = torch.nonzero(claims >= 0).squeeze(1)
     idx, cl = act[h], claims[h]
     with torch.profiler.record_function("full.resolve"):
-        accept = _resolve_and_commit(f, state, node, idx, cl, minm[h],
-                                     boot[h])
+        accept = _resolve_and_commit(f, node, idx, cl, minm[h], boot[h])
     assigned[idx] = torch.where(accept, cl.to(torch.int32), assigned[idx])
     active[idx] = ~accept
     active &= accept.any()  # no progress -> give up
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+def _check_step_args(claims_noise, features, weights) -> dict:
+    if claims_noise not in kernels.NOISE_KINDS:
+        raise ValueError(f"claims_noise={claims_noise!r}: must be one of "
+                         f"{kernels.NOISE_KINDS}")
+    if features not in (PLAIN_FEATURES, ALL_FEATURES):
+        raise ValueError("features: PLAIN_FEATURES or ALL_FEATURES")
+    w = {"fit": 1.0, "balanced": 1.0, "spread": 2.0, "affinity": 1.0,
+         "taint": 1.0, **(weights or {})}
+    if (w["fit"], w["balanced"], w["taint"]) != (1.0, 1.0, 1.0):
+        raise ValueError("weights: fit, balanced and taint must stay 1.0")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        # TF32 keeps ~10 mantissa bits: the [P,P] prefix sums E @ req would
+        # round request sums and admit or reject the wrong pods
+        raise RuntimeError("the wave step needs full-f32 matmuls: turn "
+                           "TF32 off (torch.backends.cuda.matmul.allow_tf32"
+                           " = False, float32 matmul precision 'highest')")
+    return w
+
+
+def make_step(caps: Caps, comm: _Comm, p_cap: int, k_cap: int = 1024,
+              weights: dict[str, float] | None = None,
+              features: frozenset = ALL_FEATURES,
+              max_waves: int | None = None, claims_noise: str = "sin"):
+    """The wave step over `comm`'s shards: (step(nodes, rep, buf) ->
+    result, spec).  `nodes[s]` holds shard s's node arrays (the dynamic
+    DYN_STATE keys, updated in place, and the static ones the variant
+    reads), `rep` the replicated ones on the home device (cd_sg, cd_asg
+    and gen, updated in place; sg_ns_mask and asg_ns_mask when present),
+    `buf` the packed wire buffer on home.  `result` is int32[p_cap+2] on
+    home: the assigned GLOBAL node row per pod slot (-1 when unplaced), the
+    wave count, and the state generation after this step.  The row
+    patches are global rows: each shard applies the ones in its slab."""
+    w = _check_step_args(claims_noise, features, weights)
+    if claims_noise == "sin" and comm.n_shards > 1:
+        raise ValueError("the sin noise is the single-device rule (R3): a "
+                         "sharded step takes claims_noise='murmur'")
+    dev = comm.home
+    plain = features == PLAIN_FEATURES
+    spec = PackSpec(caps, p_cap, k_cap, plain=plain)
+    if max_waves is None:
+        max_waves = MAX_WAVES if plain else max(MAX_WAVES, p_cap)
+
+    def start(nodes, buf):
+        comm.n_loc = nodes[0]["alloc"].shape[0]
+        comm.phase = "call"
+        pod, prow, pval = _unpack(buf, spec)
+        prows, pvals = comm.bcast(prow), comm.bcast(pval)
+        for s, nd in enumerate(nodes):
+            local = prows[s] - comm.my_offset(s)
+            _apply_patches(nd, torch.where(
+                (prows[s] >= 0) & (local >= 0) & (local < comm.n_loc),
+                local, -1), pvals[s], caps)
+        return pod
+
+    def finish(rep, assigned, waves):
+        comm.phase = "call"
+        rep["gen"] += 1
+        result = torch.empty(p_cap + 2, dtype=torch.int32, device=dev)
+        result[:p_cap] = assigned
+        # sync-point: the host's wave count copied in (a pageable copy)
+        result[p_cap] = waves
+        result[p_cap + 1] = rep["gen"]
+        return result
+
+    if not plain:
+        noise = []   # per shard: murmur noise keyed on (pod slot, node)
+
+        def step_full(nodes, rep, buf):
+            pod = start(nodes, buf)
+            n = comm.n_loc
+            if not noise or noise[0].shape[1] != n:
+                tables = []
+                for s, d in enumerate(comm.devices):
+                    table = torch.empty((p_cap, n), dtype=torch.float32,
+                                        device=d)
+                    ids = torch.arange(p_cap, dtype=torch.int32, device=d)
+                    for lo, hi in _row_chunks(p_cap, n, _FULL_CELLS // 4):
+                        table[lo:hi] = kernels.murmur_noise(
+                            ids[lo:hi], n, comm.my_offset(s))
+                    tables.append(table)
+                noise[:] = tables
+            f = _Full(caps, comm, nodes, rep, pod, noise, w)
+            assigned = torch.full((p_cap,), -1, dtype=torch.int32,
+                                  device=dev)
+            active = pod["p_valid"].clone()
+            waves = 0
+            comm.phase = "wave"
+            while waves < max_waves:
+                # sync-point: one count read a wave (the active pods)
+                act = torch.nonzero(active).squeeze(1)
+                if not act.numel():
+                    break
+                _full_wave(f, assigned, active, act)
+                waves += 1
+            return finish(rep, assigned, waves)
+
+        return step_full, spec
+
+    tail_p = TAIL_P if p_cap > TAIL_P else 0
+    pod_ids = torch.arange(p_cap, dtype=torch.int32, device=dev)
+    earlier = torch.tril(torch.ones((p_cap, p_cap), dtype=torch.bool,
+                                    device=dev), diagonal=-1)
+    earlier_tail = earlier[:tail_p, :tail_p] if tail_p else None
+
+    def step(nodes, rep, buf):
+        pod = start(nodes, buf)
+        untols = comm.bcast(pod["untol_bits"])
+        smasks = [static_mask_t(nd["valid"], taint_bits(nd["taint_mask"]),
+                                u) for nd, u in zip(nodes, untols)]
+        main = _SubBatch(comm, nodes, pod["req"], pod["req_nz"], smasks,
+                         pod_ids, earlier, claims_noise)
+        assigned = torch.full((p_cap,), -1, dtype=torch.int32, device=dev)
+        active = pod["p_valid"].clone()
+        comm.phase = "wave"
+        assigned, active, waves = _wave_loop(
+            comm, nodes, main, assigned, active, 0, max_waves, tail_p)
+        # sync-point: whether the compacted tail runs
+        if tail_p and waves < max_waves and bool(active.any()):
+            # gather the (at most tail_p) still-active pods to the front in
+            # ascending index order; padding rows gather INACTIVE pods,
+            # which commit nothing in the sub-loop
+            idx = torch.argsort((~active).to(torch.uint8),
+                                stable=True)[:tail_p]
+            idxs = comm.bcast(idx)
+            sub = _SubBatch(comm, nodes, pod["req"][idx], pod["req_nz"][idx],
+                            [sm[:, i] for sm, i in zip(smasks, idxs)],
+                            idx.to(torch.int32), earlier_tail, "murmur")
+            sub_assigned, sub_active, waves = _wave_loop(
+                comm, nodes, sub, assigned[idx], active[idx], waves,
+                max_waves, 0)
+            assigned[idx] = sub_assigned
+            active[idx] = sub_active
+        return finish(rep, assigned, waves)
+
+    return step, spec
+
+
+DYN_STATE = ("used", "used_nz", "npods", "port_mask")
+REP_STATE = ("cd_sg", "cd_asg", "gen")
+NS_MASKS = ("sg_ns_mask", "asg_ns_mask")
 
 
 def build_packed_assign_fn(caps: Caps, p_cap: int, k_cap: int = 1024,
@@ -797,7 +1291,8 @@ def build_packed_assign_fn(caps: Caps, p_cap: int, k_cap: int = 1024,
                            features: frozenset = ALL_FEATURES,
                            max_waves: int | None = None,
                            claims_noise: str = "sin", device=None):
-    """fn(state, static_node, buf) -> (state, result).
+    """fn(state, static_node, buf) -> (state, result): the single-device
+    step (make_step over a one-shard comm).
 
     `state` holds the resident aggregates (STATE_KEYS) and is updated in
     place; `static_node` holds alloc, maxpods, valid and taint_mask, and
@@ -815,101 +1310,17 @@ def build_packed_assign_fn(caps: Caps, p_cap: int, k_cap: int = 1024,
     spread and affinity score weights; the fit, balanced and taint
     weights stay 1.0, the only values whose float contraction in the
     reference is established (ROADMAP R4)."""
-    if claims_noise not in kernels.NOISE_KINDS:
-        raise ValueError(f"claims_noise={claims_noise!r}: must be one of "
-                         f"{kernels.NOISE_KINDS}")
-    if features not in (PLAIN_FEATURES, ALL_FEATURES):
-        raise ValueError("features: PLAIN_FEATURES or ALL_FEATURES")
-    w = {"fit": 1.0, "balanced": 1.0, "spread": 2.0, "affinity": 1.0,
-         "taint": 1.0, **(weights or {})}
-    if (w["fit"], w["balanced"], w["taint"]) != (1.0, 1.0, 1.0):
-        raise ValueError("weights: fit, balanced and taint must stay 1.0")
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        # TF32 keeps ~10 mantissa bits: the [P,P] prefix sums E @ req would
-        # round request sums and admit or reject the wrong pods
-        raise RuntimeError("the wave step needs full-f32 matmuls: turn "
-                           "TF32 off (torch.backends.cuda.matmul.allow_tf32"
-                           " = False, float32 matmul precision 'highest')")
-    dev = resolve_device(device)
-    plain = features == PLAIN_FEATURES
-    spec = PackSpec(caps, p_cap, k_cap, plain=plain)
-    if max_waves is None:
-        max_waves = MAX_WAVES if plain else max(MAX_WAVES, p_cap)
-
-    def finish(state, assigned, waves):
-        state["gen"] += 1
-        result = torch.empty(p_cap + 2, dtype=torch.int32, device=dev)
-        result[:p_cap] = assigned
-        # sync-point: the host's wave count copied in (a pageable copy)
-        result[p_cap] = waves
-        result[p_cap + 1] = state["gen"]
-        return state, result
-
-    if not plain:
-        noise = []   # murmur noise keyed on (pod slot, node), built once
-
-        def fn_full(state, static_node, buf):
-            pod, prow, pval = _unpack(buf, spec)
-            _apply_patches(state, prow, pval, caps)
-            n = static_node["alloc"].shape[0]
-            if not noise or noise[0].shape[1] != n:
-                table = torch.empty((p_cap, n), dtype=torch.float32,
-                                    device=dev)
-                ids = torch.arange(p_cap, dtype=torch.int32, device=dev)
-                for lo, hi in _row_chunks(p_cap, n, _FULL_CELLS // 4):
-                    table[lo:hi] = kernels.murmur_noise(ids[lo:hi], n)
-                noise[:] = [table]
-            f = _Full(caps, static_node, pod, noise[0], w)
-            assigned = torch.full((p_cap,), -1, dtype=torch.int32,
-                                  device=dev)
-            active = pod["p_valid"].clone()
-            waves = 0
-            while waves < max_waves:
-                # sync-point: one count read a wave (the active pods)
-                act = torch.nonzero(active).squeeze(1)
-                if not act.numel():
-                    break
-                _full_wave(f, state, assigned, active, act)
-                waves += 1
-            return finish(state, assigned, waves)
-
-        return fn_full, spec
-
-    tail_p = TAIL_P if p_cap > TAIL_P else 0
-    pod_ids = torch.arange(p_cap, dtype=torch.int32, device=dev)
-    earlier = torch.tril(torch.ones((p_cap, p_cap), dtype=torch.bool,
-                                    device=dev), diagonal=-1)
-    earlier_tail = earlier[:tail_p, :tail_p] if tail_p else None
+    comm = _Comm([resolve_device(device)])
+    step, spec = make_step(caps, comm, p_cap, k_cap, weights, features,
+                           max_waves, claims_noise)
 
     def fn(state, static_node, buf):
-        pod, prow, pval = _unpack(buf, spec)
-        _apply_patches(state, prow, pval, caps)
-        smask = static_mask_t(static_node["valid"],
-                              taint_bits(static_node["taint_mask"]),
-                              pod["untol_bits"])
-        main = _SubBatch(pod["req"], pod["req_nz"], smask, pod_ids,
-                         static_node, earlier)
-        assigned = torch.full((p_cap,), -1, dtype=torch.int32, device=dev)
-        active = pod["p_valid"].clone()
-        assigned, active, waves = _wave_loop(
-            static_node, state, main, assigned, active, claims_noise, 0,
-            max_waves, tail_p)
-        # sync-point: whether the compacted tail runs
-        if tail_p and waves < max_waves and bool(active.any()):
-            # gather the (at most tail_p) still-active pods to the front in
-            # ascending index order; padding rows gather INACTIVE pods,
-            # which commit nothing in the sub-loop
-            idx = torch.argsort((~active).to(torch.uint8),
-                                stable=True)[:tail_p]
-            sub = _SubBatch(pod["req"][idx], pod["req_nz"][idx],
-                            smask[:, idx], idx.to(torch.int32), static_node,
-                            earlier_tail)
-            sub_assigned, sub_active, waves = _wave_loop(
-                static_node, state, sub, assigned[idx], active[idx],
-                "murmur", waves, max_waves, 0)
-            assigned[idx] = sub_assigned
-            active[idx] = sub_active
-        return finish(state, assigned, waves)
+        node = {k: v for k, v in static_node.items() if k not in NS_MASKS}
+        node.update({k: state[k] for k in DYN_STATE})
+        rep = {k: state[k] for k in REP_STATE}
+        rep.update({k: static_node[k] for k in NS_MASKS if k in static_node})
+        result = step([node], rep, buf)
+        state["gen"] = rep["gen"]
+        return state, result
 
     return fn, spec

@@ -381,6 +381,25 @@ class ResidentHostMirror:
             or nz(batch.ports) or nz(batch.untol_prefer)
             or (batch.node_row is not None and (batch.node_row >= 0).any()))
 
+    # the census pod's cpu (milli) and memory (bytes) when no row holds a
+    # pod yet: SchedulingBasic's pod
+    CENSUS_DEFAULT_REQ = (100.0, 128.0 * 2**20)
+
+    def _census_req(self) -> np.ndarray:
+        """The census pod's request: per core resource the smallest nonzero
+        used / npods over the rows holding pods, as the device state has
+        them (the mirror; the host tensors before the first step)."""
+        t = self.tensors
+        src = self._mirror if self._mirror is not None else {
+            "used": t.used, "npods": t.npods}
+        req = np.zeros(self.caps.r, np.float32)
+        rows = t.valid & (src["npods"] > 0)
+        for r, default in enumerate(self.CENSUS_DEFAULT_REQ):
+            per_pod = src["used"][rows, r] / src["npods"][rows]
+            per_pod = per_pod[per_pod > 0]
+            req[r] = per_pod.min() if per_pod.size else default
+        return req
+
     def _diff_patches(self, dirty_rows) -> tuple[np.ndarray, np.ndarray] | None:
         """Rows where authoritative != mirror (read-only; mirror untouched).
         None -> too many (refresh)."""
@@ -929,6 +948,84 @@ def default_full_cap(n_cap: int, device: torch.device) -> int:
     return cap
 
 
+def clone_state(state: dict) -> dict:
+    """A copy of a resident state: tensors cloned, per-shard lists of them
+    cloned piece by piece."""
+    return {k: [p.clone() for p in v] if isinstance(v, list) else v.clone()
+            for k, v in state.items()}
+
+
+def census_run(device, stepped: set, variant, fn, state, static, buf, pods,
+               req) -> dict:
+    """One census step of `variant` (see TorchBatchBackend.device_census)
+    on `device`: `fn(state, static, buf) -> (state, result)` on a clone of
+    the state (a dict of tensors, or of per-shard lists of them), under
+    torch.profiler, the traffic mode and FlopCounterMode; `stepped` holds
+    the variants whose first call already ran."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from . import kernels
+    cuda = device.type == "cuda"
+    if variant not in stepped:
+        # a step's first call builds what it caches (the full step's
+        # noise table): run it once on another clone, unmeasured
+        with kernels.launch_tally():
+            fn(clone_state(state), static, buf)
+        stepped.add(variant)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if cuda else [])
+    traffic = _traffic_mode()
+    with profile(activities=acts) as prof:
+        with kernels.launch_tally() as tally, \
+                FlopCounterMode(display=False) as flops, traffic:
+            _state, rd = fn(state, static, buf)
+        if cuda:
+            # sync-point: the census waits for its own step
+            torch.cuda.synchronize(device)
+    # sync-point: the census reads its step's wave count
+    waves = int(rd[-2].cpu())
+    device_ms = {}
+    total_ms = 0.0
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            total_ms += e.self_device_time_total / 1e3
+            for name, symbols in kernels.KERNEL_SYMBOLS.items():
+                if any(sym in e.key for sym in symbols):
+                    device_ms[name] = (device_ms.get(name, 0.0)
+                                       + e.self_device_time_total / 1e3)
+    hand = {}
+    for name, inputs in tally.calls:
+        k = hand.setdefault(name, {"bytes": 0, "ops": 0})
+        if name == "claims":
+            P, N, R = inputs["shape"]
+            k["bytes"] += kernels.claims_bytes(P, N, R)
+            # the mask test every live cell needs: a floor on the
+            # operations (chip_smoke.py counts them in full)
+            # sync-point: the census counts its own calls' live pods
+            k["ops"] += (int(inputs["active"].sum()) * N
+                         * kernels.MASK_OPS)
+    out_k = {}
+    hand_bytes = hand_ops = 0
+    for name, k in hand.items():
+        launches = tally.launches.get(name, 0)
+        ms, by = kernels.bound(k["bytes"], k["ops"])
+        out_k[name] = {"launches": launches,
+                       "device_ms": device_ms.get(name, 0.0),
+                       "bytes": k["bytes"], "bound_ms": ms,
+                       "bound_by": by}
+        if launches:
+            hand_bytes += k["bytes"]
+            hand_ops += k["ops"]
+    return {"collectives": {}, "per_call_bytes": 0, "per_wave_bytes": 0,
+            "cost": {"flops": float(flops.get_total_flops() + hand_ops),
+                     "bytes_accessed": float(traffic.bytes
+                                             + hand_bytes)},
+            "kernels": out_k, "device_ms": total_ms, "waves": waves,
+            "batch": {"pods": pods,
+                      "req": [float(x) for x in req[:CORE_R]]}}
+
+
 class TorchBatchBackend(ResidentHostMirror, BatchBackend):
     """The scheduling step behind the BatchBackend contract, on `device`
     (CUDA unless the caller asks for the CPU).  `claims_noise` picks the
@@ -1124,10 +1221,6 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
 
     # -- device census ---------------------------------------------------
 
-    # the census pod's cpu (milli) and memory (bytes) when no row holds a
-    # pod yet: SchedulingBasic's pod
-    CENSUS_DEFAULT_REQ = (100.0, 128.0 * 2**20)
-
     def device_census(self, variants: tuple = ("full", "plain")) -> dict:
         """Cost census of the step variants, the counterpart of the JAX
         backend's (which lowers each variant and reads XLA's cost
@@ -1159,23 +1252,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         names = [v for v in ("full", "plain") if v in variants]
         with self._lock:
             plans = [self._census_plan(v) for v in names]
-        return {v: self._census_run(v, *plan)
+        return {v: census_run(self.device, self._stepped, v, *plan)
                 for v, plan in zip(names, plans)}
-
-    def _census_req(self) -> np.ndarray:
-        """The census pod's request: per core resource the smallest nonzero
-        used / npods over the rows holding pods, as the device state has
-        them (the mirror; the host tensors before the first step)."""
-        t = self.tensors
-        src = self._mirror if self._mirror is not None else {
-            "used": t.used, "npods": t.npods}
-        req = np.zeros(self.caps.r, np.float32)
-        rows = t.valid & (src["npods"] > 0)
-        for r, default in enumerate(self.CENSUS_DEFAULT_REQ):
-            per_pod = src["used"][rows, r] / src["npods"][rows]
-            per_pod = per_pod[per_pod > 0]
-            req[r] = per_pod.min() if per_pod.size else default
-        return req
 
     def _census_plan(self, variant: str) -> tuple:
         """(step fn, cloned state, static arrays, packed batch on the
@@ -1188,7 +1266,7 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
             return torch.tensor(a, device=self.device)
 
         if self._state is not None:
-            state = {k: v.clone() for k, v in self._state.items()}
+            state = clone_state(self._state)
         else:
             cd_sg, cd_asg = t.domain_base_counts()
             state = {"used": dev(t.used), "used_nz": dev(t.used_nz),
@@ -1216,71 +1294,6 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         # sync-point: the census batch's pageable upload
         buf = torch.from_numpy(pack_pod_batch(batch, spec)).to(self.device)
         return fn, state, static, buf, pods, req
-
-    def _census_run(self, variant, fn, state, static, buf, pods,
-                    req) -> dict:
-        from torch.profiler import ProfilerActivity, profile
-        from torch.utils.flop_counter import FlopCounterMode
-
-        from . import kernels
-        cuda = self.device.type == "cuda"
-        if variant not in self._stepped:
-            # a step's first call builds what it caches (the full step's
-            # noise table): run it once on another clone, unmeasured
-            with kernels.launch_tally():
-                fn({k: v.clone() for k, v in state.items()}, static, buf)
-            self._stepped.add(variant)
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                         if cuda else [])
-        traffic = _traffic_mode()
-        with profile(activities=acts) as prof:
-            with kernels.launch_tally() as tally, \
-                    FlopCounterMode(display=False) as flops, traffic:
-                _state, rd = fn(state, static, buf)
-            if cuda:
-                # sync-point: the census waits for its own step
-                torch.cuda.synchronize(self.device)
-        # sync-point: the census reads its step's wave count
-        waves = int(rd[-2].cpu())
-        device_ms = {}
-        total_ms = 0.0
-        for e in prof.key_averages():
-            if e.self_device_time_total > 0:
-                total_ms += e.self_device_time_total / 1e3
-                for name, symbols in kernels.KERNEL_SYMBOLS.items():
-                    if any(sym in e.key for sym in symbols):
-                        device_ms[name] = (device_ms.get(name, 0.0)
-                                           + e.self_device_time_total / 1e3)
-        hand = {}
-        for name, inputs in tally.calls:
-            k = hand.setdefault(name, {"bytes": 0, "ops": 0})
-            if name == "claims":
-                P, N, R = inputs["shape"]
-                k["bytes"] += kernels.claims_bytes(P, N, R)
-                # the mask test every live cell needs: a floor on the
-                # operations (chip_smoke.py counts them in full)
-                # sync-point: the census counts its own calls' live pods
-                k["ops"] += (int(inputs["active"].sum()) * N
-                             * kernels.MASK_OPS)
-        out_k = {}
-        hand_bytes = hand_ops = 0
-        for name, k in hand.items():
-            launches = tally.launches.get(name, 0)
-            ms, by = kernels.bound(k["bytes"], k["ops"])
-            out_k[name] = {"launches": launches,
-                           "device_ms": device_ms.get(name, 0.0),
-                           "bytes": k["bytes"], "bound_ms": ms,
-                           "bound_by": by}
-            if launches:
-                hand_bytes += k["bytes"]
-                hand_ops += k["ops"]
-        return {"collectives": {}, "per_call_bytes": 0, "per_wave_bytes": 0,
-                "cost": {"flops": float(flops.get_total_flops() + hand_ops),
-                         "bytes_accessed": float(traffic.bytes
-                                                 + hand_bytes)},
-                "kernels": out_k, "device_ms": total_ms, "waves": waves,
-                "batch": {"pods": pods,
-                          "req": [float(x) for x in req[:CORE_R]]}}
 
     def _stage_buf(self, total: int) -> _StagedBuffer:
         """Hand out a host staging buffer of `total` f32 slots from the
@@ -2441,7 +2454,10 @@ def make_batch_backend(kind: str = "tpu", caps: Caps | None = None,
 
       tpu      the single-device resident step: TorchBatchBackend on
                `device` (CUDA unless the caller names another)
-      sharded  the multi-device path (not ported: ROADMAP queue 1 item 7)
+      sharded  the multi-device path: ShardedTorchBatchBackend
+               (parallel/backend.py) on `mesh` (keyword), else on
+               make_mesh(device, shards=`shards`): by default every
+               visible CUDA device, one shard each
       null     the host pipeline with the device step nulled
                (ops/nullbackend.py, numpy only: the host-ceiling
                measurement; `device` does not apply).  Only a caller
@@ -2451,9 +2467,15 @@ def make_batch_backend(kind: str = "tpu", caps: Caps | None = None,
                                  weights=weights, k_cap=k_cap,
                                  device=device, **kw)
     if kind == "sharded":
-        raise NotImplementedError(
-            "backend kind 'sharded': the multi-device path is not ported "
-            "(ROADMAP queue 1 item 7)")
+        from ..parallel.backend import ShardedTorchBatchBackend
+        from ..parallel.mesh import make_mesh
+        mesh = kw.pop("mesh", None)
+        shards = kw.pop("shards", None)
+        if mesh is None:
+            mesh = make_mesh(device, shards=shards)
+        return ShardedTorchBatchBackend(caps, batch_size=batch_size,
+                                        weights=weights, mesh=mesh,
+                                        k_cap=k_cap, **kw)
     if kind == "null":
         from .nullbackend import NullBatchBackend
         return NullBatchBackend(caps or Caps(), batch_size=batch_size)

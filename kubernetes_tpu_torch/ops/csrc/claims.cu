@@ -341,7 +341,8 @@ __device__ __forceinline__ void add_noise(uint32_t need, const float* score,
 template <int R, int K, bool MURMUR, bool SAME>
 __device__ __forceinline__ void visit(const float* __restrict__ f,
                                       const MaskWords<K>& m, int n,
-                                      float nmax, Pods<R, K, MURMUR>& ps) {
+                                      uint32_t gn, float nmax,
+                                      Pods<R, K, MURMUR>& ps) {
   constexpr int NF = node_floats(R);
   float row[NF];
 #pragma unroll
@@ -385,7 +386,7 @@ __device__ __forceinline__ void visit(const float* __restrict__ f,
       if (!(__fadd_rn(score[k], nmax) <= ps.bar[k])) need |= 1u << k;
     }
   }
-  add_noise(need, score, n, static_cast<uint32_t>(n) * 0x85EBCA77u, ps);
+  add_noise(need, score, n, gn * 0x85EBCA77u, ps);
 }
 
 template <int K>
@@ -426,7 +427,7 @@ __device__ __forceinline__ void run_slice(
     Pods<R, K, MURMUR>& ps, unsigned char* smem, const float* alloc,
     const float* used, const float* used_nz, const float* npods,
     const float* maxpods, const uint8_t* __restrict__ smask_t, int ld,
-    int p_blk, int p0, int n_lo, int n_hi, float nmax,
+    int p_blk, int p0, int n_lo, int n_hi, int node_offset, float nmax,
     unsigned long long* __restrict__ rec) {
   constexpr int NF = node_floats(R);
   float* s_node = reinterpret_cast<float*>(smem);
@@ -473,8 +474,9 @@ __device__ __forceinline__ void run_slice(
       for (int i = 0; i < tn; ++i) {
         MaskWords<K> m = load_mask_shared<K>(tile + i * row);
         if (and_any(m, ps.live))
-          visit<R, K, MURMUR, SAME>(s_node + (off + i) * NF, m, nt0 + i,
-                                    nmax, ps);
+          visit<R, K, MURMUR, SAME>(
+              s_node + (off + i) * NF, m, nt0 + i,
+              static_cast<uint32_t>(node_offset + nt0 + i), nmax, ps);
       }
     }
     __syncthreads();
@@ -488,8 +490,9 @@ __global__ void __launch_bounds__(THREADS) claims_slice_kernel(
     const float* __restrict__ alloc, const float* __restrict__ used,
     const float* __restrict__ used_nz, const float* __restrict__ npods,
     const float* __restrict__ maxpods, const uint8_t* __restrict__ smask_t,
-    int P, int N, int slice_w, float* __restrict__ part_best,
-    int32_t* __restrict__ part_idx, unsigned long long* __restrict__ rec) {
+    int P, int N, int slice_w, int node_offset,
+    float* __restrict__ part_best, int32_t* __restrict__ part_idx,
+    unsigned long long* __restrict__ rec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = round_up(P, LD_ALIGN);
   const int p_blk = blockIdx.x * blockDim.x * K;
@@ -554,11 +557,11 @@ __global__ void __launch_bounds__(THREADS) claims_slice_kernel(
   if (__syncthreads_and(ps.same || !ps.any)) {
     run_slice<R, K, MURMUR, true>(ps, smem, alloc, used, used_nz, npods,
                                   maxpods, smask_t, ld, p_blk, p0, n_lo,
-                                  n_hi, nmax, rec);
+                                  n_hi, node_offset, nmax, rec);
   } else {
     run_slice<R, K, MURMUR, false>(ps, smem, alloc, used, used_nz, npods,
                                    maxpods, smask_t, ld, p_blk, p0, n_lo,
-                                   n_hi, nmax, rec);
+                                   n_hi, node_offset, nmax, rec);
   }
   if (ps.any) share_records(ps, rec, p0, n_lo);
 #pragma unroll
@@ -651,7 +654,7 @@ struct LaunchArgs {
   const int32_t* pod_ids;
   const float *alloc, *used, *used_nz, *npods, *maxpods;
   const uint8_t* smask_t;
-  int P, N, slice_w, S;
+  int P, N, slice_w, S, node_offset;
   float* part_best;
   int32_t* part_idx;
   unsigned long long* rec;
@@ -675,7 +678,8 @@ cudaError_t launch_slices(const LaunchArgs& a, cudaStream_t st) {
   kern<<<grid, tpb, smem, st>>>(a.req, a.req_nz, a.active, a.pod_ids,
                                 a.alloc, a.used, a.used_nz, a.npods,
                                 a.maxpods, a.smask_t, a.P, a.N, a.slice_w,
-                                a.part_best, a.part_idx, a.rec);
+                                a.node_offset, a.part_best, a.part_idx,
+                                a.rec);
   return cudaGetLastError();
 }
 
@@ -715,16 +719,22 @@ int claims_num_slices(int P, int N) {
 int claims_max_resources() { return R_MAX; }
 
 // Launch both kernels on `stream`.  smask_t is [N, round_up(P, 16)] uint8;
-// part_best/part_idx hold claims_num_slices(P, N) * P entries.  Returns the
+// part_best/part_idx hold claims_num_slices(P, N) * P entries.  The nodes
+// are one shard of a node axis that starts at node_offset: the murmur
+// noise hashes node_offset + n, so a shard's noise equals the matching
+// columns of the whole axis', while claims stay local indices.  The sin
+// rule is keyed on local indices and takes node_offset 0 only.  Returns the
 // cudaError_t of the launches (0 on success); nothing is synchronised here.
 int claims_launch(const float* req, const float* req_nz,
                   const uint8_t* active, const int32_t* pod_ids,
                   const float* alloc, const float* used, const float* used_nz,
                   const float* npods, const float* maxpods,
                   const uint8_t* smask_t, int P, int N, int R, int murmur,
-                  float* part_best, int32_t* part_idx, int32_t* claims,
-                  float* best, void* stream) {
-  if (P <= 0 || N <= 0 || R < 2 || R > R_MAX) return cudaErrorInvalidValue;
+                  int node_offset, float* part_best, int32_t* part_idx,
+                  int32_t* claims, float* best, void* stream) {
+  if (P <= 0 || N <= 0 || R < 2 || R > R_MAX || node_offset < 0 ||
+      (!murmur && node_offset != 0))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int w = slice_width(P, N);
   const int S = cdiv(N, w);
@@ -734,7 +744,7 @@ int claims_launch(const float* req, const float* req_nz,
   if (err != cudaSuccess) return err;
   const LaunchArgs a{req,     req_nz,    active,   pod_ids, alloc,
                      used,    used_nz,   npods,    maxpods, smask_t,
-                     P,       N,         w,        S,
+                     P,       N,         w,        S,       node_offset,
                      part_best, part_idx, rec};
   err = dispatch(a, R, murmur != 0, st);
   if (err != cudaSuccess) return err;

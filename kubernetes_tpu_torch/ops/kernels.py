@@ -35,6 +35,12 @@ Two noise rules, chosen by the `noise` argument:
              bit for bit on any device.
 The noise is keyed on (pod_ids[p], node index); pod_ids defaults to
 arange(P).  The compacted tail passes the pods' original batch positions.
+`node_offset` makes the nodes one shard of a longer node axis
+(parallel/mesh.py): the murmur node term hashes node_offset + n, so a
+shard's noise and claims equal the matching columns of the whole axis'
+(JAX's gn = offset + arange(n_loc), models/assign.py:315), while claims
+stay local indices.  The sin rule is the single-device Pallas kernel's and
+is never sharded (quirk R3): it raises at a non-zero offset.
 
 XLA, compiling the JAX reference on the CPU, contracts a*b + c*d into
 fma(a, b, c*d).  The score and the sin argument here (and in the CUDA
@@ -191,12 +197,14 @@ def _mul32(x, c: int):
     return ((x * (c & 0xFFFF)) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
 
 
-def murmur_noise(pod_ids, n_nodes: int):
-    """f32[len(pod_ids), n_nodes] murmur3-finalizer noise, bit-equal to
-    the JAX package's uint32 formula (models/assign.py:331-338)."""
+def murmur_noise(pod_ids, n_nodes: int, node_offset: int = 0):
+    """f32[len(pod_ids), n_nodes] murmur3-finalizer noise of nodes
+    node_offset .. node_offset + n_nodes - 1, bit-equal to the JAX
+    package's uint32 formula (models/assign.py:331-338)."""
     dev = pod_ids.device
     pp = pod_ids.to(torch.int64)[:, None]
-    gn = torch.arange(n_nodes, dtype=torch.int64, device=dev)[None, :]
+    gn = torch.arange(node_offset, node_offset + n_nodes, dtype=torch.int64,
+                      device=dev)[None, :]
     hx = _mul32(pp, 0x9E3779B1) ^ _mul32(gn, 0x85EBCA77)
     hx ^= hx >> 16
     hx = _mul32(hx, 0x85EBCA6B)
@@ -318,16 +326,19 @@ def utilizations(req_nz, alloc, used_nz):
     return utils
 
 
-def _check_noise(noise: str) -> None:
+def _check_noise(noise: str, node_offset: int = 0) -> None:
     if noise not in NOISE_KINDS:
         raise ValueError(f"noise={noise!r}: must be one of {NOISE_KINDS}")
+    if node_offset < 0 or (node_offset and noise != "murmur"):
+        raise ValueError(f"node_offset={node_offset}: a shard's offset is "
+                         "non-negative and takes the murmur noise")
 
 
 def claims_reference(static, active, used, used_nz, npods, noise="sin",
-                     pod_ids=None):
+                     pod_ids=None, node_offset: int = 0):
     """Plain torch version of the claims kernel (same arguments and
     results as `claims`), computed in pod chunks of [chunk, N] planes."""
-    _check_noise(noise)
+    _check_noise(noise, node_offset)
     P, N, R = static["shape"]
     dev = used.device
     if pod_ids is None:
@@ -347,7 +358,8 @@ def claims_reference(static, active, used, used_nz, npods, noise="sin",
         mask = (smask_t[:, lo:hi].T != 0) & fit & active[lo:hi, None].bool()
         score = fit_score(*utilizations(req_nz[lo:hi], alloc, used_nz))
         ids = pod_ids[lo:hi]
-        nz = murmur_noise(ids, N) if noise == "murmur" else sin_noise(ids, N)
+        nz = (murmur_noise(ids, N, node_offset) if noise == "murmur"
+              else sin_noise(ids, N))
         masked = torch.where(mask, score + nz,
                              torch.full((), NEG, dtype=torch.float32,
                                         device=dev))
@@ -367,7 +379,7 @@ def _kernel_lib():
         from . import _build
         lib = _build.load("claims")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.claims_launch.argtypes = [p] * 10 + [i] * 4 + [p] * 5
+        lib.claims_launch.argtypes = [p] * 10 + [i] * 5 + [p] * 5
         lib.claims_launch.restype = i
         lib.claims_num_slices.argtypes = [i, i]
         lib.claims_num_slices.restype = i
@@ -386,19 +398,21 @@ def _require(t, name, dtype, shape, device):
 
 
 def claims(static, active, used, used_nz, npods, noise="sin",
-           pod_ids=None):
+           pod_ids=None, node_offset: int = 0):
     """Fused mask+score+argmax -> (claims int32[P], best f32[P]).
 
     static comes from prepare_static; active is bool[P]; used/used_nz
     f32[N, R]; npods f32[N]; pod_ids int32[P] keys the noise (default
-    arange(P)).  CPU tensors run claims_reference; CUDA tensors launch
-    csrc/claims.cu and count the launch in `LAUNCHES["claims"]`."""
-    _check_noise(noise)
+    arange(P)); node_offset is the first node's index on the whole node
+    axis when the nodes are one shard of it (murmur only).  CPU tensors
+    run claims_reference; CUDA tensors launch csrc/claims.cu and count the
+    launch in `LAUNCHES["claims"]`."""
+    _check_noise(noise, node_offset)
     note_call("claims", shape=static["shape"], active=active, noise=noise)
     dev = used.device
     if dev.type == "cpu":
         return claims_reference(static, active, used, used_nz, npods, noise,
-                                pod_ids)
+                                pod_ids, node_offset)
     if dev.type != "cuda":
         raise ValueError(f"claims: unsupported device {dev}")
     P, N, R = static["shape"]
@@ -423,21 +437,25 @@ def claims(static, active, used, used_nz, npods, noise="sin",
     _require(used, "used", f32, (N, R), dev)
     _require(used_nz, "used_nz", f32, (N, R), dev)
     _require(npods, "npods", f32, (N,), dev)
-    # scratch rows: the node slices' partials, then the slices' shared
-    # per-pod records
-    rows = lib.claims_num_slices(P, N)
-    part_best = torch.empty((rows, P), dtype=f32, device=dev)
-    part_idx = torch.empty((rows, P), dtype=torch.int32, device=dev)
-    out_claims = torch.empty(P, dtype=torch.int32, device=dev)
-    out_best = torch.empty(P, dtype=f32, device=dev)
-    err = lib.claims_launch(
-        static["req"].data_ptr(), static["req_nz"].data_ptr(),
-        active.data_ptr(), pod_ids.data_ptr(), static["alloc"].data_ptr(),
-        used.data_ptr(), used_nz.data_ptr(), npods.data_ptr(),
-        static["maxpods"].data_ptr(), static["smask_t"].data_ptr(),
-        P, N, R, int(noise == "murmur"),
-        part_best.data_ptr(), part_idx.data_ptr(), out_claims.data_ptr(),
-        out_best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    # the launch goes to the tensors' card (a shard's may not be the
+    # current one): the library reads the current device
+    with torch.cuda.device(dev):
+        # scratch rows: the node slices' partials, then the slices' shared
+        # per-pod records
+        rows = lib.claims_num_slices(P, N)
+        part_best = torch.empty((rows, P), dtype=f32, device=dev)
+        part_idx = torch.empty((rows, P), dtype=torch.int32, device=dev)
+        out_claims = torch.empty(P, dtype=torch.int32, device=dev)
+        out_best = torch.empty(P, dtype=f32, device=dev)
+        err = lib.claims_launch(
+            static["req"].data_ptr(), static["req_nz"].data_ptr(),
+            active.data_ptr(), pod_ids.data_ptr(),
+            static["alloc"].data_ptr(), used.data_ptr(), used_nz.data_ptr(),
+            npods.data_ptr(), static["maxpods"].data_ptr(),
+            static["smask_t"].data_ptr(), P, N, R, int(noise == "murmur"),
+            node_offset, part_best.data_ptr(), part_idx.data_ptr(),
+            out_claims.data_ptr(), out_best.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"claims kernel launch failed: cudaError {err}")
     count_launch("claims")

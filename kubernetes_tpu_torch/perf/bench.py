@@ -47,6 +47,15 @@ the better pass (higher pods/s; lower p99 for a paced row); the other
 pass lands in detail.second_pass.  A row fails (detail.error, exit code
 1) when any of its passes failed.
 
+--backend sharded runs a row through ShardedTorchBatchBackend
+(parallel/backend.py) with the census and the timeline armed, as bench.py's
+headline runs Scheduling100k (bench.py:1615-1624):
+    python3 -m kubernetes_tpu_torch.perf.bench --config Scheduling100k \
+        --backend sharded
+on a mesh of every visible card (one shard each), or of --shards shards
+over --device (e.g. --device cuda:0 --shards 4; on the CPU --device cpu
+--shards 8).
+
 The device is CUDA unless --device names another; without a GPU the
 default raises.  --nodes/--pods/--batch override a config's sizes (tests
 run tiny ones on the CPU).  The row's detail also carries `placements`,
@@ -418,7 +427,8 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
              admission_ms: float = 0.0, device=None, after=None,
              null_device: bool = False, pct_nodes: int = 0,
              overload=None, profile_pods: int = 0, tracing_provider=None,
-             profiling_policy=None, remote_seam: str | None = None) -> dict:
+             profiling_policy=None, remote_seam: str | None = None,
+             backend_kind: str = "tpu", mesh=None) -> dict:
     """One full workload pass in this process (the JAX bench's run_once,
     device-backed by TorchBatchBackend on `device`; null_device=True nulls
     the device step instead).  pct_nodes is the profile's
@@ -431,7 +441,11 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
     `profiling_policy` (a ProfilingPolicy) arms the profiling: stanza
     (census, timeline, sampler) as run_named_workload does; `remote_seam`
     ("http", "grpc" or a worker's URL) runs the batch backend behind the
-    device worker seam (setup_cluster); with the
+    device worker seam (setup_cluster); `backend_kind` "sharded" runs
+    ShardedTorchBatchBackend on `mesh` (default: a mesh of `device`) with
+    the census and the timeline armed, as bench.py's headline does (the
+    row gains tpu_wave_collective_bytes, device_idle_share and the
+    latency decomposition); with the
     sampling host profiler armed (`enabled`) its per-stage host seconds
     land in the row as host_stages (they count a thread's samples whether
     it runs or waits) and each thread's CPU seconds over the run are read
@@ -486,6 +500,14 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
             profiled.update(profile_batch(
                 cluster, min(batch, profile_pods), workload,
                 op=profiled_op(tpl)))
+    sharded = backend_kind == "sharded"
+    if sharded:
+        # bench.py's headline arms the census and the timeline
+        # (bench.py:1615-1624)
+        from ..scheduler.config import ProfilingPolicy
+        profiling_policy = ProfilingPolicy(
+            enabled=bool(profiling_policy and profiling_policy.enabled),
+            census=True, timeline=True)
     store = kv.MemoryStore(history=1_000_000)
     t0 = time.monotonic()
     summary, stats = run_named_workload(
@@ -494,7 +516,8 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
         null_device=null_device, percentage_of_nodes_to_score=pct_nodes,
         overload=policy, chaos_schedule=chaos, device=device, store=store,
         profiling_policy=profiling_policy, tracing_provider=tracing_provider,
-        remote_seam=remote_seam, after=after_run)
+        remote_seam=remote_seam, after=after_run,
+        backend_kind=backend_kind, mesh=mesh)
     wall = time.monotonic() - t0
     detail = summary.to_dict()
     detail["placements"] = placements
@@ -539,6 +562,9 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
             detail[key] = stats[key]
     if null_device:
         detail["backend"] = "null"
+    if sharded:
+        detail["backend"] = "sharded"
+        detail.update(_sharded_detail(stats))
     detail["schedule_attempts"] = stats.get("schedule_attempts")
     for key in ("setup_s", "create_nodes_s", "flatten_before_window_s"):
         detail[key] = round(stats.get(key, 0.0), 3)
@@ -552,6 +578,30 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
     return {"value": summary.average, "wall_s": round(wall, 1),
             "detail": detail, "stats": stats, "nodes": n_nodes,
             "pods": n_measured}
+
+
+def _sharded_detail(stats: dict) -> dict:
+    """The sharded row's census gauges and timeline read-out, as bench.py's
+    run_once puts them in its row (bench.py:1352-1374)."""
+    out = {}
+    gauges: dict[str, dict] = {}
+    for kind, recs in (stats.get("device_census") or {}).items():
+        for variant, rec in recs.items():
+            per_wave, per_call = profiling.collective_bytes_by_op(rec)
+            gauges[f"{kind}-{variant}"] = {
+                "per_wave_bytes": rec.get("per_wave_bytes", 0),
+                "tpu_wave_collective_bytes": per_wave,
+                "tpu_step_collective_bytes": per_call,
+                "mesh_devices": rec.get("mesh_devices")}
+    if gauges:
+        out["tpu_wave_collective_bytes"] = gauges
+    tl = stats.get("timeline")
+    if tl:
+        out["device_idle_share"] = tl.get("device_idle_share")
+        out["stage_overlap"] = tl.get("overlap")
+        out["latency_decomposition"] = tl.get("segments")
+        out["timeline_intervals"] = tl.get("intervals")
+    return out
 
 
 def row(value: float, nodes: int, pods: int, batch: int,
@@ -796,15 +846,16 @@ def seam_row(name: str, device=None, nodes: int | None = None,
 def run_config(name: str, device=None, nodes: int | None = None,
                pods: int | None = None, batch: int | None = None,
                profiling_policy=None, after=None,
-               profile_pods: int = 0, remote_seam: str | None = None
-               ) -> tuple:
+               profile_pods: int = 0, remote_seam: str | None = None,
+               backend_kind: str = "tpu", mesh=None) -> tuple:
     """Run a named config (sizes optionally overridden); returns (the row,
     every pass's run_once result in run order).  A two_pass config runs
     twice; the row keeps the better pass (the higher pods/s, or for a
     paced config the lower p99) and puts the other in
     detail.second_pass.  A pass that failed makes the row's error, even
     when the other pass is the one kept.  `after` runs after each
-    pass; `remote_seam` goes to run_once.  A seam config (RemoteSeamGrpc,
+    pass; `remote_seam`, `backend_kind` and `mesh` go to run_once.  A
+    seam config (RemoteSeamGrpc,
     RemoteSeamFaulty) runs seam_row instead: (the row, [])."""
     if "seam" in CONFIGS[name]:
         return seam_row(name, device, nodes, batch), []
@@ -812,7 +863,8 @@ def run_config(name: str, device=None, nodes: int | None = None,
     paced = bool(args["rate"])
     results = [run_once(**args, device=device,
                         profiling_policy=profiling_policy, after=after,
-                        profile_pods=profile_pods, remote_seam=remote_seam)
+                        profile_pods=profile_pods, remote_seam=remote_seam,
+                        backend_kind=backend_kind, mesh=mesh)
                for _ in range(2 if CONFIGS[name].get("two_pass") else 1)]
 
     def worse(r):
@@ -1054,6 +1106,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seam", default=None, choices=("grpc", "http"),
                     help="the seam rows' and --trace's transport (default: "
                          "the row's, gRPC)")
+    ap.add_argument("--backend", default="tpu", choices=("tpu", "sharded"),
+                    help="the batch backend: tpu (TorchBatchBackend, the "
+                         "default) or sharded (ShardedTorchBatchBackend, "
+                         "with the census and the timeline armed, as "
+                         "bench.py's headline)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="--backend sharded: this many shards over the "
+                         "device (default: one per visible card; on the "
+                         "CPU one)")
     ap.add_argument("--worker-url", default=None,
                     help="a seam row drives the device worker at this URL "
                          "(python -m kubernetes_tpu_torch.cmd.tpu_worker) "
@@ -1076,6 +1137,10 @@ def main(argv=None) -> int:
     if args.host_profile:
         from ..scheduler.config import ProfilingPolicy
         policy = ProfilingPolicy(enabled=True)
+    mesh = None
+    if args.backend == "sharded" and (args.shards or args.device):
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(args.device, shards=args.shards)
     for name in args.config:
         if "seam" in CONFIGS[name]:
             out = seam_row(name, args.device, args.nodes, args.batch,
@@ -1083,7 +1148,8 @@ def main(argv=None) -> int:
         else:
             out, _results = run_config(
                 name, args.device, args.nodes, args.pods, args.batch,
-                profiling_policy=policy, profile_pods=args.profile_pods)
+                profiling_policy=policy, profile_pods=args.profile_pods,
+                backend_kind=args.backend, mesh=mesh)
         print(json.dumps(out), flush=True)
         failed |= "error" in out["detail"]
     return 1 if failed else 0

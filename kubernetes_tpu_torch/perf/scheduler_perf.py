@@ -241,7 +241,7 @@ def setup_cluster(caps=None, batch_size: int = 512,
                   chaos_schedule=None,
                   profiling_policy=None,
                   device_flight_s: float = 0.0,
-                  device=None) -> PerfCluster:
+                  device=None, mesh=None) -> PerfCluster:
     """mustSetupScheduler (util.go:79): in-proc everything, no kubelet.
 
     pipeline_depth/admission_interval select latency mode (scheduler.py):
@@ -251,7 +251,9 @@ def setup_cluster(caps=None, batch_size: int = 512,
     The profile's batch backend comes from
     ops/backend.make_batch_backend(backend_kind): "tpu" is
     TorchBatchBackend on `device` (CUDA unless the caller names the CPU;
-    without a GPU the default raises), "null" the host pipeline with the
+    without a GPU the default raises), "sharded" ShardedTorchBatchBackend
+    on `mesh` (parallel/mesh.make_mesh; default: a mesh of `device`, every
+    visible CUDA device when none is named), "null" the host pipeline with the
     device step nulled (ops/nullbackend.py).  It is built and warmed up on
     the caller's thread, before the informers start.  null_device=True
     asks for the "null" kind whatever backend_kind says (the host-ceiling
@@ -305,9 +307,10 @@ def setup_cluster(caps=None, batch_size: int = 512,
                 worker.stop()
             raise
     else:
-        backend = make_batch_backend("null" if null_device
-                                     else backend_kind, caps or Caps(),
-                                     batch_size=batch_size, device=device)
+        kind = "null" if null_device else backend_kind
+        backend = make_batch_backend(
+            kind, caps or Caps(), batch_size=batch_size, device=device,
+            **({"mesh": mesh} if kind == "sharded" else {}))
         backend.warmup()
     if chaos_schedule is not None:
         from ..ops.faults import ChaosBatchBackend
@@ -763,13 +766,13 @@ def run_named_workload(config: dict, caps=None,
                        chaos_schedule=None,
                        profiling_policy=None,
                        device_flight_s: float = 0.0,
-                       device=None,
+                       device=None, mesh=None,
                        store: kv.MemoryStore | None = None,
                        after=None
                        ) -> tuple[ThroughputSummary, dict]:
     """Run one workload config end to end; returns (throughput, stats).
     `device` goes to the batch backend (CUDA unless the caller names the
-    CPU).  Pass `store` to read the cluster's objects after the run (the
+    CPU), `mesh` to the sharded one (backend_kind="sharded").  Pass `store` to read the cluster's objects after the run (the
     cluster shuts down before this returns); `after(cluster)` runs once
     the stats are read, before the shutdown.  Outside the measured window:
     stats["setup_s"] is setup_cluster's wall time (backend build and
@@ -778,7 +781,7 @@ def run_named_workload(config: dict, caps=None,
     snapshot flatten seconds until the window opened."""
     t_setup = time.monotonic()
     cluster = setup_cluster(
-        store=store, device=device,
+        store=store, device=device, mesh=mesh,
         caps=caps, batch_size=batch_size,
         pipeline_depth=pipeline_depth,
         admission_interval=admission_interval,

@@ -136,19 +136,20 @@ def test_census_between_batches_keeps_placements():
     assert gens and set(gens) == {0}
 
 
-def test_census_runs_outside_the_lock():
+def test_census_runs_outside_the_lock(monkeypatch):
     """The clone is taken under the backend lock; the step runs outside
     it (a concurrent dispatch is not stalled by a census)."""
+    from kubernetes_tpu_torch.ops import backend as port_backend
     s = loaded_side()
     b = s.backend
     held = []
-    real = b._census_run
+    real = port_backend.census_run
 
     def spy(*a, **kw):
         held.append(b._lock.locked())
         return real(*a, **kw)
 
-    b._census_run = spy
+    monkeypatch.setattr(port_backend, "census_run", spy)
     b.device_census()
     assert held == [False, False]
 

@@ -47,7 +47,8 @@ def slice_launches(n_nodes, batch, batches, noise, seed=7):
     real = kernels.claims
 
     def claims(static, active, used, used_nz, npods, noise="sin",
-               pod_ids=None):
+               pod_ids=None, node_offset=0):
+        assert node_offset == 0, "a single-device slice"
         out = real(static, active, used, used_nz, npods, noise=noise,
                    pod_ids=pod_ids)
         kept.append(((dict(static), active.clone(), used.clone(),

@@ -54,6 +54,56 @@ def test_kernel_matches_plain_version(cuda, case, noise):
         np.testing.assert_allclose(best, want_best, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("case", sorted(CLAIMS_CASES))
+def test_kernel_at_a_node_offset_matches_plain_version(cuda, case):
+    """One shard's launch: the nodes from N/3 on at node_offset N/3, the
+    murmur noise keyed on the global node, bit for bit against the plain
+    version at the same offset."""
+    c = CLAIMS_CASES[case]()
+    N = c["alloc"].shape[0]
+    lo = N // 3
+    before = kernels.LAUNCHES["claims"]
+    got, best = run_claims(c, "murmur", device=cuda, nodes=slice(lo, N),
+                           node_offset=lo)
+    assert kernels.LAUNCHES["claims"] == before + 1
+    want, want_best = run_claims(c, "murmur", device=cuda,
+                                 fn=kernels.claims_reference,
+                                 nodes=slice(lo, N), node_offset=lo)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(best, want_best)
+
+
+@pytest.mark.parametrize("features", ["plain", "full"])
+def test_sharded_step_on_the_card_equals_cpu(cuda, features):
+    """Four shards of one card against four CPU shards."""
+    from kubernetes_tpu_torch.parallel import mesh
+    if features == "plain":
+        caps, state, static, b = make_step_case(256, 700, False, 4)
+        spec = assign.PackSpec(caps, 700, K_CAP, plain=True)
+        buf = assign.pack_pod_batch(b, spec, *step_patches(caps))
+        feats, P = assign.PLAIN_FEATURES, 700
+    else:
+        caps, state, static, batch, patches = make_full_case("mixed_patched")
+        P = batch.p_cap
+        buf = assign.pack_pod_batch(batch, assign.PackSpec(caps, P, K_CAP),
+                                    *patches)
+        feats = assign.ALL_FEATURES
+    out = []
+    for dev in ("cpu", cuda):
+        m = mesh.make_mesh(dev, shards=4)
+        step = mesh.build_sharded_step_fn(caps, m, P, k_cap=K_CAP,
+                                          features=feats)
+        placed = mesh.split_arrays({**state, **static}, m)
+        st = {k: placed[k] for k in mesh.STATE_KEYS}
+        st, a, w, g = step(st, {k: placed[k] for k in static},
+                           torch.from_numpy(buf).to(m.home))
+        got = mesh.gather_arrays({k: st[k] for k in mesh.AGGREGATE_KEYS})
+        got.update(assignments=a.cpu().numpy(), waves=int(w), gen=int(g))
+        out.append(got)
+    for k, v in out[0].items():
+        np.testing.assert_array_equal(out[1][k], v, err_msg=k)
+
+
 @pytest.mark.parametrize("noise", kernels.NOISE_KINDS)
 @pytest.mark.parametrize("name", sorted(STEP_CASES))
 def test_step_matches_cpu_step(cuda, name, noise):

@@ -1,6 +1,7 @@
-"""kubernetes_tpu_torch stands alone: it imports and runs a CPU step with
-jax and kubernetes_tpu unimportable, and no module of it (nor
-chip_smoke.py) names either in an import statement."""
+"""kubernetes_tpu_torch stands alone: it imports and runs a CPU step (and
+a sharded one, on a mesh of CPU shards) with jax and kubernetes_tpu
+unimportable, and no module of it (nor chip_smoke.py) names either in an
+import statement."""
 
 import ast
 import pathlib
@@ -37,6 +38,17 @@ backend = TorchBatchBackend(Caps(n_cap=16, l_cap=16, kl_cap=8, t_cap=4,
 pods = [PodInfo(make_pod(f"p{i}").req(cpu="500m", mem="1Gi").build())
         for i in range(4)]
 out = backend.assign(pods, cache.flatten_view())
+assert all(name for name, _ in out), out
+from kubernetes_tpu_torch.parallel.backend import ShardedTorchBatchBackend
+from kubernetes_tpu_torch.parallel.mesh import make_mesh
+import kubernetes_tpu_torch.parallel.census
+sharded = ShardedTorchBatchBackend(
+    Caps(n_cap=16, l_cap=16, kl_cap=8, t_cap=4, pt_cap=4, s_cap=1, sg_cap=2,
+         asg_cap=2), batch_size=4, mesh=make_mesh("cpu", shards=4))
+cache = Cache()
+for i in range(3):
+    cache.add_node(make_node(f"n{i}").capacity(cpu="2", mem="4Gi").build())
+out = sharded.assign(pods, cache.flatten_view())
 assert all(name for name, _ in out), out
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))
@@ -104,6 +116,13 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_no_jax_or_reference_import(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & {"jax", "jaxlib", "kubernetes_tpu"}, (path, roots)
+
+
+def test_the_scan_covers_the_sharded_path():
+    scanned = {str(p.relative_to(ROOT)) for p in
+               (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
+    for name in ("__init__", "mesh", "census", "backend"):
+        assert f"kubernetes_tpu_torch/parallel/{name}.py" in scanned
 
 
 def test_default_device_without_gpu_raises():

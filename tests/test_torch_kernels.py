@@ -192,3 +192,72 @@ def test_sin64_is_the_correctly_rounded_f32_sin():
     assert torch.equal(got.float(), want.float())
     rows = torch.cat([kernels.sin64(r) for r in x.view(100, -1)])
     assert torch.equal(rows, got)
+
+
+# -- a shard of the node axis (parallel/mesh.py) ----------------------------
+
+def _murmur_noise_jax_at(P, N, offset):
+    """models/assign.py:315-338 with the shard's gn = offset + arange."""
+    gn = (offset + jnp.arange(N)).astype(jnp.uint32)
+    pp = jnp.arange(P, dtype=jnp.uint32)
+    hx = (pp[:, None] * jnp.uint32(0x9E3779B1)
+          ^ gn[None, :] * jnp.uint32(0x85EBCA77))
+    hx ^= hx >> 16
+    hx *= jnp.uint32(0x85EBCA6B)
+    hx ^= hx >> 13
+    hx *= jnp.uint32(0xC2B2AE35)
+    hx ^= hx >> 16
+    return (hx >> 8).astype(jnp.float32) * (TIE_NOISE / (1 << 24))
+
+
+@pytest.mark.parametrize("offset", [0, 7, 1000, 110_000])
+def test_murmur_noise_at_an_offset_is_the_planes_columns(offset):
+    ids = torch.arange(40, dtype=torch.int32)
+    got = kernels.murmur_noise(ids, 33, offset).numpy()
+    np.testing.assert_array_equal(
+        got, kernels.murmur_noise(ids, offset + 33).numpy()[:, offset:])
+    np.testing.assert_array_equal(
+        got, np.asarray(_murmur_noise_jax_at(40, 33, offset)))
+
+
+@pytest.mark.parametrize("shards", [2, 3, 5])
+@pytest.mark.parametrize("case", ["130x520", "67x2053", "identical_nodes",
+                                  "no_feasible", "dead_tiles"])
+def test_claims_per_shard_combine_to_the_whole_axis(case, shards):
+    """The plain version on each shard's nodes at its offset, combined as
+    the sharded step combines them (_Comm.row_argmax: the first shard among
+    equal bests), equals the whole axis' claims and best, bit for bit;
+    -1 only where no shard has a feasible node."""
+    from kubernetes_tpu_torch.models.assign import _Comm
+    c = CLAIMS_CASES[case]()
+    N = c["alloc"].shape[0]
+    want, want_best = run_claims(c, "murmur",
+                                 fn=kernels.claims_reference)
+    bounds = [N * s // shards for s in range(shards + 1)]
+    parts = [run_claims(c, "murmur", fn=kernels.claims_reference,
+                        nodes=slice(lo, hi), node_offset=lo)
+             for lo, hi in zip(bounds, bounds[1:])]
+    # the row_argmax of uneven pieces: shift each local index by its start
+    best_all = np.stack([b for _i, b in parts])
+    shard = best_all.argmax(0)
+    p = np.arange(len(want))
+    idx = np.stack([i for i, _b in parts])[shard, p]
+    got = np.where(idx >= 0, idx + np.asarray(bounds[:-1])[shard], -1)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(best_all[shard, p], want_best)
+    if N % shards == 0:
+        comm = _Comm(["cpu"] * shards, N // shards)
+        j, best = comm.row_argmax([torch.from_numpy(b) for _i, b in parts],
+                                  [torch.from_numpy(i) for i, _b in parts])
+        has = [torch.from_numpy(np.stack([i for i, _b in parts]) >= 0)
+               .any(0)]
+        np.testing.assert_array_equal(
+            torch.where(has[0], j[0], -1).numpy(), want)
+
+
+def test_sin_at_a_node_offset_raises():
+    c = CLAIMS_CASES["130x520"]()
+    with pytest.raises(ValueError, match="node_offset"):
+        run_claims(c, "sin", nodes=slice(260, 520), node_offset=260)
+    with pytest.raises(ValueError, match="node_offset"):
+        run_claims(c, "murmur", nodes=slice(0, 260), node_offset=-1)

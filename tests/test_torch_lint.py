@@ -3,8 +3,9 @@ kubernetes_tpu_torch (the engine takes the package as its target), plus
 the port's own device-sync rule.
 
 The JAX package's device-sync rule knows jax's transfer idioms; the port
-syncs through torch.  Its rule here: in ops/ and models/, in every module
-that imports torch, each implicit host synchronization — `.item()`,
+syncs through torch.  Its rule here: in ops/, models/ and parallel/, in
+every module that imports torch, each implicit host synchronization —
+`.item()`,
 `.tolist()`, `.cpu()`, `torch.nonzero` / `.nonzero()`, and `int()`,
 `bool()` or `float()` of a reduction (`t.sum()`, `t.any()`, ...) — carries
 a `# sync-point: <why>` comment on its line or in the comment block
@@ -122,7 +123,8 @@ def device_sync_findings(view: FileView) -> list[tuple[int, str]]:
 
 
 def _hot_views():
-    ctx = port_context([REPO / PKG / "ops", REPO / PKG / "models"])
+    ctx = port_context([REPO / PKG / "ops", REPO / PKG / "models",
+                        REPO / PKG / "parallel"])
     return list(ctx.files())
 
 
@@ -137,7 +139,8 @@ def test_device_sync_scans_the_step():
     wrappers, and the step's annotated syncs are in them."""
     views = {v.rel: v for v in _hot_views()}
     for rel in ("models/assign.py", "models/preempt.py", "ops/kernels.py",
-                "ops/backend.py"):
+                "ops/backend.py", "parallel/mesh.py", "parallel/backend.py",
+                "parallel/census.py"):
         assert f"{PKG}/{rel}" in views
     assign = views[f"{PKG}/models/assign.py"].text
     assert assign.count("# sync-point:") >= 7
@@ -174,3 +177,15 @@ def test_device_sync_rule_cases(tmp_path, src, want):
 def test_device_sync_rule_skips_modules_without_torch(tmp_path):
     view = _view(tmp_path, "import numpy as np\nn = int(a.sum())\n")
     assert device_sync_findings(view) == []
+
+
+def test_replicated_partition_rules_carry_their_reason():
+    """Every rule of the sharded path's table that replicates an array
+    (spec ()) says why on its line, as the JAX table does."""
+    src = (REPO / PKG / "parallel" / "mesh.py").read_text().splitlines()
+    rules = [ln for ln in src if ln.lstrip().startswith("(r\"^")]
+    replicated = [ln for ln in rules if ln.rstrip().endswith(
+        ("()),", "()),  ")) or "()),  #" in ln]
+    assert len(rules) == 6 and len(replicated) == 3
+    for ln in replicated:
+        assert "# replicated-ok:" in ln, ln

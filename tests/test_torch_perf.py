@@ -159,8 +159,6 @@ NOT_PORTED = {
     "remote_seam": _remote_census,
     "run_named_workload_via_http": lambda: port_perf.run_named_workload(
         _cfg(), via_http=True, device="cpu"),
-    "backend_sharded": lambda: port_backend.make_batch_backend(
-        "sharded", device="cpu"),
 }
 
 
@@ -185,8 +183,77 @@ def test_apply_and_scaleout_raise():
     assert sched.scaleout is None
 
 
+@pytest.mark.parametrize("shards", [None, 4])
+def test_sharded_backend_builds_and_places_on_cpu(shards):
+    """The `backend: {kind: sharded}` stanza's kind through
+    make_batch_backend(kind, device="cpu") builds ShardedTorchBatchBackend
+    on a mesh of the CPU (one shard, or `shards`) and places a small batch
+    within capacity."""
+    from kubernetes_tpu_torch.ops.flatten import Caps
+    from kubernetes_tpu_torch.parallel.backend import ShardedTorchBatchBackend
+    from kubernetes_tpu_torch.scheduler.config import load_config
+    from torch_cases import Side, port_cache, port_testing, port_types
+    kind = load_config({"backend": {"kind": "sharded"}}).backend.kind
+    b = port_backend.make_batch_backend(
+        kind, Caps(n_cap=16, l_cap=16, kl_cap=8, t_cap=4, pt_cap=4,
+                        s_cap=1, sg_cap=2, asg_cap=2),
+        batch_size=8, device="cpu", shards=shards)
+    assert isinstance(b, ShardedTorchBatchBackend)
+    assert b.mesh.size == (shards or 1) and b.census_kind == "sharded"
+    s = Side(port_cache, port_types, port_testing, b,
+             port_backend.FLUSH_FIRST)
+    for i in range(6):
+        s.cache.add_node(s.node(f"n{i}", cpu="1", mem="4Gi"))
+    pods = [s.pod(f"p{i}", cpu="300m") for i in range(8)]
+    got = b.assign(s.infos(pods), s.snapshot())
+    names = [nm for nm, _st in got]
+    assert all(names) and max(names.count(n) for n in set(names)) <= 3
+    assert b.stats["plain"] == 1 and not hasattr(b, "preempt_batch")
+
+
+def test_run_named_workload_on_a_sharded_cpu_mesh():
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+    store = kv.MemoryStore()
+    summary, stats = port_perf.run_named_workload(
+        tiny_basic(port_perf),
+        caps=port_perf.caps_for_nodes(N_NODES), batch_size=BATCH,
+        pipeline_depth=2, device="cpu", store=store, backend_kind="sharded",
+        mesh=make_mesh("cpu", shards=4))
+    assert stats["barrier_ok"]
+    placed = bench.check_placements(store)
+    assert placed["pods"] == placed["bound"] == 2 * N_PODS
+    assert placed["nodes_over_capacity"] == 0
+    assert summary.total_pods == N_PODS
+    assert stats["escape_rate"] == 0.0
+
+
+def test_bench_sharded_row_on_cpu():
+    """perf.bench --backend sharded: bench.py's headline shape (census and
+    timeline armed) at a tiny size on four CPU shards."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubernetes_tpu_torch.perf.bench",
+         "--config", "Scheduling100k", "--device", "cpu", "--backend",
+         "sharded", "--shards", "4", "--nodes", str(N_NODES), "--pods",
+         str(N_PODS), "--batch", str(BATCH)],
+        cwd=ROOT, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1, lines
+    d = json.loads(lines[0])["detail"]
+    assert d["backend"] == "sharded" and d["escape_rate"] == 0.0
+    assert d["placements"]["bound"] == 2 * N_PODS
+    gauges = d["tpu_wave_collective_bytes"]
+    assert set(gauges) == {"sharded-full", "sharded-plain"}
+    assert gauges["sharded-plain"]["mesh_devices"] == 4
+    assert gauges["sharded-plain"]["tpu_wave_collective_bytes"]["all-gather"]
+    assert 0.0 <= d["device_idle_share"] <= 1.0
+    assert d["latency_decomposition"]
+
+
 NEEDS_GPU = {
     "make_batch_backend": lambda: port_backend.make_batch_backend("tpu"),
+    "make_batch_backend_sharded": lambda: port_backend.make_batch_backend(
+        "sharded"),
     "setup_cluster": lambda: port_perf.setup_cluster(),
     "run_named_workload": lambda: port_perf.run_named_workload(_cfg()),
     "bench": lambda: bench.main(["--config", "SchedulingBasic"]),

@@ -76,7 +76,8 @@ def test_annotated_follows_a_multiline_statement_to_its_first_line(
 
 
 def test_the_steps_count_reads_are_annotated():
-    for text in ("n_active = int(active.sum())", "rows = cl[accept]",
+    for text in ("n_active = int(active.sum())",
+                 "h = torch.nonzero(claims >= 0).squeeze(1)",
                  "act = torch.nonzero(active).squeeze(1)",
                  "bool(active.any())"):
         assert annotated(ASSIGN, _line_of(ASSIGN, text)), text

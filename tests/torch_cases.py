@@ -122,18 +122,23 @@ CLAIMS_CASES["r2"] = lambda: wide_case(50, 300, 2, 1)
 CLAIMS_CASES["r16"] = lambda: wide_case(37, 301, 16, 2)
 
 
-def run_claims(c, noise, device="cpu", fn=None):
-    """One claims call (the wrapper by default) on case `c`."""
+def run_claims(c, noise, device="cpu", fn=None, nodes=None, node_offset=0):
+    """One claims call (the wrapper by default) on case `c`; `nodes`, a
+    slice of the node axis, runs it on those nodes only, at
+    `node_offset`."""
     import torch
     from kubernetes_tpu_torch.ops import kernels
     fn = kernels.claims if fn is None else fn
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    static = kernels.prepare_static(t(c["req"]), t(c["req_nz"]), t(c["alloc"]),
-                                    t(c["maxpods"]), t(c["smask"].T))
-    idx, best = fn(static, t(c["active"]), t(c["used"]), t(c["used_nz"]),
-                   t(c["npods"]), noise=noise)
+    n = slice(None) if nodes is None else nodes
+    static = kernels.prepare_static(t(c["req"]), t(c["req_nz"]),
+                                    t(c["alloc"][n]), t(c["maxpods"][n]),
+                                    t(c["smask"][:, n].T))
+    kw = {"node_offset": node_offset} if node_offset else {}
+    idx, best = fn(static, t(c["active"]), t(c["used"][n]),
+                   t(c["used_nz"][n]), t(c["npods"][n]), noise=noise, **kw)
     return idx.cpu().numpy(), best.cpu().numpy()
 
 
@@ -833,10 +838,11 @@ class Stack:
     """One package's control plane: store, client, informers, default
     framework and a Scheduler whose one profile holds that package's batch
     backend (the port's on `device`, at murmur noise).  `pkg` names the
-    package; only the JAX side's tests pass "kubernetes_tpu"."""
+    package; only the JAX side's tests pass "kubernetes_tpu".  `backend`
+    replaces the default backend (a sharded one, say)."""
 
     def __init__(self, pkg, batch_size, caps=LOOP_CAPS, depth=1, device="cpu",
-                 **backend_kw):
+                 backend=None, **backend_kw):
         def m(name):
             return importlib.import_module(f"{pkg}.{name}")
         self.pkg = pkg
@@ -847,7 +853,9 @@ class Stack:
         client_mod, sched_mod = m("client"), m("scheduler")
         caps = m("ops.flatten").Caps(**caps)
         backends = m("ops.backend")
-        if pkg == "kubernetes_tpu":
+        if backend is not None:
+            self.backend = backend
+        elif pkg == "kubernetes_tpu":
             self.backend = backends.TPUBatchBackend(
                 caps, batch_size=batch_size, **backend_kw)
         else:
