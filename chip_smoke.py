@@ -153,7 +153,12 @@ Phases (each prints its wall time; any failed check exits non-zero):
      through the Scheduler with its batch backend behind the HTTP seam to
      that worker (RemoteTorchBatchBackend), held to 8-9's checks, pods/s
      printed beside 8-9's; then the worker's /debug/timeline, whose
-     device-step intervals must be there;
+     device-step intervals must be there; then the census over the
+     seam: a RemoteTorchBatchBackend on that worker and a
+     TorchBatchBackend in this process take the same two batches (4,096
+     plain pods, 1,024 of (a)'s mix) on 5,000 zoned nodes, and
+     device_census() through the worker (/census) must equal the
+     in-process census in every field but device_ms;
  23. the RemoteSeamGrpc row (perf.bench.run_seam, bench.py's
      run_seam_micro: 5,000 nodes, six rounds of 4,096 plain pods through
      an in-process gRPC worker and through the in-process backend): pods/s
@@ -187,13 +192,34 @@ Phases (each prints its wall time; any failed check exits non-zero):
      claims kernel launched once a shard per wave, pods/s and p50/p99
      beside 9's; then TopologySpreading (15's row, two passes) on 4
      shards of cuda:0, held to 15's checks.  The two phases print their
-     wall together, and the script its whole wall.
+     wall together;
+ 28. the single-device snapshot API (models/assign.py build_assign_fn):
+     (i) Scheduling100k's cluster (100,000 nodes, 110,080 rows) and one
+     batch of 4,096 of its pods through the strict scan (K10) on the
+     card: every pod placed, no node over its CPU, memory or 110 pods,
+     the first 256 pods' assignments equal to the CPU scan's, ms a pod
+     (two runs), device activities a pod (torch.profiler, the difference
+     of a 32- and a 96-pod run), SyncGuard's syncs
+     inside the pod loop (must be 0) and in the call, and the bound; (ii)
+     a 1,024-pod batch of (a)'s mix at 5,000 nodes: the scan and the wave
+     on the card bit-identical to themselves on the CPU, the wave equal
+     to build_sharded_assign_fn on make_mesh('cuda:0'), both solvers'
+     placements within capacity, zone skew and anti-affinity;
+ 29. the entry points (kubernetes_tpu_torch/entry.py, the twin of
+     __graft_entry__.py): entry() on the card equal to
+     entry(device="cpu"); dryrun_multichip(4) on 4 shards of cuda:0 (n
+     cards where that many are visible), its own checks passing, the
+     claims kernel launched at least once a shard.  The two phases print
+     their wall together, and the script its whole wall and, on a line of
+     its own, K10's numbers (it has no hand kernel: not in the kernels
+     line).
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
 other rows' paths under the loop: the kernels' launch counts are zeroed
 just before each (before each pass in 8-19) and read just after (before
-a pass's profiled batch); in 5, 6, 8-12, 16, 18 and 19 the
+a pass's profiled batch; in 29 just before the dry run and just
+after it); in 5, 6, 8-12, 16, 18, 19 and 29 the
 claims kernel must have launched, in (a)-(d) no kernel (the full variant
 reaches no hand kernel; 13-15 run it every batch), in 17 nothing, in f
 and 11-12 the preempt kernel; in 26 the counts are zeroed just before
@@ -205,7 +231,8 @@ kernels launch in the worker process: its counts (GET /debug/kernels)
 are zeroed before each pass and read after it, and the claims kernel
 must have launched in 22, the preempt kernel in 25.  The last two lines
 are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
-22's Scheduling100k, 26's sharded assigns and 27's Scheduling100k;
+22's Scheduling100k, 26's sharded assigns, 27's Scheduling100k and 29's
+dry run;
 preempt_dry_run in f, 11, 12 and 25) and the
 device line.  Without a CUDA device the script exits 2 and prints no
 result.
@@ -218,7 +245,8 @@ f's first chunk, in turns (this, other, other, this) on the same inputs,
 after checking that both return the same answers.
 
 --only seam runs phases 1-2 and 22-25, --only sharded phases 1-2 and
-26-27 (27 then prints no single-device row beside its own); --until 4
+26-27 (27 then prints no single-device row beside its own), --only
+snapshot phases 1-2, 28 and 29; --until 4
 stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
@@ -2128,6 +2156,60 @@ def row_over_worker(name, worker, smi, rows_inproc):
     return launches
 
 
+def census_over_worker(worker, dev, smi, n_nodes=5000, batch=4096):
+    """Phase 22's census: a RemoteTorchBatchBackend on the worker process
+    and a TorchBatchBackend in this process, both on the card, take the
+    same batches (4,096 plain pods, then 1,024 of phase (a)'s mix) on the
+    same zoned cluster; device_census() through the worker (/census)
+    must equal the in-process census in every field but device_ms."""
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.ops.remote import RemoteTorchBatchBackend
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+
+    def strip(x):
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items() if k != "device_ms"}
+        return x
+
+    def device_ms(c):
+        return {v: (round(c[v]["device_ms"], 4),
+                    {k: round(kk["device_ms"], 4)
+                     for k, kk in c[v]["kernels"].items()}) for v in c}
+
+    caps = caps_for_nodes(n_nodes)
+    # each backend on its own copy of the cluster (a flatten view tracks
+    # what its one consumer has synced)
+    views = [build_zoned_cluster(n_nodes, 22, disk_labels=True)
+             .flatten_view() for _ in range(2)]
+    batches = [make_batches(1, batch, "c22")[0],
+               [PodInfo(mixed_pod(f"c22m-{i}", i)) for i in range(1024)]]
+    remote = RemoteTorchBatchBackend(worker.url, caps, batch_size=batch)
+    local = TorchBatchBackend(caps, batch_size=batch, device=dev)
+    try:
+        for infos in batches:
+            outs = [[n for n, _st in b.assign(infos, v)]
+                    for b, v in zip((remote, local), views)]
+            check(outs[0] == outs[1] and all(outs[0]),
+                  "census phase: the worker and the in-process backend "
+                  "placed differently, or left pods unplaced")
+        t0 = time.monotonic()
+        got = remote.device_census()
+        t1 = time.monotonic()
+        want = local.device_census()
+        t2 = time.monotonic()
+    finally:
+        remote.close()
+    check(strip(got) == strip(want),
+          f"census over the worker differs from the in-process census: "
+          f"{json.dumps(strip(got))[:400]} vs {json.dumps(strip(want))[:400]}")
+    print(f"   device_census() over the worker (/census, {t1 - t0:.3f} s) "
+          f"equals the in-process census ({t2 - t1:.3f} s) in every field "
+          f"but device_ms; waves {[got[v]['waves'] for v in got]}; "
+          f"device_ms worker {device_ms(got)} in process {device_ms(want)} "
+          f"[{smi}]", flush=True)
+
+
 def seam_phases(dev, smi, rows_inproc):
     """Phases 22-25.  22: a worker in a separate process on the card
     (cmd.tpu_worker), SchedulingBasic and Scheduling100k through the
@@ -2167,6 +2249,7 @@ def seam_phases(dev, smi, rows_inproc):
             print(f"   worker /debug/timeline: {len(steps)} device-step "
                   f"intervals, ms p50 {statistics.median(ms):.3f} max "
                   f"{ms[-1]:.3f} [{smi}]", flush=True)
+            census_over_worker(worker, dev, smi)
         kind = "grpc" if grpc_available() else "http"
         if kind == "http":
             print("   gRPC seam not run: the grpc package does not import "
@@ -2552,6 +2635,228 @@ def sharded_phases(dev, smi, rows):
     return launches, err, {"random": offset_ms, "main path": shard_ms}
 
 
+# -- phases 28-29: the snapshot API, the strict scan, the entry points --
+
+SCAN_PODS = 4096         # phase 28(i): one batch of Scheduling100k's pods
+SCAN_CPU_PODS = 256      # ... whose first pods the CPU scan repeats
+SCAN_PROFILE_PODS = (32, 96)   # launches a pod: the difference of two runs
+MIX_NODES, MIX_PODS = 5000, 1024   # phase 28(ii): phase (a)'s mix
+
+
+def scan_bound(P, N, R):
+    """(ms, "bytes" | "operations", bytes, ops) for a scan of P plain pods
+    over N node rows: the node state read once (alloc and used [N, R],
+    the used_nz cpu and memory columns, npods, maxpods, the static row
+    byte) and the results written once (P assignments, used and npods);
+    per (pod, node) cell 3R + 30 f32 operations (the mask's R subtracts,
+    R compares and R ANDs, the pod cap, the two utilizations, both fit
+    scores with their two fused multiply-adds counted as two operations
+    each, the sqrt, the taint add, the feasible select and the running
+    max)."""
+    from kubernetes_tpu_torch.ops import kernels
+    nbytes = N * (2 * R * 4 + 2 * 4 + 4 + 4 + 1) + P * 4 + N * (R * 4 + 4)
+    ops = P * N * (3 * R + 30)
+    ms, by = kernels.bound(nbytes, ops)
+    return ms, by, nbytes, ops
+
+
+def snapshot_inputs(cache, caps, infos):
+    """(whole node arrays, PodBatch, ClusterTensors) of a cache's nodes
+    and a list of PodInfo, from the port's flatten."""
+    from kubernetes_tpu_torch.ops.flatten import BatchEncoder, ClusterTensors
+    from kubernetes_tpu_torch.parallel.mesh import NODE_KEYS
+    from kubernetes_tpu_torch.scheduler.cache import Snapshot
+    t = ClusterTensors(caps)
+    t.update_from_snapshot(cache.update_snapshot(Snapshot()))
+    batch = BatchEncoder(t, len(infos)).encode(infos)
+    check(not batch.escape, f"snapshot batch escapes: "
+                            f"{dict(list(batch.escape_reasons.items())[:3])}")
+    cd_sg, cd_asg = t.domain_base_counts()
+    node = {k: getattr(t, k) for k in NODE_KEYS
+            if k not in ("cd_sg", "cd_asg")}
+    node.update(cd_sg=cd_sg, cd_asg=cd_asg)
+    return node, batch, t
+
+
+def check_capacity(node, used, npods, label):
+    """No node over its CPU, memory or pod cap, from a result's state."""
+    alloc, maxpods = np.asarray(node["alloc"]), np.asarray(node["maxpods"])
+    over = ((used[:, :2] > alloc[:, :2]).any(1) | (npods > maxpods))
+    check(not over.any(), f"{label}: {int(over.sum())} nodes over their "
+                          f"cpu, memory or pod cap")
+
+
+def scan_at_100k(dev, smi, n_nodes=100_000, pods=SCAN_PODS):
+    """Phase 28(i): one batch of 4,096 Scheduling100k pods at 100,000
+    nodes through build_assign_fn(mode="scan") on the card, every pod
+    placed within capacity, the first 256 pods' assignments equal to the
+    CPU scan's, ms and launches a pod, SyncGuard inside the pod loop.
+    Returns the numbers for the K10 line."""
+    from kubernetes_tpu_torch.models import assign
+    from kubernetes_tpu_torch.ops.flatten import slice_pod_batch
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.testing.sanitizers import BuildCounter, SyncGuard
+    from torch.profiler import ProfilerActivity, profile
+
+    caps = caps_for_nodes(n_nodes)
+    infos = make_batches(1, pods, "scan")[0]
+    node, batch, _t = snapshot_inputs(build_cluster(n_nodes, 28), caps,
+                                      infos)
+    fn = assign.build_assign_fn(caps, mode="scan", device=dev)
+    src, first = inspect.getsourcelines(assign._scan_pods)
+    loop = range(first, first + len(src))
+    torch.cuda.synchronize()
+    with SyncGuard("warn") as guard, BuildCounter() as built:
+        t0 = time.monotonic()
+        out = fn(node, batch)
+        wall = time.monotonic() - t0
+    in_loop = {s: n for s, n in guard.sites.items() if s is not None
+               and s[0].endswith("models/assign.py") and s[1] in loop}
+    a = out["assignments"]
+    check(bool((a >= 0).all()), f"scan 100k: {int((a < 0).sum())} of "
+                                f"{pods} pods unplaced")
+    check_capacity(node, out["used"], out["npods"], "scan 100k")
+    guard_report(guard, built, "the scan at 100k nodes",
+                 [(1, "call", "calls"), (pods, "pod", "pods")], smi)
+    check(not in_loop, f"scan 100k: syncs inside the pod loop {in_loop}")
+    t0 = time.monotonic()
+    again = fn(node, batch)
+    wall2 = time.monotonic() - t0
+    check(np.array_equal(again["assignments"], a),
+          "scan 100k: a second run placed differently")
+    sub = slice_pod_batch(batch, 0, SCAN_CPU_PODS, SCAN_CPU_PODS)
+    t0 = time.monotonic()
+    cpu = assign.build_assign_fn(caps, mode="scan", device="cpu")(node, sub)
+    cpu_s = time.monotonic() - t0
+    diff = np.nonzero(cpu["assignments"] != a[:SCAN_CPU_PODS])[0]
+    check(not diff.size, f"scan 100k: the first {SCAN_CPU_PODS} pods "
+                         f"differ from the CPU scan at {diff[:8].tolist()}")
+    kernels_by_run = []
+    for n in SCAN_PROFILE_PODS:
+        part = slice_pod_batch(batch, 0, n, n)
+        fn(node, part)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(node, part)
+            torch.cuda.synchronize()
+        kernels_by_run.append(sum(
+            1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA))
+    lo, hi = SCAN_PROFILE_PODS
+    per_pod = (kernels_by_run[1] - kernels_by_run[0]) / (hi - lo)
+    ms_pod = wall2 * 1e3 / pods
+    b_ms, b_by, b_bytes, b_ops = scan_bound(pods, caps.n_cap, caps.r)
+    print(f"   scan 100k: {pods} pods over {caps.n_cap} rows "
+          f"placed, within capacity; call wall {wall:.3f} s, again "
+          f"{wall2:.3f} s: {ms_pod:.4f} ms a pod; device activities a "
+          f"pod in the loop {per_pod:.2f} (profiler: {kernels_by_run} for "
+          f"{list(SCAN_PROFILE_PODS)} pods); syncs inside the pod loop "
+          f"{sum(in_loop.values())}, in the call {guard.syncs}; the CPU "
+          f"scan of the first {SCAN_CPU_PODS} pods equal ({cpu_s:.3f} s); "
+          f"bound {b_ms:.4f} ms for the batch ({b_by}: {b_bytes} B, "
+          f"{b_ops} f32 operations) [{smi}]", flush=True)
+    return {"name": "scan (K10, torch)", "ms_per_pod": ms_pod,
+            "launches_per_pod": per_pod, "batch_ms": wall2 * 1e3,
+            "syncs_in_loop": sum(in_loop.values()), "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": b_bytes,
+            "bound_ops": b_ops, "pods": pods, "rows": caps.n_cap}
+
+
+def snapshot_mix(dev, smi, n_nodes=MIX_NODES, pods=MIX_PODS):
+    """Phase 28(ii): a 1,024-pod batch of phase (a)'s constraint mix at
+    5,000 nodes: the scan on the card equal to the scan on the CPU (all
+    three keys), the wave on the card equal to the wave on the CPU and to
+    build_sharded_assign_fn on make_mesh("cuda:0"); both solvers'
+    placements within capacity and the constraints."""
+    from kubernetes_tpu_torch.models import assign
+    from kubernetes_tpu_torch.parallel.mesh import (
+        build_sharded_assign_fn, make_mesh,
+    )
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.scheduler.types import PodInfo
+
+    caps = caps_for_nodes(n_nodes)
+    cache = build_zoned_cluster(n_nodes, 28, disk_labels=True)
+    infos = [PodInfo(mixed_pod(f"m28-{i}", i)) for i in range(pods)]
+    node, batch, t = snapshot_inputs(cache, caps, infos)
+    outs = {}
+    for mode in ("scan", "wave"):
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            t0 = time.monotonic()
+            runs.append(assign.build_assign_fn(
+                caps, mode=mode, device=device)(node, batch))
+            print(f"   mix {mode} on {device.type}: "
+                  f"{time.monotonic() - t0:.3f} s", flush=True)
+        g, c = runs
+        outs[mode] = g
+        for k in c:
+            check(np.array_equal(np.asarray(g[k]), np.asarray(c[k])),
+                  f"mix {mode}: {k} differs between the card and the CPU")
+    t0 = time.monotonic()
+    one = make_mesh(dev)   # cuda:0 on the card
+    sharded = build_sharded_assign_fn(caps, one, batch.p_cap)(node, batch)
+    print(f"   mix sharded on {one}: {time.monotonic() - t0:.3f} s",
+          flush=True)
+    for k, v in outs["wave"].items():
+        check(np.array_equal(np.asarray(v), np.asarray(sharded[k])),
+              f"mix wave: {k} differs from the one-shard sharded form")
+    for mode in ("scan", "wave"):
+        out = outs[mode]
+        rows = out["assignments"]
+        check_capacity(node, out["used"], out["npods"], f"mix {mode}")
+        names = [t.node_name(r) if r >= 0 else None for r in rows]
+        spread = [nm for i, nm in enumerate(names) if i % 4 == 0 and nm]
+        anti = [nm for i, nm in enumerate(names) if i % 4 == 1 and nm]
+        check_constraints(cache, [[(nm, None) for nm in spread]],
+                          f"mix {mode} spread", max_skew=1)
+        check_constraints(cache, [[(nm, None) for nm in anti]],
+                          f"mix {mode} anti", anti=True)
+        print(f"   mix {mode}: placed {int((rows >= 0).sum())} of "
+              f"{pods}; waves {out.get('waves', '-')}; the card equals "
+              f"the CPU bit for bit [{smi}]", flush=True)
+
+
+def snapshot_phases(dev, smi):
+    """Phases 28-29.  28: the snapshot API on the card (scan_at_100k,
+    snapshot_mix).  29: entry() on the card equal to entry(device="cpu"),
+    then dryrun_multichip(4) on four shards of cuda:0 (n cards where that
+    many are visible), the claims kernel's launches zeroed before it and
+    read after it: at least one a shard.  Returns (the K10 numbers, the
+    dry run's claims launches)."""
+    from kubernetes_tpu_torch import entry as port_entry
+    from kubernetes_tpu_torch.ops import kernels
+    t0 = time.monotonic()
+    with Phase("28 the snapshot API on the card"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        k10 = scan_at_100k(dev, smi)
+        snapshot_mix(dev, smi)
+    with Phase("29 the entry points: entry() and dryrun_multichip(4)"):
+        fn, args = port_entry.entry()
+        got = fn(*args)["assignments"]
+        cfn, cargs = port_entry.entry(device="cpu")
+        want = cfn(*cargs)["assignments"]
+        check(np.array_equal(got, want),
+              f"entry(): the card and the CPU differ at "
+              f"{np.nonzero(got != want)[0][:8].tolist()}")
+        print(f"   entry(): {int((got >= 0).sum())} of {len(got)} pods "
+              f"placed, equal to entry(device='cpu') [{smi}]", flush=True)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        dry = port_entry.dryrun_multichip(4)
+        launches = kernels.LAUNCHES["claims"]
+        shards = len(dry["mesh"])
+        check(launches >= shards, f"dryrun_multichip(4): {launches} claims "
+                                  f"launches on {shards} shards")
+        print(f"   dryrun_multichip(4) on {dry['mesh']}: {dry['seconds']:.3f}"
+              f" s; claims launches {launches}; sharded {dry['sharded']}, "
+              f"single {dry['single']}, ratio {dry['ratio']:.3f} [{smi}]",
+              flush=True)
+    print(f"   phases 28-29 wall {time.monotonic() - t0:.3f} s", flush=True)
+    return k10, launches
+
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -2615,9 +2920,10 @@ def parse_args(argv):
                     metavar="TAG=DIR",
                     help="a checkout of another revision whose claims "
                          "and dry-run wrappers to time beside this one's")
-    ap.add_argument("--only", choices=("seam", "sharded"),
+    ap.add_argument("--only", choices=("seam", "sharded", "snapshot"),
                     help="phases 1-2 and then only these (seam: 22-25, "
-                         "sharded: 26-27); prints no result line")
+                         "sharded: 26-27, snapshot: 28-29); prints no "
+                         "result line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -2911,6 +3217,10 @@ def main(argv=None) -> int:
         sharded_phases(dev, smi, {})
         print("partial run (--only sharded): no result line")
         return 0
+    if opts.only == "snapshot":
+        snapshot_phases(dev, smi)
+        print("partial run (--only snapshot): no result line")
+        return 0
 
     with Phase("3 kernel vs plain version"):
         # (P, N, seed, options): random cases, ragged P and N, identical
@@ -3107,8 +3417,14 @@ def main(argv=None) -> int:
     seam_launches = seam_phases(dev, smi, rows)
     # the multi-device sharded path
     shard_launches, shard_err, _offset_ms = sharded_phases(dev, smi, rows)
+    # the snapshot API, the strict scan and the entry points
+    k10, dry_launches = snapshot_phases(dev, smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
+    # K10 has no hand kernel: its numbers ride a line of their own
+    print(json.dumps({"torch_programs": [{
+        **k10, "replaces": "kubernetes_tpu/models/assign.py:794",
+        "source": "kubernetes_tpu_torch/models/assign.py _scan_pods"}]}))
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "claims", "route": "cuda",
@@ -3116,7 +3432,7 @@ def main(argv=None) -> int:
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:171",
         "launches": (launches + loop_launches["Scheduling100k"]["claims"]
                      + seam_launches["Scheduling100k"]["claims"]
-                     + shard_launches),
+                     + shard_launches + dry_launches),
         "max_abs_err": max(errs + [shard_err]), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {

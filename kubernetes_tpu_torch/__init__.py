@@ -19,12 +19,16 @@ Package map:
   ops/kernels.py  - the claims kernel wrapper and its plain torch version
   ops/csrc/       - hand-written CUDA sources (sm_90a), built at first use
   models/assign.py - the wave step in torch: plain (claims kernel) and
-      full (selectors, ports, pins, spread, pod (anti-)affinity)
+      full (selectors, ports, pins, spread, pod (anti-)affinity); the
+      single-device snapshot form (build_assign_fn: the full waves, or
+      the strict one-pod-at-a-time scan, the parity oracle)
   models/carry.py  - resident state to and from the JAX package's arrays
   ops/backend.py   - TorchBatchBackend behind the BatchBackend contract,
       and make_batch_backend (the `backend:` kinds)
   perf/            - the scheduler_perf harness (workloads as JSON) and
       the bench entry, `python3 -m kubernetes_tpu_torch.perf.bench`
+  entry.py         - the entry points (entry, dryrun_multichip),
+      the counterpart of the repo root's __graft_entry__.py
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

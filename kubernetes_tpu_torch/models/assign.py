@@ -65,8 +65,18 @@ Differences from the JAX version, none of which changes a result:
 XLA, compiling the reference on the CPU, contracts one inexact product in
 either wave body: the fit score's (2-ucpu-umem)*50 into
 fma(2-ucpu-umem, 50, (1-|d|*0.5)*100) (ROADMAP R4); kernels.fit_score does
-the same.  Every other product that feeds an add there is exact (integer
-counts and weights, powers of two) or reaches the add through a select.
+the same.  A score weight folds into the constant it multiplies first
+(50 * w_fit, 100 * w_bal, rounded to f32), and the taint weight's product
+is hoisted out of the wave loop, so it is rounded on its own.  Every other
+product that feeds an add there is exact (integer counts and weights,
+powers of two) or reaches the add through a select.
+
+The snapshot form (make_assign_core / build_assign_fn, A:272-282,
+A:929-934) runs one batch on whole node arrays: mode="wave" is the full
+step above on one shard at murmur with the 128-wave ceiling (R11), and
+mode="scan" the strict one-pod-at-a-time solver, the parity oracle
+(_make_scan_core, A:794-926; see _scan_pods for its contraction points,
+ROADMAP R12).
 
 The compacted plain tail always uses the murmur noise keyed on the pods'
 original batch positions, as the JAX tail runs the XLA wave body after a
@@ -680,6 +690,10 @@ class _Full:
         self.caps, self.comm, self.nodes, self.rep, self.pod = (
             caps, comm, nodes, rep, pod)
         self.noises, self.w = noises, w
+        self.c_score = kernels.score_constants(w)
+        # the PreferNoSchedule score of a batch that tolerates every such
+        # taint: 100 in every cell, times the taint weight
+        self.taint_full = float(np.float32(100.0) * np.float32(w["taint"]))
         self.n_loc = N = nodes[0]["alloc"].shape[0]
         self.node_idx = [comm.my_offset(s) + torch.arange(N, device=d)
                          for s, d in enumerate(comm.devices)]
@@ -851,10 +865,13 @@ def _claims_full(f: _Full, node: list, rows):
                 mask &= (pod["match_bits"][r, None]
                          & nd["asg_bits"][None, :]) == 0
             score = kernels.fit_score(*kernels.utilizations(
-                pod["req_nz"][r], st["alloc"], st["used_nz"]))
+                pod["req_nz"][r], st["alloc"], st["used_nz"]), *f.c_score)
             masks.append(mask)
-            scores.append(score + (f.static_score[s][r]
-                                   if f.static_score is not None else 100.0))
+            # XLA hoists w_taint * static_score out of the wave loop: a
+            # product rounded on its own, then added (R12)
+            scores.append(score + (f.static_score[s][r] * w["taint"]
+                                   if f.static_score is not None
+                                   else f.taint_full))
         for c in f.slots:
             kinds = f.kinds[c]
             kind = [pod["c_kind"][r, c] for (_st, _nd, pod), r
@@ -1151,8 +1168,12 @@ def _check_step_args(claims_noise, features, weights) -> dict:
         raise ValueError("features: PLAIN_FEATURES or ALL_FEATURES")
     w = {"fit": 1.0, "balanced": 1.0, "spread": 2.0, "affinity": 1.0,
          "taint": 1.0, **(weights or {})}
-    if (w["fit"], w["balanced"], w["taint"]) != (1.0, 1.0, 1.0):
-        raise ValueError("weights: fit, balanced and taint must stay 1.0")
+    if (features == PLAIN_FEATURES
+            and (w["fit"], w["balanced"], w["taint"]) != (1.0, 1.0, 1.0)):
+        # the claims kernel bakes the default fit and balanced weights in
+        # (the JAX plain path leaves Pallas for its XLA body then)
+        raise ValueError("weights: the plain variant keeps fit, balanced "
+                         "and taint at 1.0")
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         # TF32 keeps ~10 mantissa bits: the [P,P] prefix sums E @ req would
@@ -1198,47 +1219,11 @@ def make_step(caps: Caps, comm: _Comm, p_cap: int, k_cap: int = 1024,
                 local, -1), pvals[s], caps)
         return pod
 
-    def finish(rep, assigned, waves):
-        comm.phase = "call"
-        rep["gen"] += 1
-        result = torch.empty(p_cap + 2, dtype=torch.int32, device=dev)
-        result[:p_cap] = assigned
-        # sync-point: the host's wave count copied in (a pageable copy)
-        result[p_cap] = waves
-        result[p_cap + 1] = rep["gen"]
-        return result
-
     if not plain:
-        noise = []   # per shard: murmur noise keyed on (pod slot, node)
+        run = make_full_run(caps, comm, p_cap, w, max_waves)
 
         def step_full(nodes, rep, buf):
-            pod = start(nodes, buf)
-            n = comm.n_loc
-            if not noise or noise[0].shape[1] != n:
-                tables = []
-                for s, d in enumerate(comm.devices):
-                    table = torch.empty((p_cap, n), dtype=torch.float32,
-                                        device=d)
-                    ids = torch.arange(p_cap, dtype=torch.int32, device=d)
-                    for lo, hi in _row_chunks(p_cap, n, _FULL_CELLS // 4):
-                        table[lo:hi] = kernels.murmur_noise(
-                            ids[lo:hi], n, comm.my_offset(s))
-                    tables.append(table)
-                noise[:] = tables
-            f = _Full(caps, comm, nodes, rep, pod, noise, w)
-            assigned = torch.full((p_cap,), -1, dtype=torch.int32,
-                                  device=dev)
-            active = pod["p_valid"].clone()
-            waves = 0
-            comm.phase = "wave"
-            while waves < max_waves:
-                # sync-point: one count read a wave (the active pods)
-                act = torch.nonzero(active).squeeze(1)
-                if not act.numel():
-                    break
-                _full_wave(f, assigned, active, act)
-                waves += 1
-            return finish(rep, assigned, waves)
+            return run(nodes, rep, start(nodes, buf))
 
         return step_full, spec
 
@@ -1276,9 +1261,62 @@ def make_step(caps: Caps, comm: _Comm, p_cap: int, k_cap: int = 1024,
                 max_waves, 0)
             assigned[idx] = sub_assigned
             active[idx] = sub_active
-        return finish(rep, assigned, waves)
+        return _finish(comm, rep, assigned, waves, p_cap)
 
     return step, spec
+
+
+def _finish(comm, rep, assigned, waves: int, p_cap: int):
+    """The step's result int32[p_cap+2] on home: the assigned rows, the
+    wave count, the state generation (bumped here)."""
+    comm.phase = "call"
+    rep["gen"] += 1
+    result = torch.empty(p_cap + 2, dtype=torch.int32, device=comm.home)
+    result[:p_cap] = assigned
+    # sync-point: the host's wave count copied in (a pageable copy)
+    result[p_cap] = waves
+    result[p_cap + 1] = rep["gen"]
+    return result
+
+
+def make_full_run(caps: Caps, comm: _Comm, p_cap: int, w: dict,
+                  max_waves: int):
+    """The full variant's waves on an unpacked pod dict: run(nodes, rep,
+    pod) -> int32[p_cap+2] as make_step's step (which unpacks the wire
+    buffer, applies its row patches and calls this); `w` the checked
+    score weights.  The snapshot form calls it on a pod dict built from
+    the batch's arrays (_pod_tensors)."""
+    noise = []   # per shard: murmur noise keyed on (pod slot, node)
+    dev = comm.home
+
+    def run(nodes, rep, pod):
+        comm.n_loc = n = nodes[0]["alloc"].shape[0]
+        if not noise or noise[0].shape[1] != n:
+            tables = []
+            for s, d in enumerate(comm.devices):
+                table = torch.empty((p_cap, n), dtype=torch.float32,
+                                    device=d)
+                ids = torch.arange(p_cap, dtype=torch.int32, device=d)
+                for lo, hi in _row_chunks(p_cap, n, _FULL_CELLS // 4):
+                    table[lo:hi] = kernels.murmur_noise(
+                        ids[lo:hi], n, comm.my_offset(s))
+                tables.append(table)
+            noise[:] = tables
+        f = _Full(caps, comm, nodes, rep, pod, noise, w)
+        assigned = torch.full((p_cap,), -1, dtype=torch.int32, device=dev)
+        active = pod["p_valid"].clone()
+        waves = 0
+        comm.phase = "wave"
+        while waves < max_waves:
+            # sync-point: one count read a wave (the active pods)
+            act = torch.nonzero(active).squeeze(1)
+            if not act.numel():
+                break
+            _full_wave(f, assigned, active, act)
+            waves += 1
+        return _finish(comm, rep, assigned, waves, p_cap)
+
+    return run
 
 
 DYN_STATE = ("used", "used_nz", "npods", "port_mask")
@@ -1307,9 +1345,9 @@ def build_packed_assign_fn(caps: Caps, p_cap: int, k_cap: int = 1024,
     max(128, p_cap) full: hard constraints can serialize admission).
     `claims_noise` ("sin" or "murmur") is the plain main phase's
     tie-break rule; the full variant's is murmur.  `weights` overrides the
-    spread and affinity score weights; the fit, balanced and taint
-    weights stay 1.0, the only values whose float contraction in the
-    reference is established (ROADMAP R4)."""
+    score weights; the plain variant keeps fit, balanced and taint at 1.0
+    (the claims kernel bakes them in), the full one takes any (their
+    contraction in the reference: ROADMAP R4, R12)."""
     comm = _Comm([resolve_device(device)])
     step, spec = make_step(caps, comm, p_cap, k_cap, weights, features,
                            max_waves, claims_noise)
@@ -1324,3 +1362,292 @@ def build_packed_assign_fn(caps: Caps, p_cap: int, k_cap: int = 1024,
         return state, result
 
     return fn, spec
+
+
+# ---------------------------------------------------------------------------
+# The snapshot form and the strict scan (the parity oracle)
+# ---------------------------------------------------------------------------
+
+SNAPSHOT_STATIC = ("alloc", "maxpods", "valid", "taint_mask", "label_mask",
+                   "key_mask", "dom_sg", "dom_asg")
+
+
+def _snapshot_arrays(node: dict, dev) -> tuple[dict, dict]:
+    """Whole node arrays (numpy or tensors, parallel/mesh.NODE_KEYS) ->
+    (node, rep) of fresh tensors on `dev`, which a step updates in place:
+    the node-side arrays, and the replicated ones (cd_sg, cd_asg, a zero
+    generation and the namespace masks when given)."""
+    def put(a):
+        # sync-point: a pageable host-to-device copy (the call's inputs)
+        return torch.as_tensor(a).to(dev, copy=True).contiguous()
+    nd = {k: put(node[k]) for k in SNAPSHOT_STATIC + DYN_STATE}
+    rep = {k: put(node[k]) for k in ("cd_sg", "cd_asg")}
+    rep["gen"] = torch.zeros((), dtype=torch.int32, device=dev)
+    rep.update({k: put(node[k]) for k in NS_MASKS
+                if node.get(k) is not None})
+    return nd, rep
+
+
+def _numpy(t) -> np.ndarray:
+    # sync-point: a result pulled to the host, once a call
+    return t.cpu().numpy()
+
+
+# the PodBatch fields the step reads, densified before _pod_tensors
+_BATCH_FIELDS = ("untol_prefer", "ports", "key_forb", "match_asg", "inc_asg",
+                 "inc_sg", "pod_ns", "sel_any_active", "key_any_active",
+                 "node_row", "c_kind", "c_sg", "c_maxskew", "c_selfmatch",
+                 "c_weight", "sel_ids", "sel_forb_ids", "key_ids")
+
+
+def _pod_tensors(batch, caps: Caps, dev) -> dict:
+    """A PodBatch -> the pod dict _unpack makes of its full wire format,
+    straight from the batch's arrays: no wire format, so the key
+    bitmask holds up to 64 keys (the packed one 62).  0/1 vectors become
+    int32 bit words where the step ANDs them and 0/1 floats where it
+    multiplies or commits them."""
+    if max(caps.t_cap, caps.pt_cap, caps.asg_cap, caps.g_cap,
+           caps.kg_cap) > 31 or caps.kl_cap > 64:
+        raise ValueError("bitmask caps: t_cap, pt_cap, asg_cap, g_cap, "
+                         "kg_cap <= 31 and kl_cap <= 64")
+    for nm in _BATCH_FIELDS:
+        batch.ensure(caps, nm)
+
+    def put(a, dtype):
+        # sync-point: the batch's pageable uploads, once a call
+        return torch.as_tensor(np.ascontiguousarray(a, dtype)).to(dev)
+
+    def word(a):
+        return put(_bits(np.asarray(a) > 0), np.int32)
+
+    kf = np.asarray(batch.key_forb) > 0
+    keyforb = (kf.astype(np.uint64) << np.arange(kf.shape[1], dtype=np.uint64)
+               ).sum(1, dtype=np.uint64).view(np.int64)
+    return {
+        "req": put(batch.req, np.float32),
+        "req_nz": put(batch.req_nz, np.float32),
+        "c_maxskew": put(batch.c_maxskew, np.float32),
+        "c_selfmatch": put(batch.c_selfmatch, np.float32),
+        "c_weight": put(batch.c_weight, np.float32),
+        "untol_bits": word(batch.untol_hard),
+        "prefer_bits": word(batch.untol_prefer),
+        "port_bits": word(batch.ports), "keyforb_bits": put(keyforb, np.int64),
+        "ports": put(np.asarray(batch.ports) > 0, np.float32),
+        "match_asg": put(np.asarray(batch.match_asg) > 0, np.float32),
+        "inc_asg": put(np.asarray(batch.inc_asg) > 0, np.float32),
+        "inc_sg": put(np.asarray(batch.inc_sg) > 0, np.float32),
+        "sel_active": put(np.asarray(batch.sel_any_active) > 0, bool),
+        "key_active": put(np.asarray(batch.key_any_active) > 0, bool),
+        "p_valid": put(batch.p_valid, bool),
+        "node_row": put(batch.node_row, np.int32),
+        "pod_ns": put(batch.pod_ns, np.int32),
+        "c_kind": put(batch.c_kind, np.int32),
+        "c_sg": put(batch.c_sg, np.int32),
+        "sel_ids": put(batch.sel_ids, np.int32),
+        "forb_ids": put(batch.sel_forb_ids, np.int32),
+        "key_ids": put(batch.key_ids, np.int32),
+    }
+
+
+def make_assign_core(caps: Caps, weights: dict[str, float] | None = None,
+                     mode: str = "wave", device=None, p_cap: int | None = None):
+    """The single-device snapshot form (A:272-282): fn(node, batch) ->
+    dict of numpy arrays, for whole node arrays `node` (alloc, used,
+    used_nz, npods, maxpods, valid, taint_mask, label_mask, key_mask,
+    port_mask, dom_sg, dom_asg, cd_sg, cd_asg; sg_ns_mask and asg_ns_mask
+    optional; numpy or tensors, never written) and a PodBatch
+    (ops/flatten.BatchEncoder), on `device` (CUDA unless the caller names
+    another).
+
+    mode="wave": the full variant's waves on one shard (make_full_run
+    over a one-device _Comm), murmur noise, at most MAX_WAVES waves (the
+    JAX core's 128, R11); returns assignments, waves, used, used_nz,
+    npods, port_mask, cd_sg and cd_asg (A:782-784).  mode="scan": the
+    strict sequential solver (A:794-926); returns assignments, used and
+    npods (A:924).  `p_cap`, when given, is the only batch size the fn
+    takes; by default each batch's own.  `weights` overrides the score
+    weights (fit, balanced, spread, affinity, taint)."""
+    if mode not in ("wave", "scan"):
+        raise ValueError(f"mode={mode!r}: 'wave' or 'scan'")
+    dev = resolve_device(device)
+    w = _check_step_args("murmur", ALL_FEATURES, weights)
+    comm = _Comm([dev])
+    runs = {}
+
+    def assign(node: dict, batch) -> dict:
+        P = batch.p_cap
+        if p_cap is not None and P != p_cap:
+            raise ValueError(f"batch of {P} slots; this fn takes {p_cap}")
+        nd, rep = _snapshot_arrays(node, dev)
+        pod = _pod_tensors(batch, caps, dev)
+        if mode == "scan":
+            assigned = _scan_batch(caps, w, nd, rep, pod)
+            return {"assignments": _numpy(assigned),
+                    "used": _numpy(nd["used"]), "npods": _numpy(nd["npods"])}
+        if P not in runs:
+            runs[P] = make_full_run(caps, comm, P, w, MAX_WAVES)
+        result = _numpy(runs[P]([nd], rep, pod))
+        out = {"assignments": result[:P], "waves": int(result[P])}
+        out.update({k: _numpy(nd[k]) for k in DYN_STATE})
+        out.update({k: _numpy(rep[k]) for k in ("cd_sg", "cd_asg")})
+        return out
+
+    return assign
+
+
+def build_assign_fn(caps: Caps, weights: dict[str, float] | None = None,
+                    mode: str = "wave", device=None, p_cap: int | None = None):
+    """Single-device assignment: fn(node, batch) -> dict (A:929-934); see
+    make_assign_core.  torch has no jit to wrap it in: the steps are
+    plain torch operations."""
+    return make_assign_core(caps, weights, mode, device, p_cap)
+
+
+def _scan_batch(caps: Caps, w: dict, nd: dict, rep: dict, pod: dict):
+    """The scan over one batch's pod dict on nd's device: the static
+    planes and the batch-wide flags come from _Full (the rows are
+    independent, so the planes are those A:813-814 builds up front), then
+    _scan_pods places the pods one at a time.  Returns the assigned node
+    row per pod slot (int32, -1 unplaced)."""
+    dev = nd["alloc"].device
+    f = _Full(caps, _Comm([dev], nd["alloc"].shape[0]), [nd], rep, pod,
+              [None], w)
+    # sync-point: whether a placement can change what a later pod reads
+    # (the domain counts of the used slots, the existing-anti groups), one
+    # read a call
+    inc_sg, inc_asg = torch.stack([(f.pod["inc_sg"] > 0).any(),
+                                   (f.pod["inc_asg"] > 0).any()]).tolist()
+    return _scan_pods(f, commit_sg=bool(inc_sg and f.slots),
+                      commit_asg=bool(inc_asg and f.any_match))
+
+
+def _asg_bits(cd_asg, dom_a_ix, has_dom_a):
+    """int32 [N]: bit a set where node n's domain of existing-anti group a
+    holds a carrier (A:829-831's acnt > 0)."""
+    acnt = torch.where(has_dom_a, cd_asg.gather(1, dom_a_ix), 0.0)
+    return _bit_columns((acnt > 0).T).to(torch.int32)
+
+
+def _scan_pods(f: _Full, commit_sg: bool, commit_asg: bool):
+    """The strict one-pod-at-a-time placement (A:819-915), term by term:
+    the static row, the resource fit over every resource, the host-port
+    and existing-anti checks, LeastAllocated and BalancedAllocation over
+    cpu and memory, the PreferNoSchedule score, the constraint slots in
+    use (required spread with its min-match over the pod's selector nodes
+    that have the domain, affinity with its bootstrap, anti-affinity, the
+    spread and preferred-affinity scores), the first-index argmax (-1
+    when nothing is feasible), and the commit through the placed node.
+    Nothing is read back to the host: the placed node stays a 0-d tensor,
+    and a pod with no feasible node commits zeros at row 0, as the JAX
+    one-hot adds zeros everywhere.  A slot, kind, port or anti-group
+    check that no pod of the batch uses would add 0.0 or AND True, so it
+    is skipped; commit_sg / commit_asg say whether a placement can change
+    the counts a later pod reads.
+
+    XLA, compiling the reference on the CPU, contracts two products here
+    (ROADMAP R12): the sum of squares under the sqrt, fma(d1, d1, d0*d0),
+    and the fit score, fma(1 - std, fl(100 w_bal), sum(1 - util) *
+    fl(50 w_fit)); the PreferNoSchedule term is fma(static, w_taint,
+    score), an add when w_taint is 1.  The spread and preferred-affinity
+    products reach their adds through a select and are rounded alone."""
+    caps, pod, nd, rep, w = f.caps, f.pod, f.nodes[0], f.rep, f.w
+    dev = f.comm.home
+    P = pod["req"].shape[0]
+    c_fit, c_bal = f.c_score
+    alloc, maxpods = nd["alloc"], nd["maxpods"]
+    used, used_nz, npods, ports = (nd["used"], nd["used_nz"], nd["npods"],
+                                   nd["port_mask"])
+    cd_sg, cd_asg = rep["cd_sg"], rep["cd_asg"]
+    a_pos, a_div = alloc[:, :2] > 0, alloc[:, :2].clamp(min=1.0)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    dom_ix, has_dom_all = nd["dom_sg"].clamp(min=0).long(), nd["dom_sg"] >= 0
+    dom_a_ix = nd["dom_asg"].clamp(min=0).long()
+    has_dom_a = nd["dom_asg"] >= 0
+    # flat offsets of each group's row in the count tables
+    sg_cells = torch.arange(caps.sg_cap, device=dev) * cd_sg.shape[1]
+    asg_cells = torch.arange(caps.asg_cap, device=dev) * cd_asg.shape[1]
+    asg_bits = (_asg_bits(cd_asg, dom_a_ix, has_dom_a) if f.any_match
+                else None)
+    static_mask, sel_mask = f.static_mask[0], f.sel_mask[0]
+    static_score = f.static_score[0] if f.static_score is not None else None
+    w_taint = float(np.float32(w["taint"]))
+    assigned = torch.empty(P, dtype=torch.int32, device=dev)
+    for p in range(P):
+        req = pod["req"][p]
+        mask = (static_mask[p] & (npods + 1.0 <= maxpods)
+                & (req <= alloc - used).all(1))
+        if f.any_ports:
+            mask &= torch.mv(ports, pod["ports"][p]) == 0
+        if asg_bits is not None:
+            if commit_asg and p:
+                asg_bits = _asg_bits(cd_asg, dom_a_ix, has_dom_a)
+            mask &= (f.match_bits[p] & asg_bits) == 0
+        u = used_nz[:, :2] + pod["req_nz"][p, :2]
+        util = torch.where(a_pos, torch.minimum(u / a_div, one), one)
+        d = util - (util.sum(1) * 0.5)[:, None]
+        sq = kernels.fma32(d[:, 1], d[:, 1], d[:, 0] * d[:, 0])
+        score = kernels.fma32(1.0 - torch.sqrt(sq * 0.5), c_bal,
+                              (1.0 - util).sum(1) * c_fit)
+        if w_taint == 1.0:
+            score = score + (static_score[p] if static_score is not None
+                             else 100.0)
+        else:
+            score = kernels.fma32(static_score[p] if static_score is not None
+                                  else torch.full_like(score, 100.0),
+                                  w_taint, score)
+        for c in f.slots:
+            kinds, kind = f.kinds[c], pod["c_kind"][p, c]
+            sg = f.c_sg[p, c:c + 1]
+            has_dom = has_dom_all.index_select(0, sg)[0]
+            cnt_row = cd_sg.index_select(0, sg)[0]
+            gathered = torch.where(
+                has_dom, cnt_row[dom_ix.index_select(0, sg)[0]], 0.0)
+            selfm = pod["c_selfmatch"][p, c]
+            # the kinds are exclusive: AND over the hard kinds in use of
+            # "ok or another kind" is A:860-864's nested select
+            if C_SPREAD_HARD in kinds:
+                mm = torch.where(sel_mask[p] & has_dom, gathered, INF).amin()
+                mm = torch.where(torch.isfinite(mm), mm, 0.0)
+                mask &= ((((gathered + selfm) - mm <= pod["c_maxskew"][p, c])
+                          & has_dom) | (kind != C_SPREAD_HARD))
+            if C_AFFINITY in kinds:
+                boot = (cnt_row.sum() == 0) & (selfm > 0)
+                mask &= (((gathered > 0) | boot) & has_dom) | (
+                    kind != C_AFFINITY)
+            if C_ANTI_AFFINITY in kinds:
+                mask &= ~has_dom | (gathered == 0) | (kind != C_ANTI_AFFINITY)
+            if C_SPREAD_SCORE in kinds:
+                smx = torch.where(mask, gathered, 0.0).amax()
+                smn = torch.where(mask, gathered, INF).amin()
+                smn = torch.where(torch.isfinite(smn), smn, 0.0)
+                rng = torch.clamp(smx - smn, min=1.0)
+                spread = (smx - gathered) * 100.0 / rng * w["spread"]
+                score = score + torch.where(kind == C_SPREAD_SCORE, spread,
+                                            0.0)
+            if C_PREF_AFFINITY in kinds:
+                cw = w["affinity"] * pod["c_weight"][p, c]
+                score = score + torch.where(kind == C_PREF_AFFINITY,
+                                            cw * gathered, 0.0)
+        feasible = mask & pod["p_valid"][p]
+        _best, j = torch.where(feasible, score, kernels.NEG).max(0)
+        ok = feasible.any()
+        assigned[p] = torch.where(ok, j, -1)
+        # commit through node j (weight 0 when nothing was feasible)
+        okf, jv = ok.to(torch.float32), j.view(1)
+        used.index_add_(0, jv, (req * okf)[None])
+        used_nz.index_add_(0, jv, (pod["req_nz"][p] * okf)[None])
+        npods.index_add_(0, jv, okf.view(1))
+        if f.any_ports:
+            ports.index_add_(0, jv, (pod["ports"][p] * okf)[None])
+            ports.index_copy_(0, jv, ports.index_select(0, jv).clamp_(max=1.0))
+        # the domain counts through j's domains: one cell a group
+        if commit_sg:
+            dj = nd["dom_sg"].index_select(1, jv)[:, 0]
+            cd_sg.view(-1).index_add_(0, sg_cells + dj.clamp(min=0).long(),
+                                      pod["inc_sg"][p] * (dj >= 0) * okf)
+        if commit_asg:
+            dj = nd["dom_asg"].index_select(1, jv)[:, 0]
+            cd_asg.view(-1).index_add_(
+                0, asg_cells + dj.clamp(min=0).long(),
+                pod["inc_asg"][p] * (dj >= 0) * okf)
+    return assigned

@@ -1221,7 +1221,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
 
     # -- device census ---------------------------------------------------
 
-    def device_census(self, variants: tuple = ("full", "plain")) -> dict:
+    def device_census(self, variants: tuple = ("full", "plain"),
+                      req=None) -> dict:
         """Cost census of the step variants, the counterpart of the JAX
         backend's (which lowers each variant and reads XLA's cost
         analysis): torch cannot cost a step without running it, so this
@@ -1244,18 +1245,20 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         "per_wave_bytes": 0 (one device), "cost": {"flops",
         "bytes_accessed"}, "kernels": {name: {"launches", "device_ms",
         "bytes", "bound_ms", "bound_by"}}, "device_ms", "waves",
-        "batch": {"pods", "req"}}}; device_ms are 0.0 off the card.  The
+        "batch": {"pods", "req"}}}; device_ms are 0.0 off the card.
+        `req` overrides the census pod's request (the remote worker,
+        which keeps no host copy of the state, takes its client's).  The
         clone is taken under the backend lock and the steps run outside
         it, so a census does not stall a concurrent dispatch.  torch's
         profiler allows one session a process: never run a census inside
         another profiler's window."""
         names = [v for v in ("full", "plain") if v in variants]
         with self._lock:
-            plans = [self._census_plan(v) for v in names]
+            plans = [self._census_plan(v, req) for v in names]
         return {v: census_run(self.device, self._stepped, v, *plan)
                 for v, plan in zip(names, plans)}
 
-    def _census_plan(self, variant: str) -> tuple:
+    def _census_plan(self, variant: str, req=None) -> tuple:
         """(step fn, cloned state, static arrays, packed batch on the
         device, pods, request) for one census step (caller holds the
         lock)."""
@@ -1287,7 +1290,8 @@ class TorchBatchBackend(ResidentHostMirror, BatchBackend):
         else:
             fn, spec, pods = self._ensure_plain(), self._spec_plain, \
                 self.batch_size
-        req = self._census_req()
+        if req is None:
+            req = self._census_req()
         batch = dataclasses.replace(
             batch, req=np.tile(req, (pods, 1)), req_nz=np.tile(req, (pods, 1)),
             p_valid=np.ones(pods, bool))

@@ -223,8 +223,10 @@ def fma32(a, b, c):
     the product of two f32 values is exact in f64, and for the operands
     this module passes (score terms in [0, 200], sin arguments below 2^24
     built from integer pod/node ids) the f64 sum is exact too, so the one
-    rounding to f32 is the fma's."""
-    return (a.double() * b.double() + c.double()).float()
+    rounding to f32 is the fma's.  `b` may be a Python float holding an
+    f32 value (a folded constant)."""
+    b = b.double() if torch.is_tensor(b) else float(b)
+    return (a.double() * b + c.double()).float()
 
 
 # pi/2 as four parts of 26 significant bits each: k * part is exact in f64
@@ -301,16 +303,27 @@ def sin_noise(pod_ids, n_nodes: int):
     return (h - torch.floor(h)) * SIN_NOISE
 
 
-def fit_score(ucpu, umem):
+def fit_score(ucpu, umem, c_fit: float = 50.0, c_bal: float = 100.0):
     """LeastAllocated + BalancedAllocation from the cpu/mem utilizations:
-    (2 - ucpu - umem) * 50 + (1 - |ucpu - umem| * 0.5) * 100, with the
-    first product fused into the sum — exactly how the reference's XLA
+    (2 - ucpu - umem) * c_fit + (1 - |ucpu - umem| * 0.5) * c_bal, with
+    the first product fused into the sum — exactly how the reference's XLA
     compilation on the CPU evaluates it (it contracts a*b + c*d into
-    fma(a, b, c*d)), so the murmur rule stays bit-identical to it."""
+    fma(a, b, c*d)), so the murmur rule stays bit-identical to it.  The
+    constants are 50 * w_fit and 100 * w_bal rounded to f32, as XLA folds
+    a score weight into the constant it multiplies (score_constants)."""
     # sync-point: a constant uploaded, once a call (the full step's waves)
-    fifty = torch.tensor(50.0, dtype=torch.float32, device=ucpu.device)
-    return fma32(2.0 - ucpu - umem, fifty,
-                 (1.0 - torch.abs(ucpu - umem) * 0.5) * 100.0)
+    c = torch.tensor(c_fit, dtype=torch.float32, device=ucpu.device)
+    return fma32(2.0 - ucpu - umem, c,
+                 (1.0 - torch.abs(ucpu - umem) * 0.5) * c_bal)
+
+
+def score_constants(w: dict) -> tuple[float, float]:
+    """(c_fit, c_bal): 50 * w["fit"] and 100 * w["balanced"] rounded to
+    f32.  XLA folds w * (x * 50) into x * fl(50 w) before it contracts
+    the sum of the two terms (ROADMAP R4, R12); with weights of 1.0 they
+    are 50 and 100."""
+    return (float(np.float32(50.0) * np.float32(w["fit"])),
+            float(np.float32(100.0) * np.float32(w["balanced"])))
 
 
 def utilizations(req_nz, alloc, used_nz):

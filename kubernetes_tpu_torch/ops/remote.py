@@ -16,7 +16,8 @@ precedent for an out-of-process scheduling hook is the HTTP extender
     state), /step?variant=plain|full|full_small (one packed pod+patch
     buffer in, the result vector out: the claims kernel runs on every
     plain wave), /preempt (one chunk of the dry run: the preemption
-    kernel), /timeline (drain the worker's wave timeline) and /health.
+    kernel), /census (TorchBatchBackend.device_census on the resident
+    state), /timeline (drain the worker's wave timeline) and /health.
     `DeviceWorker` serves them over HTTP/1.1, `GrpcDeviceWorker` over
     gRPC (HTTP/2), each packed buffer one message with identity
     serializers.
@@ -49,9 +50,10 @@ Fault model, as the JAX package's:
     requeues the batch and the failover ladder (ops/failover.py) may
     trip its breaker.
 
-The device census is not served over the seam: the port's census runs a
-step on the resident state, which lives in the worker's process
-(RemoteTorchBatchBackend.device_census raises, naming the ROADMAP item).
+The device census is served over the seam: the port's census runs a
+step on a clone of the resident state, which lives in the worker's
+process, so RemoteTorchBatchBackend.device_census posts /census (the JAX
+client lowers the step on its own side and never sends the verb).
 """
 
 from __future__ import annotations
@@ -367,8 +369,10 @@ class _WorkerCore:
                 raise WorkerError(E_INVALID, f"bad /static body: {e!r}")
             b._static_node = static_node
             # both halves resident: the worker's host tensors are empty,
-            # so nothing may rebuild them from there
+            # so nothing may rebuild them from there (the census reads
+            # the resident arrays while their version is current)
             b._static_sel = static_sel
+            b._static_version = b.tensors.static_version
             if all(k in arrays for k in STATIC_VICT):
                 # the victim tensors ride the same body once the client's
                 # preemption path engaged
@@ -388,7 +392,31 @@ class _WorkerCore:
             return self._step(b, path.rsplit("=", 1)[-1], body)
         if path == "/preempt":
             return self._preempt(b, body)
+        if path == "/census":
+            return self._census(b, body)
         raise WorkerError(E_INVALID, f"unknown verb {path!r}")
+
+    def _census(self, b: TorchBatchBackend, body: bytes):
+        # the census steps a clone of the resident state: read-only, so a
+        # retry or a replay cannot double-apply anything.  The census
+        # pod's request comes from the client's mirror (the worker keeps
+        # no host copy of the state)
+        if b._state is None or b._static_node is None:
+            raise WorkerError(E_STATE_LOST, "no resident static or dynamic "
+                              "state (/static and /refresh first)")
+        try:
+            cfg = json.loads(body)
+            variants = tuple(cfg["variants"])
+            req = np.asarray(cfg["req"], np.float32)
+        except (ValueError, TypeError, KeyError) as e:
+            raise WorkerError(E_INVALID, f"bad /census body: {e!r}")
+        if req.shape != (b.caps.r,):
+            raise WorkerError(E_INVALID, f"bad /census body: req of shape "
+                              f"{req.shape}, caps take ({b.caps.r},)")
+        try:
+            return b.device_census(variants, req=req)
+        except Exception as e:  # noqa: BLE001 — classify, don't die
+            raise WorkerError(E_INTERNAL, f"/census failed: {e!r}")
 
     def _step(self, b: TorchBatchBackend, variant: str, body: bytes):
         specs = {"plain": b._spec_plain, "full": b._spec_full}
@@ -590,6 +618,7 @@ _GRPC_VERBS = {
     "StepFullSmall": "/step?variant=full_small",
     "StepPlain": "/step?variant=plain",
     "Preempt": "/preempt",
+    "Census": "/census",
     "Timeline": "/timeline",
     "Health": "/health",
 }
@@ -949,10 +978,23 @@ class RemoteTorchBatchBackend(TorchBatchBackend):
         self._epoch = got.get("epoch")
 
     def device_census(self, variants: tuple = ("full", "plain")) -> dict:
-        raise NotImplementedError(
-            "device_census over the remote seam: the census runs a step on "
-            "the resident state, which lives in the worker's process, and "
-            "the worker serves no census verb (ROADMAP queue 1 item 6b)")
+        """TorchBatchBackend.device_census run by the worker on its
+        resident state (/census): the static arrays and the state are
+        made resident first, as a dispatch would, and the census pod's
+        request is this side's (from the mirror).  Equal to the
+        in-process census on the same state but for device_ms, which the
+        worker's device reads."""
+        with self._lock:
+            self._seam_prepare()
+            if (self._static_node is None
+                    or self._static_version != self.tensors.static_version):
+                self._upload_static()
+            if self._state is None:
+                self._full_refresh(*self.tensors.domain_base_counts())
+            req = self._census_req()
+        body = json.dumps({"variants": list(variants),
+                           "req": [float(x) for x in req]}).encode()
+        return json.loads(self._call("/census", body, None))
 
     # -- resilient transport ---------------------------------------------
 

@@ -20,7 +20,7 @@ from torch_cases import (
     PORT_PKG, SEQ_BATCH, SEQ_CAPS, STEP_CASES, candidates_case,
     dry_run_case, dry_run_inputs, make_full_case, make_step_case,
     pipelined_run, port_side, port_tensors, run_claims, run_port_full_step,
-    run_port_step, sequence, step_patches,
+    run_port_step, sequence, snapshot_node, step_patches,
 )
 
 pytestmark = pytest.mark.cuda
@@ -136,6 +136,24 @@ def test_full_step_matches_cpu_step(cuda, name):
     np.testing.assert_array_equal(gres, cres)
     for k in assign.STATE_KEYS:
         np.testing.assert_array_equal(gst[k], cst[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["every_kind", "every_kind_tail"])
+@pytest.mark.parametrize("mode", ["scan", "wave"])
+def test_snapshot_on_the_card_equals_cpu(cuda, mode, name):
+    """The snapshot form at 5,000 nodes (every constraint kind, ports,
+    pins, PreferNoSchedule taints, namespaceSelector terms): the scan and
+    the wave on the card equal themselves on the CPU, every output key
+    bit for bit."""
+    caps, state, static, batch, _p = make_full_case(name, n_nodes=5000)
+    node = snapshot_node(state, static)
+    got = assign.build_assign_fn(caps, mode=mode, device=cuda)(node, batch)
+    want = assign.build_assign_fn(caps, mode=mode, device="cpu")(node, batch)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]),
+                                      err_msg=k)
+    assert (want["assignments"] >= 0).any()
 
 
 def test_backend_matches_cpu_backend(cuda):

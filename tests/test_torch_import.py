@@ -1,7 +1,7 @@
 """kubernetes_tpu_torch stands alone: it imports and runs a CPU step (and
-a sharded one, on a mesh of CPU shards) with jax and kubernetes_tpu
-unimportable, and no module of it (nor chip_smoke.py) names either in an
-import statement."""
+a sharded one, on a mesh of CPU shards, and the entry point's snapshot
+step) with jax and kubernetes_tpu unimportable, and no module of it (nor
+chip_smoke.py) names either in an import statement."""
 
 import ast
 import pathlib
@@ -50,6 +50,9 @@ for i in range(3):
     cache.add_node(make_node(f"n{i}").capacity(cpu="2", mem="4Gi").build())
 out = sharded.assign(pods, cache.flatten_view())
 assert all(name for name, _ in out), out
+from kubernetes_tpu_torch.entry import entry
+fn, args = entry(device="cpu")
+assert (fn(*args)["assignments"] >= 0).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))
 assert not bad, bad

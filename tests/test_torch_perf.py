@@ -132,8 +132,10 @@ def _cfg():
 
 
 def _remote_census():
-    """The census over the remote seam: the step it runs lives in the
-    worker's process (a worker on the CPU, stopped before returning)."""
+    """The census over the remote seam (ROADMAP item 6b): the step it runs
+    lives in the worker's process (a worker on the CPU, stopped before
+    returning), which serves /census.  Returns (the census, the verbs the
+    worker served)."""
     from kubernetes_tpu_torch.ops.flatten import Caps
     from kubernetes_tpu_torch.ops.remote import (
         DeviceWorker, RemoteTorchBatchBackend,
@@ -145,7 +147,7 @@ def _remote_census():
                              pt_cap=4, s_cap=1, sg_cap=2, asg_cap=2),
             batch_size=4)
         try:
-            client.device_census()
+            return client.device_census(), dict(worker.core.served)
         finally:
             client.close()
     finally:
@@ -156,7 +158,6 @@ NOT_PORTED = {
     "via_http": lambda: port_perf.setup_cluster(via_http=True),
     "via_http_process": lambda: port_perf.setup_cluster(
         via_http="process"),
-    "remote_seam": _remote_census,
     "run_named_workload_via_http": lambda: port_perf.run_named_workload(
         _cfg(), via_http=True, device="cpu"),
 }
@@ -166,6 +167,19 @@ NOT_PORTED = {
 def test_unported_branches_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NOT_PORTED[case]()
+
+
+def test_remote_census_is_served():
+    """Before any dispatch: the client makes the static arrays and the
+    state resident on the worker, which runs the census of both
+    variants (the default census request on an empty cluster)."""
+    census, served = _remote_census()
+    assert set(census) == {"full", "plain"}
+    for v in census.values():
+        assert v["waves"] >= 1 and v["batch"]["pods"] >= 1
+        assert v["cost"]["bytes_accessed"] > 0
+    assert served["/census"] == 1 and served["/static"] == 1
+    assert served["/refresh"] == 1
 
 
 def test_apply_and_scaleout_raise():

@@ -198,6 +198,41 @@ class TestRemoteBackendParity:
         assert got["port"][1][0][0] is None  # the worker kept the claim
 
 
+@pytest.mark.parametrize("kind", ["http", "grpc"])
+def test_census_over_the_seam_equals_the_in_process_census(kind):
+    """RemoteTorchBatchBackend.device_census posts /census, and the
+    worker's census of its resident state (both variants) equals
+    TorchBatchBackend.device_census in process after the same batches:
+    every field, device_ms included (0.0 on the CPU on both sides)."""
+    pkg = PKGS["port"]
+    nodes, _pods = spread_case(pkg)
+    snap = pkg.snapshot(nodes)
+    t = pkg.testing
+    batches = [[t.make_pod(f"p{i}").req(cpu="300m", mem="256Mi").build()
+                for i in range(10)], spread_case(pkg)[1]]
+    worker = pkg.worker(kind)
+    try:
+        client = pkg.client(worker.url, batch_size=16, full_batch_cap=8)
+        local = TorchBatchBackend(Caps(**CAPS), batch_size=16, device="cpu",
+                                  claims_noise="murmur", full_batch_cap=8)
+        try:
+            for pods in batches:
+                got = [outcome(b.assign(pkg.infos(pods), snap))
+                       for b in (client, local)]
+                assert got[0] == got[1]
+                assert all(n for n, _c in got[0])
+            remote, want = client.device_census(), local.device_census()
+        finally:
+            client.close()
+    finally:
+        worker.stop()
+    assert remote == want
+    assert set(remote) == {"full", "plain"}
+    # the claims kernel's plain version ran: counted, never launched
+    assert remote["plain"]["kernels"]["claims"]["launches"] == 0
+    assert worker.core.served["/census"] == 1
+
+
 def wait_for(pred, timeout=60.0):
     deadline = time.time() + timeout
     while time.time() < deadline:

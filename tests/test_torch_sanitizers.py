@@ -288,6 +288,31 @@ def test_cpu_visible_syncs_sit_at_annotated_sites(monkeypatch, path):
     assert not probe.unannotated(), probe.unannotated()
 
 
+def test_scan_reads_nothing_back_inside_its_pod_loop(monkeypatch):
+    """The snapshot scan (models/assign.py _scan_pods) on a batch of every
+    constraint kind, host ports, pins, PreferNoSchedule taints and
+    namespaceSelector terms, under the probe: no site inside the pod loop
+    reads back (the placed node stays on the device: an .item(), a
+    bool() or a nonzero there would show as a read), and whatever the
+    probe sees outside it is annotated."""
+    import inspect
+
+    from kubernetes_tpu_torch.models import assign
+    from torch_cases import make_full_case, snapshot_node
+    caps, state, static, batch, _p = make_full_case("every_kind")
+    fn = assign.build_assign_fn(caps, mode="scan", device="cpu")
+    probe = _SyncProbe(monkeypatch)
+    with probe.mode:
+        out = fn(snapshot_node(state, static), batch)
+    assert (out["assignments"] >= 0).any()
+    src, first = inspect.getsourcelines(assign._scan_pods)
+    loop = range(first, first + len(src))
+    inside = [s for s in probe.sites if s is not None
+              and s[0].endswith("models/assign.py") and s[1] in loop]
+    assert not inside, inside
+    assert not probe.unannotated(), probe.unannotated()
+
+
 # -- LockOrderChecker (tools/ktpulint/sanitizers.py's, copied) -------------
 
 def test_consistent_order_is_clean():

@@ -577,15 +577,44 @@ FULL_CASES = {
 }
 
 
-def make_full_case(name, seed=0):
-    """(caps, state, static, batch, patches) for FULL_CASES[name]: the
-    state and static numpy arrays from the port's ClusterTensors, the
-    batch from its BatchEncoder (no pod escapes), the row patches (or
-    None) for the buffer."""
+def _case_every_kind(rng, i, testing):
+    maker = [_case_selectors, _case_prefer, _case_pin, _case_ports,
+             _case_spread, _case_anti, _case_affinity, _case_preferred,
+             _case_spread_soft, _case_ns][i % 10]
+    return maker(rng, i, testing)
+
+
+# the snapshot form's own cases (FULL_CASES' layout): every constraint
+# kind, host ports, PreferNoSchedule taints, nodeName pins and
+# namespaceSelector terms in one batch, beside existing pods in several
+# namespaces (anti-affinity terms against them, of existing pods or of
+# batch pods, would push the namespaced pods past c_cap: anti_existing
+# and mixed_patched carry those)
+SNAPSHOT_CASES = {
+    "every_kind": (_case_every_kind, FULL_P, 40, 20, False, True, True,
+                   False),
+    "every_kind_tail": (_case_every_kind, FULL_P_TAIL, 60, 30, False, True,
+                        True, False),
+}
+
+
+def make_full_case(name, seed=0, n_nodes=None):
+    """(caps, state, static, batch, patches) for FULL_CASES[name] (or
+    SNAPSHOT_CASES[name]): the state and static numpy arrays from the
+    port's ClusterTensors, the batch from its BatchEncoder (no pod
+    escapes), the row patches (or None) for the buffer.  `n_nodes`
+    overrides the case's node count (n_cap grows to hold them)."""
     from kubernetes_tpu_torch.ops.flatten import BatchEncoder, ClusterTensors
-    build, P, n_nodes, n_exist, anti, ns, prefer, patched = FULL_CASES[name]
-    rng = np.random.default_rng(sorted(FULL_CASES).index(name) * 100 + seed)
-    caps = Caps(**FULL_CAPS)
+    if name in FULL_CASES:
+        spec, base = FULL_CASES[name], sorted(FULL_CASES).index(name) * 100
+    else:
+        spec = SNAPSHOT_CASES[name]
+        base = 10_000 + sorted(SNAPSHOT_CASES).index(name) * 100
+    build, P, n_nodes_case, n_exist, anti, ns, prefer, patched = spec
+    rng = np.random.default_rng(base + seed)
+    n_nodes = n_nodes or n_nodes_case
+    caps = Caps(**dict(FULL_CAPS, n_cap=max(FULL_CAPS["n_cap"],
+                                            -(-n_nodes // 64) * 64)))
     cache = port_cache.Cache()
     nodes = _full_nodes(rng, n_nodes, port_testing, prefer,
                         varied=name.endswith("varied"))
@@ -630,6 +659,12 @@ def make_full_case(name, seed=0):
         vals[0, 2 * caps.r + 1] = 1     # a host port taken on row 1
         patches = (rows, vals)
     return caps, state, static, batch, patches
+
+
+def snapshot_node(state, static):
+    """The snapshot form's whole node arrays from a case's state and
+    static dicts (every key but gen)."""
+    return {**static, **{k: v for k, v in state.items() if k != "gen"}}
 
 
 def run_port_full_step(caps, p_cap, state, static, buf, device="cpu",
