@@ -213,6 +213,19 @@ Phases (each prints its wall time; any failed check exits non-zero):
      their wall together, and the script its whole wall and, on a line of
      its own, K10's numbers (it has no hand kernel: not in the kernels
      line).
+ 30. the front door (apiserver/, client/http_client.py): SchedulingBasicHTTP
+     (i) and SchedulingBasicHTTPProc (ii) at bench.py's parameters (5,000
+     nodes, 10,000 measured pods, batch 4,096, depth 2) through
+     perf.bench's run_once, the apiserver (RBAC, default admission, WAL)
+     in process (i) and as python -m kubernetes_tpu_torch.cmd.apiserver
+     (ii), every component speaking HTTP to it; then (iii) the same
+     workload through LocalClient, with the timeline armed in all three;
+     each row held to 8's checks, pods/s and pod e2e p50/p99 printed and
+     the REST tax as (iii)'s pods/s over (i)'s and over (ii)'s; the
+     in-process apiserver's GET /debug/timeline must hold the device
+     stages, one claims wave recorded in (i) must replay equal to the
+     plain version, (ii)'s apiserver process must be gone after its row
+     and the phase must import no yaml module.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -232,7 +245,8 @@ are zeroed before each pass and read after it, and the claims kernel
 must have launched in 22, the preempt kernel in 25.  The last two lines
 are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
 22's Scheduling100k, 26's sharded assigns, 27's Scheduling100k and 29's
-dry run;
+dry run, and 30's three rows; in 30 the counts are zeroed just before
+each row and read in its `after` hook;
 preempt_dry_run in f, 11, 12 and 25) and the
 device line.  Without a CUDA device the script exits 2 and prints no
 result.
@@ -246,7 +260,7 @@ after checking that both return the same answers.
 
 --only seam runs phases 1-2 and 22-25, --only sharded phases 1-2 and
 26-27 (27 then prints no single-device row beside its own), --only
-snapshot phases 1-2, 28 and 29; --until 4
+snapshot phases 1-2, 28 and 29, --only http phases 1-2 and 30; --until 4
 stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
@@ -2857,6 +2871,104 @@ def snapshot_phases(dev, smi):
     return k10, launches
 
 
+FRONT_DOOR_ROWS = (("i", "SchedulingBasicHTTP"),
+                   ("ii", "SchedulingBasicHTTPProc"),
+                   ("iii", "SchedulingBasicHTTP"))   # (iii): LocalClient
+
+
+def front_door_phase(smi):
+    """Phase 30: the front door on the card.  SchedulingBasicHTTP (i) and
+    SchedulingBasicHTTPProc (ii) at bench.py's parameters (5,000 nodes,
+    10,000 measured pods after the 1,000-pod warm-up, batch 4,096, depth
+    2) through perf.bench.run_config: an apiserver with RBAC, the default
+    admission chain and a WAL, in process (i) or in a process of its own
+    (ii), and the scheduler's informers, binds and events and the
+    submitter speaking HTTP to it; then (iii) the same workload and size
+    through LocalClient.  The timeline is armed in all three, so the REST
+    tax, (iii)'s pods/s over (i)'s and over (ii)'s, compares like with
+    like.  Each row runs once, the kernels' counts zeroed just before it
+    and read in its `after` hook, and is held to check_pass's invariants
+    (every pod bound, none over CPU, memory or 110 pods, no ERROR status,
+    escape rate 0, the claims kernel launched).  In (i) the in-process
+    apiserver's GET /debug/timeline must hold the backend's device stages,
+    and one claims wave recorded in (i) (ClaimsRecorder: the launch with
+    the most live pods) replays equal to kernels.claims_reference; (ii)'s
+    apiserver process must be gone after the row; and the phase must
+    import no yaml module.  Returns {row tag: claims launches}."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.perf import bench
+    from kubernetes_tpu_torch.scheduler.config import ProfilingPolicy
+
+    def zero():
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+    yaml_before = {m for m in sys.modules if m.split(".")[0] == "yaml"}
+    launches, rates = {}, {}
+    with Phase("30 the front door on the card"):
+        for tag, name in FRONT_DOOR_ROWS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = bench.CONFIGS[name]
+            args = bench.pass_args(name)
+            if tag == "iii":
+                args["via_http"] = False
+            label = (f"30({tag}) {name}" if tag != "iii" else
+                     "30(iii) SchedulingBasicHTTP's workload via LocalClient")
+            seen = {"pass": 1}
+
+            def after(cluster, seen=seen, tag=tag, label=label):
+                seen["launches"] = dict(kernels.LAUNCHES)
+                seen["escapes"] = pass_escapes(cluster)
+                front = cluster.front
+                seen["proc"] = front and front.proc
+                if tag == "i":
+                    tl = cluster.client._request("GET", "/debug/timeline")
+                    stages = {r["stage"] for r in tl["interval_rows"]}
+                    check(tl["enabled"] and {"h2d", "device-step", "d2h"}
+                          <= stages, f"{label}: /debug/timeline stages "
+                                     f"{sorted(stages)}")
+                    print(f"   {label}: the apiserver's /debug/timeline "
+                          f"holds {len(tl['interval_rows'])} intervals, "
+                          f"stages {sorted(stages)}, device idle share "
+                          f"{tl.get('device_idle_share')}", flush=True)
+            policy = ProfilingPolicy(timeline=True)
+            with ClaimsRecorder(kernels, keep=tag == "i") as rec:
+                zero()
+                res = bench.run_once(**args, profiling_policy=policy,
+                                     after=after)
+            check("launches" in seen, f"{label}: {res.get('error')}")
+            check_pass(name if tag != "iii" else f"{name} via LocalClient",
+                       cfg, res, seen, smi, False, False)
+            if tag == "ii":
+                check(seen["proc"] is not None
+                      and seen["proc"].poll() is not None,
+                      f"{label}: the apiserver process outlived the row")
+            if tag == "i":
+                torch.cuda.synchronize()
+                live = [int(r[3]) for r in rec.rows]
+                k = max(range(len(live)), key=live.__getitem__)
+                *wave, noise, pod_ids = rec.inputs[k]
+                check_claims(kernels, tuple(wave), noise,
+                             f"{label} recorded wave {k} "
+                             f"({live[k]} live pods)", pod_ids)
+                del rec.inputs[:], rec.outputs[:]
+            d = res["detail"]
+            launches[tag] = seen["launches"]["claims"]
+            rates[tag] = res["value"]
+            print(f"   {label}: {res['value']:.1f} pods/s, pod e2e p50 "
+                  f"{d.get('pod_e2e_p50_ms')} ms p99 "
+                  f"{d.get('pod_e2e_p99_ms')} ms, claims launches "
+                  f"{launches[tag]}, wall {res['wall_s']} s [{smi}]",
+                  flush=True)
+        print(f"   REST tax: LocalClient pods/s over the front door's: "
+              f"(iii)/(i) {rates['iii'] / rates['i']:.4f}, (iii)/(ii) "
+              f"{rates['iii'] / rates['ii']:.4f} [{smi}]", flush=True)
+        yaml_after = {m for m in sys.modules if m.split(".")[0] == "yaml"}
+        check(yaml_after == yaml_before,
+              f"phase 30 imported {sorted(yaml_after - yaml_before)}")
+    return launches
+
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -2920,10 +3032,11 @@ def parse_args(argv):
                     metavar="TAG=DIR",
                     help="a checkout of another revision whose claims "
                          "and dry-run wrappers to time beside this one's")
-    ap.add_argument("--only", choices=("seam", "sharded", "snapshot"),
+    ap.add_argument("--only", choices=("seam", "sharded", "snapshot",
+                                       "http"),
                     help="phases 1-2 and then only these (seam: 22-25, "
-                         "sharded: 26-27, snapshot: 28-29); prints no "
-                         "result line")
+                         "sharded: 26-27, snapshot: 28-29, http: 30); "
+                         "prints no result line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -3221,6 +3334,10 @@ def main(argv=None) -> int:
         snapshot_phases(dev, smi)
         print("partial run (--only snapshot): no result line")
         return 0
+    if opts.only == "http":
+        front_door_phase(smi)
+        print("partial run (--only http): no result line")
+        return 0
 
     with Phase("3 kernel vs plain version"):
         # (P, N, seed, options): random cases, ragged P and N, identical
@@ -3419,6 +3536,8 @@ def main(argv=None) -> int:
     shard_launches, shard_err, _offset_ms = sharded_phases(dev, smi, rows)
     # the snapshot API, the strict scan and the entry points
     k10, dry_launches = snapshot_phases(dev, smi)
+    # the front door: the apiserver and its HTTP client
+    http_launches = front_door_phase(smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     # K10 has no hand kernel: its numbers ride a line of their own
@@ -3432,7 +3551,8 @@ def main(argv=None) -> int:
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:171",
         "launches": (launches + loop_launches["Scheduling100k"]["claims"]
                      + seam_launches["Scheduling100k"]["claims"]
-                     + shard_launches + dry_launches),
+                     + shard_launches + dry_launches
+                     + sum(http_launches.values())),
         "max_abs_err": max(errs + [shard_err]), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {

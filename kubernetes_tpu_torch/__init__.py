@@ -8,8 +8,12 @@ Package map:
   api/, utils/, testing/ - host copies: objects, quantities, builders,
       the per-pod host helpers (Python versions of the JAX package's
       native ones), stage latencies, GC tuning
-  store/          - MemoryStore with watch, and the WAL it imports (copy)
-  client/         - LocalClient, informers, work queues (copy)
+  store/          - MemoryStore with watch, the WAL it imports and the
+      envelope encryption of secrets at rest (copy)
+  client/         - LocalClient, informers, work queues, HTTPClient (copy)
+  apiserver/      - the REST and watch server: RBAC, admission, flow
+      control, audit, CRDs with CEL, discovery, patch and server-side
+      apply (copy; `python -m kubernetes_tpu_torch.cmd.apiserver`)
   component_base/ - metrics, tracing, timeline, logs, feature gates,
       profiling (copy, without the jax-reading census functions)
   scheduler/      - the scheduler: cache, queue, framework, plugins,

@@ -20,7 +20,7 @@ from typing import Callable
 from ..api import meta
 from ..api.meta import Obj
 from ..store import kv
-from ..store.kv import MemoryStore, Watch
+from ..store.kv import MemoryStore, NotFoundError, Watch
 
 # Canonical resource names (plural, lowercase — like REST paths).
 PODS = "pods"
@@ -404,11 +404,27 @@ class LocalClient(Client):
 
     def apply(self, resource: str, obj: Obj, field_manager: str,
               force: bool = False) -> Obj:
-        """Server-side apply needs the apiserver's managed-fields merge,
-        which this package does not hold (ROADMAP queue 1 item 10)."""
-        raise NotImplementedError(
-            "LocalClient.apply: server-side apply needs the apiserver's "
-            "managed-fields merge, not ported (ROADMAP queue 1 item 10)")
+        """Server-side apply (managedfields.py semantics, in process)."""
+        from ..apiserver import managedfields as mf
+        ns, nm = obj["metadata"].get("namespace", ""), obj["metadata"]["name"]
+
+        def merge(cur):
+            new = mf.apply_merge(cur, obj, field_manager, force=force)
+            new["metadata"]["resourceVersion"] = \
+                cur["metadata"].get("resourceVersion")
+            return new
+
+        for _ in range(2):
+            try:
+                return self.store.guaranteed_update(resource, ns, nm, merge)
+            except NotFoundError:
+                pass
+            try:
+                return self.store.create(
+                    resource, mf.apply_merge(None, obj, field_manager))
+            except kv.AlreadyExistsError:
+                continue  # lost the create race: merge with the winner
+        return self.store.guaranteed_update(resource, ns, nm, merge)
 
     def list(self, resource: str, namespace: str | None = None) -> tuple[list[Obj], int]:
         return self.store.list(resource, namespace)

@@ -42,6 +42,11 @@ plus SchedulingChurnStorm.  The main ones:
   SchedulingChurnStorm  the nodeStorm workload (seeded node adds, drains
                         and relabels during a 12,000-pod flood) with the
                         default overload policy, batch 4,096, depth 2
+  SchedulingBasicHTTP   5,000 nodes, 10,000 pods, batch 4,096, depth 2
+                        through the apiserver (RBAC, default admission,
+                        WAL) over HTTP: the front door; SchedulingBasicHTTPProc
+                        runs the apiserver as a separate process
+                        (python -m kubernetes_tpu_torch.cmd.apiserver)
 Rows marked two_pass (as in bench.py) run twice in this process and keep
 the better pass (higher pods/s; lower p99 for a paced row); the other
 pass lands in detail.second_pass.  A row fails (detail.error, exit code
@@ -146,6 +151,17 @@ CONFIGS = {
     "CoschedulingGang": {"two_pass": True,
                          "workload": "CoschedulingGang", "batch": 8192,
                          "depth": 2, "admission_ms": 50.0},
+    # the front door: SchedulingBasicLarge through a real apiserver (RBAC,
+    # admission, WAL) with every component speaking HTTP, in process and
+    # as a separate process; the gap to the LocalClient row is the REST
+    # tax (bench.py:127-140)
+    "SchedulingBasicHTTP": {"workload": "SchedulingBasicLarge",
+                            "nodes": 5000, "pods": 10_000, "batch": 4096,
+                            "depth": 2, "timeout": 900.0, "http": True},
+    "SchedulingBasicHTTPProc": {"workload": "SchedulingBasicLarge",
+                                "nodes": 5000, "pods": 10_000,
+                                "batch": 4096, "depth": 2,
+                                "timeout": 900.0, "http": "proc"},
     # the host ceiling: the same pipeline with the device step nulled
     "SchedulingHostNull": {"workload": "SchedulingBasicLarge",
                            "nodes": 5000, "pods": 50_000, "batch": 16384,
@@ -428,7 +444,8 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
              null_device: bool = False, pct_nodes: int = 0,
              overload=None, profile_pods: int = 0, tracing_provider=None,
              profiling_policy=None, remote_seam: str | None = None,
-             backend_kind: str = "tpu", mesh=None) -> dict:
+             backend_kind: str = "tpu", mesh=None,
+             via_http=False) -> dict:
     """One full workload pass in this process (the JAX bench's run_once,
     device-backed by TorchBatchBackend on `device`; null_device=True nulls
     the device step instead).  pct_nodes is the profile's
@@ -449,7 +466,10 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
     sampling host profiler armed (`enabled`) its per-stage host seconds
     land in the row as host_stages (they count a thread's samples whether
     it runs or waits) and each thread's CPU seconds over the run are read
-    before the shutdown (thread_cpu_s).  `after(cluster)` runs once the
+    before the shutdown (thread_cpu_s).  `via_http` (True, or "process")
+    puts the apiserver between the scheduler and its store
+    (setup_cluster); the placements are then read through the cluster's
+    store.  `after(cluster)` runs once the
     workload's stats and the store's placements are read.  Returns
     {"value", "wall_s", "detail", "stats"}, plus "error" when the barrier
     failed."""
@@ -490,7 +510,7 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
 
     def after_run(cluster):
         # the store as the workload left it, before `after` adds to it
-        placements.update(check_placements(store, n_created,
+        placements.update(check_placements(cluster.store, n_created,
                                            removed_nodes_ok=bool(storm)))
         if host_profile:
             cpu.update(thread_cpu_seconds())
@@ -508,7 +528,8 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
         profiling_policy = ProfilingPolicy(
             enabled=bool(profiling_policy and profiling_policy.enabled),
             census=True, timeline=True)
-    store = kv.MemoryStore(history=1_000_000)
+    # via_http builds the store behind its apiserver
+    store = None if via_http else kv.MemoryStore(history=1_000_000)
     t0 = time.monotonic()
     summary, stats = run_named_workload(
         cfg, caps=caps_for_nodes(caps_nodes), batch_size=batch,
@@ -517,7 +538,7 @@ def run_once(workload: str, nodes: int | None, pods: int | None,
         overload=policy, chaos_schedule=chaos, device=device, store=store,
         profiling_policy=profiling_policy, tracing_provider=tracing_provider,
         remote_seam=remote_seam, after=after_run,
-        backend_kind=backend_kind, mesh=mesh)
+        backend_kind=backend_kind, mesh=mesh, via_http=via_http)
     wall = time.monotonic() - t0
     detail = summary.to_dict()
     detail["placements"] = placements
@@ -628,7 +649,12 @@ def pass_args(name: str, nodes: int | None = None, pods: int | None = None,
                 depth=c.get("depth", 1),
                 admission_ms=c.get("admission_ms", 0.0),
                 null_device=bool(c.get("null")),
-                pct_nodes=c.get("pct_nodes", 0), overload=c.get("overload"))
+                pct_nodes=c.get("pct_nodes", 0), overload=c.get("overload"),
+                via_http=_VIA_HTTP[c.get("http", False)])
+
+
+# a row's "http" (bench.py's spelling) -> setup_cluster's via_http
+_VIA_HTTP = {False: False, True: True, "proc": "process"}
 
 
 class BenchFaultSchedule(FaultSchedule):

@@ -202,11 +202,12 @@ class ThroughputCollector:
 
 @dataclass
 class PerfCluster:
-    store: kv.MemoryStore
-    client: LocalClient
-    factory: SharedInformerFactory
+    store: object               # MemoryStore, or the HTTPClient when the
+    client: object              # apiserver runs out of process (it only
+    factory: SharedInformerFactory  # needs .watch()/.list())
     scheduler: Scheduler
     worker: object = None       # in-process device worker (remote_seam)
+    front: object = None        # _FrontDoor when via_http
 
     def shutdown(self) -> None:
         self.scheduler.stop()
@@ -219,12 +220,93 @@ class PerfCluster:
             self.worker.stop()
         self.factory.stop()
         self.client.close()  # event-broadcaster thread
+        if self.front is not None:
+            self.front.stop()
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"scheduler_perf: {what} is not ported to kubernetes_tpu_torch "
-        f"({item})")
+@dataclass
+class _FrontDoor:
+    """The apiserver of a via_http cluster: in process (`server`) or a
+    child process (`proc`), over a WAL in `tmpdir`."""
+    store: object
+    client: object
+    server: object = None
+    proc: object = None
+    tmpdir: object = None
+
+    def stop(self) -> None:
+        if self.server is not None:
+            self.server.stop()
+        if self.proc is not None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except Exception:  # noqa: BLE001 - then kill + reap
+                self.proc.kill()
+                self.proc.wait()
+        if self.tmpdir is not None:
+            self.tmpdir.cleanup()
+
+
+# no controllers run in the harness, so the admission plugins that depend
+# on them come off: the reference harness disables exactly these
+# (scheduler_perf/util.go:84-85)
+_HARNESS_DISABLED_ADMISSION = ("ServiceAccount", "TaintNodesByCondition",
+                               "Priority")
+
+
+def _front_door(via_http) -> _FrontDoor:
+    """Start the apiserver a via_http cluster speaks to: RBAC, the default
+    admission chain and a WAL-backed store, with a bearer token the
+    scheduler and the submitter share.  via_http="process" runs it as
+    `python -m kubernetes_tpu_torch.cmd.apiserver` in a child process and
+    waits (30 s at most) for its /healthz."""
+    import secrets as pysecrets
+    import tempfile
+
+    from ..client.http_client import HTTPClient
+    tmpdir = tempfile.TemporaryDirectory(prefix="bench-wal-")
+    token = pysecrets.token_urlsafe(16)
+    if via_http != "process":
+        from ..apiserver import APIServer
+        store = kv.MemoryStore(history=1_000_000, durable_dir=tmpdir.name)
+        server = APIServer(store, token=token, enable_rbac=True,
+                           enable_default_admission=True,
+                           disable_admission_plugins=frozenset(
+                               _HARNESS_DISABLED_ADMISSION)).start()
+        return _FrontDoor(store, HTTPClient.from_url(server.url, token=token),
+                          server=server, tmpdir=tmpdir)
+    import os
+    import socket as socketlib
+    import subprocess
+    import sys
+    with socketlib.socket() as s:  # pick a free port
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu_torch.cmd.apiserver",
+         "--secure-port", str(port), "--token", token,
+         "--authorization-mode", "RBAC",
+         "--enable-default-admission",
+         "--disable-admission-plugins", ",".join(_HARNESS_DISABLED_ADMISSION),
+         "--data-dir", tmpdir.name],
+        # from the directory that holds the package, whatever the caller's
+        cwd=os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    client = HTTPClient.from_url(f"http://127.0.0.1:{port}", token=token)
+    front = _FrontDoor(client, client, proc=proc, tmpdir=tmpdir)
+    deadline = time.monotonic() + 30
+    while True:
+        try:
+            client._request("GET", "/healthz")
+            # the collector watches through the HTTP client
+            return front
+        except Exception:  # noqa: BLE001 - still starting
+            if proc.poll() is not None or time.monotonic() > deadline:
+                front.stop()
+                raise RuntimeError("apiserver process failed to start")
+            time.sleep(0.1)
 
 
 def setup_cluster(caps=None, batch_size: int = 512,
@@ -275,20 +357,25 @@ def setup_cluster(caps=None, batch_size: int = 512,
     Either way the profile's backend is a RemoteTorchBatchBackend; the
     device is the worker's.
 
-    Not ported (it raises NotImplementedError, naming the ROADMAP item):
-    via_http (the apiserver).
+    via_http runs the FRONT DOOR: a real apiserver with RBAC, the default
+    admission chain and WAL durability, and the scheduler (informers,
+    binds, events) plus the workload submitter all speaking HTTP to it:
+    the reference harness's shape (util.go:79-108 schedules through a
+    real apiserver), which measures what LocalClient bypasses.
+    via_http="process" runs the apiserver as a separate OS process
+    (`python -m kubernetes_tpu_torch.cmd.apiserver`), the reference's
+    deployment shape: its JSON, admission and WAL work run on their own
+    interpreter instead of sharing the scheduler's GIL.  The batch
+    backend stays on `device` either way.
     profiling_policy.census runs the backend's device census after its
     warmup (TorchBatchBackend.device_census: one step of each variant on a
     clone of the resident state).
     """
-    if via_http:
-        raise _not_ported("via_http (the apiserver front door)",
-                          "ROADMAP queue 1 item 10")
+    if via_http and store is not None:
+        raise ValueError("via_http builds its own WAL-backed store; "
+                         "a caller-provided store would be ignored")
     from ..utils.gctune import tune_for_throughput
     tune_for_throughput()  # CPython gen-2 pauses cost ~35% at bench scale
-    store = store or kv.MemoryStore(history=1_000_000)
-    client = LocalClient(store)
-    factory = SharedInformerFactory(client)
     from ..ops.backend import make_batch_backend
     from ..ops.flatten import Caps
     worker = None
@@ -318,6 +405,16 @@ def setup_cluster(caps=None, batch_size: int = 512,
     if device_flight_s > 0:
         from ..ops.nullbackend import FlightDelayBackend
         backend = FlightDelayBackend(backend, device_flight_s)
+    # the front door starts once the backend is built and warm, so a
+    # device fault leaves no apiserver behind
+    front = None
+    if via_http:
+        front = _front_door(via_http)
+        store, client = front.store, front.client
+    else:
+        store = store or kv.MemoryStore(history=1_000_000)
+        client = LocalClient(store)
+    factory = SharedInformerFactory(client)
     fw = new_default_framework(client, factory)
     profiles = {"default-scheduler": Profile(
         fw, batch_backend=backend, batch_size=batch_size,
@@ -364,7 +461,8 @@ def setup_cluster(caps=None, batch_size: int = 512,
     factory.start()
     factory.wait_for_cache_sync()
     sched.run()
-    return PerfCluster(store, client, factory, sched, worker=worker)
+    return PerfCluster(store, client, factory, sched, worker=worker,
+                       front=front)
 
 
 # -- workload ops (scheduler_perf_test.go opcodes) -------------------------
@@ -471,14 +569,25 @@ def _default_node(i: int, params: dict) -> dict:
 
 def _bulk_create(client, resource: str, count: int, offset: int,
                  build, op: dict, chunk: int = 512) -> None:
-    """createNodes/createPods submission: chunked ownership-transfer bulk
-    writes through LocalClient.create_bulk (the reference harness pumps
-    objects through a 5000-QPS/5000-burst client, util.go:92)."""
+    """createNodes/createPods submission: chunked bulk writes through the
+    client's create_bulk (LocalClient's ownership-transfer one, or
+    HTTPClient's bulk POST; the reference harness pumps objects through a
+    5000-QPS/5000-burst client, util.go:92)."""
     if count >= 256:
         for lo in range(0, count, chunk):
             client.create_bulk(resource, [
                 build(offset + i, op)
                 for i in range(lo, min(lo + chunk, count))])
+    elif count >= 64 and not isinstance(client, LocalClient):
+        # remote client (HTTP): fan the submission over a few
+        # connections, as the reference harness pumps through a
+        # concurrent rate-limited client (util.go:92); HTTPClient keeps
+        # one keep-alive connection per thread
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(
+                lambda i: client.create(resource, build(offset + i, op)),
+                range(count)))
     else:
         for i in range(count):
             client.create(resource, build(offset + i, op))

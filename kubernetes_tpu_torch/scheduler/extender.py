@@ -117,9 +117,8 @@ class HTTPExtender(Extender):
             data=json.dumps(payload).encode(),
             headers={"Content-Type": "application/json"}, method="POST")
         try:
-            # a direct dial: the apiserver's egress selector is not part of
-            # this package (ROADMAP queue 1 item 10)
-            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+            from ..apiserver.egress import CLUSTER, default_selector
+            with default_selector.open(CLUSTER, req, self.timeout) as resp:
                 return json.loads(resp.read().decode())
         except Exception as e:
             raise ExtenderError(f"extender {self.url_prefix}/{verb}: {e}") from e

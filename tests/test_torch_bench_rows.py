@@ -5,8 +5,8 @@ Every single-device row of bench.py's EXTRA_CONFIGS is in the port with
 bench.py's own parameters (workload, sizes, batch, depth, admission
 window, rate, percentage of nodes to score, two passes, the nulled device,
 the overload shape, the barrier budget; the seam rows' transport, faults
-and timeout); the rows bench.py runs through the apiserver are the only
-ones left out (ROADMAP item 10).  The overload shape builds the same policy and
+and timeout; the front-door rows' apiserver, in process or a process of
+its own).  The overload shape builds the same policy and
 chaos schedule as bench.py's.  At a tiny size on the CPU: a two_pass row
 runs twice and keeps the better pass (a failed pass fails the row), the
 host-ceiling row runs on the
@@ -25,11 +25,10 @@ from kubernetes_tpu_torch.perf import bench
 
 ROOT = Path(__file__).resolve().parent.parent
 # bench.py rows that need modules the port does not have yet
-NOT_PORTED = {"SchedulingBasicHTTP": "item 10", "SchedulingBasicHTTPProc":
-              "item 10"}
+NOT_PORTED: dict[str, str] = {}
 PARAMS = ("workload", "nodes", "pods", "batch", "depth", "admission_ms",
           "rate", "pct_nodes", "two_pass", "null", "overload", "seam",
-          "faulty")
+          "faulty", "http")
 
 
 @pytest.fixture(scope="module")

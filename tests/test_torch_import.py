@@ -80,6 +80,27 @@ sys.meta_path.insert(0, Block())
 import kubernetes_tpu_torch.client
 import kubernetes_tpu_torch.perf.bench
 import kubernetes_tpu_torch.scheduler
+import kubernetes_tpu_torch.apiserver
+import kubernetes_tpu_torch.apiserver.aggregator
+import kubernetes_tpu_torch.apiserver.discovery
+import kubernetes_tpu_torch.client.http_client
+import kubernetes_tpu_torch.cmd.apiserver
+import kubernetes_tpu_torch.store.encryption
+from kubernetes_tpu_torch.apiserver import APIServer
+from kubernetes_tpu_torch.client.http_client import HTTPClient
+from kubernetes_tpu_torch.store import kv
+
+server = APIServer(kv.MemoryStore(), token="t").start()
+try:
+    client = HTTPClient.from_url(server.url, token="t")
+    assert client._request("GET", "/version")["platform"] == "gpu"
+    client.create("pods", {"apiVersion": "v1", "kind": "Pod",
+                           "metadata": {"name": "p", "namespace": "default"},
+                           "spec": {"containers": [{"name": "c"}]}})
+    assert len(client.list("pods")[0]) == 1
+    client.close()
+finally:
+    server.stop()
 from kubernetes_tpu_torch.perf import load_workloads
 from kubernetes_tpu_torch.scheduler.config import load_config
 
@@ -95,7 +116,8 @@ print("OK", len(names))
 
 def test_scheduler_and_perf_import_with_yaml_blocked():
     """The card machine has no PyYAML: the port's scheduler, client and
-    perf harness import and read the workloads without it."""
+    perf harness import and read the workloads without it, and its
+    apiserver serves and its HTTPClient talks to it."""
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_YAML], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -126,6 +148,21 @@ def test_the_scan_covers_the_sharded_path():
                (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
     for name in ("__init__", "mesh", "census", "backend"):
         assert f"kubernetes_tpu_torch/parallel/{name}.py" in scanned
+
+
+FRONT_DOOR = ("api/fields", "api/core_versions", "store/encryption",
+              *(f"apiserver/{m}" for m in (
+                  "__init__", "patch", "managedfields", "egress", "audit",
+                  "authn", "rbac", "flowcontrol", "cel", "crd", "admission",
+                  "aggregator", "openapi_schemas", "discovery", "server")),
+              "client/http_client", "cmd/apiserver")
+
+
+def test_the_scan_covers_the_front_door():
+    scanned = {str(p.relative_to(ROOT)) for p in
+               (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
+    for name in FRONT_DOOR:
+        assert f"kubernetes_tpu_torch/{name}.py" in scanned, name
 
 
 def test_default_device_without_gpu_raises():

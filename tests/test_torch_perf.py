@@ -3,10 +3,10 @@
 The workload file is the JAX package's, converted to JSON; a tiny
 SchedulingBasic runs end to end through the port's Scheduler on a
 TorchBatchBackend(device="cpu") and binds what the JAX harness binds; the
-bench module prints one row in bench.py's shape; the harness branches
-that reach modules outside the port (and the census over the remote
-seam, whose step lives in the worker) raise NotImplementedError, and the
-entry points refuse to run without a GPU unless the caller names the CPU.
+bench module prints one row in bench.py's shape; the census over the
+remote seam is served by the worker that runs its step; scale-out
+(ROADMAP item 10b) raises NotImplementedError, and the entry points refuse
+to run without a GPU unless the caller names the CPU.
 """
 
 import copy
@@ -154,21 +154,6 @@ def _remote_census():
         worker.stop()
 
 
-NOT_PORTED = {
-    "via_http": lambda: port_perf.setup_cluster(via_http=True),
-    "via_http_process": lambda: port_perf.setup_cluster(
-        via_http="process"),
-    "run_named_workload_via_http": lambda: port_perf.run_named_workload(
-        _cfg(), via_http=True, device="cpu"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_unported_branches_raise(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NOT_PORTED[case]()
-
-
 def test_remote_census_is_served():
     """Before any dispatch: the client makes the static arrays and the
     state resident on the worker, which runs the census of both
@@ -183,13 +168,18 @@ def test_remote_census_is_served():
 
 
 def test_apply_and_scaleout_raise():
+    """Scale-out (ROADMAP item 10b) still raises; LocalClient.apply no
+    longer does since the managed-fields merge is ported: it creates the
+    object with its manager recorded (tests/test_torch_http_client.py holds
+    it against the JAX package)."""
     from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
     from kubernetes_tpu_torch.scheduler import new_scheduler
     from kubernetes_tpu_torch.scheduler.config import ScaleOutPolicy
     from kubernetes_tpu_torch.testing import make_pod
     client = LocalClient(kv.MemoryStore())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        client.apply("pods", make_pod("p").build(), "tester")
+    applied = client.apply("pods", make_pod("p").build(), "tester")
+    assert [m["manager"] for m in applied["metadata"]["managedFields"]] == [
+        "tester"]
     sched = new_scheduler(client, SharedInformerFactory(client))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sched.configure_scaleout(ScaleOutPolicy(instance_count=2))
