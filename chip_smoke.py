@@ -226,6 +226,29 @@ Phases (each prints its wall time; any failed check exits non-zero):
      stages, one claims wave recorded in (i) must replay equal to the
      plain version, (ii)'s apiserver process must be gone after its row
      and the phase must import no yaml module.
+ 31. in-process scale-out (scheduler/scaleout.py): (i)
+     perf.bench.run_scaleout(4) at bench.py's --instances parameters
+     (100,000 nodes of 64 CPU / 256Gi / 1,000 pods, 200,000 pods of 10m /
+     16Mi, both created in chunks of 10,000, batch 16,384, depth 2, one
+     shared MemoryStore) through 1, 2 and 4 Schedulers, each with its own
+     TorchBatchBackend on the card: per count pods/s, wall, bound pods, the
+     conflict taxonomy (lost_to_peer, requeued, fenced,
+     already_bound_same_node), speedup_vs_1 and the pass's peak of
+     allocated device memory; every pod bound, no node over its CPU,
+     memory or pod cap, every instance's backend on the card with plain
+     batches only; one profiled batch of 4,096 pods at N=1 and at N=2 (the
+     device's idle share); (ii) two instances at full width with an
+     InstanceChurner killing instance 0 after the second chunk of the
+     flood and reviving it after the flood, each backend sized for the
+     whole cluster (a survivor absorbs its peer's slices): every pod
+     bound exactly once (bench.BindLedger over the store's pod history),
+     the survivor's cache holding all 100,000 nodes after the kill, the
+     fenced and requeued counts and every resync's time; (iii) one claims
+     wave recorded from an instance in (i) at N=2 and one at N=4, each at
+     that instance's n_cap, replayed through the kernel against the plain
+     version, timed beside it and the bound.  Every pass also prints each
+     instance's longest gap between two scheduling-loop ticks and between
+     two lease renewals, the membership changes and the resyncs.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -245,8 +268,9 @@ are zeroed before each pass and read after it, and the claims kernel
 must have launched in 22, the preempt kernel in 25.  The last two lines
 are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
 22's Scheduling100k, 26's sharded assigns, 27's Scheduling100k and 29's
-dry run, and 30's three rows; in 30 the counts are zeroed just before
-each row and read in its `after` hook;
+dry run, 30's three rows and 31's passes; in 30 the counts are zeroed
+just before each row and read in its `after` hook, in 31 when each pass
+starts and when its row (or the churn's barrier) is read;
 preempt_dry_run in f, 11, 12 and 25) and the
 device line.  Without a CUDA device the script exits 2 and prints no
 result.
@@ -260,7 +284,8 @@ after checking that both return the same answers.
 
 --only seam runs phases 1-2 and 22-25, --only sharded phases 1-2 and
 26-27 (27 then prints no single-device row beside its own), --only
-snapshot phases 1-2, 28 and 29, --only http phases 1-2 and 30; --until 4
+snapshot phases 1-2, 28 and 29, --only http phases 1-2 and 30, --only
+scaleout phases 1-2 and 31; --until 4
 stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
@@ -2969,6 +2994,463 @@ def front_door_phase(smi):
     return launches
 
 
+SCALEOUT_MAX = 4            # phase 31(i): run_scaleout(4): 1, 2, 4
+SCALEOUT_TIMEOUT = 240.0    # a pass's barrier, s
+SCALEOUT_WAVES = (2, 4)     # 31(iii): one recorded claims wave each
+SCALEOUT_PROFILED = (1, 2)  # one profiled batch at these counts
+CONFLICT_KINDS = ("lost_to_peer", "requeued", "fenced",
+                  "already_bound_same_node")
+
+
+class FirstWaveRecorder:
+    """Within the block, kernels.claims goes through a wrapper that, once
+    armed with a tag, keeps a copy of the inputs of the first launch with
+    a live pod under that tag (finding it reads `active` back: a sync per
+    launch until then) and disarms.  The launch count stays the
+    package's own."""
+
+    def __init__(self, kernels):
+        self.kernels, self.armed, self.kept = kernels, None, {}
+
+    def __enter__(self):
+        inner = self.inner = self.kernels.claims
+
+        def claims(static, active, used, used_nz, npods, noise="sin",
+                   pod_ids=None, node_offset=0):
+            tag = self.armed
+            if tag is not None and not node_offset and bool(active.any()):
+                self.armed = None
+                self.kept[tag] = (
+                    {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in static.items()},
+                    *(t.clone() for t in (active, used, used_nz, npods)),
+                    noise, None if pod_ids is None else pod_ids.clone())
+            return inner(static, active, used, used_nz, npods, noise=noise,
+                         pod_ids=pod_ids, node_offset=node_offset)
+        self.kernels.claims = claims
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.claims = self.inner
+        return False
+
+
+class ScaleOutWatch:
+    """Within the block: for each scale-out instance the longest gap
+    between two of its coordinator's ticks (one a scheduling-loop
+    iteration: the sweep and the resync run only there) and between two
+    renewals of its lease (from the tick or the heartbeat thread), every
+    membership change a tick reported, every _scaleout_resync with its
+    seconds and the node count of the cache after it, and every garbage
+    collection of 0.1 s or more; times from the last reset()."""
+
+    def __enter__(self):
+        from kubernetes_tpu_torch.scheduler.scaleout import \
+            ScaleOutCoordinator
+        from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+        self.classes = (ScaleOutCoordinator, Scheduler)
+        tick = self.tick = ScaleOutCoordinator.tick
+        resync = self.resync = Scheduler._scaleout_resync
+        beat = self.beat = ScaleOutCoordinator.heartbeat
+        watch = self
+        self.reset()
+
+        def timed_beat(co, client, now):
+            t = time.monotonic()
+            last = watch.beats.get(co.index)
+            if last is not None and t - last > watch.beat_gaps.get(
+                    co.index, (0.0, 0.0))[0]:
+                watch.beat_gaps[co.index] = (t - last, last - watch.t0)
+            watch.beats[co.index] = t
+            return beat(co, client, now)
+
+        def timed_tick(co, client, now=None):
+            t = time.monotonic()
+            last = watch.ticks.get(co.index)
+            if last is not None and t - last > watch.gaps.get(
+                    co.index, (0.0, 0.0))[0]:
+                watch.gaps[co.index] = (t - last, last - watch.t0)
+            watch.ticks[co.index] = t
+            changed = tick(co, client, now)
+            if changed:
+                watch.changes.append((round(t - watch.t0, 3), co.index,
+                                      co.live))
+            return changed
+
+        def timed_resync(sched):
+            t = time.monotonic()
+            resync(sched)
+            watch.resyncs.append((round(t - watch.t0, 3),
+                                  sched.scaleout.index, sched.scaleout.live,
+                                  time.monotonic() - t,
+                                  sched.cache.node_count()))
+        ScaleOutCoordinator.tick = timed_tick
+        ScaleOutCoordinator.heartbeat = timed_beat
+        Scheduler._scaleout_resync = timed_resync
+        gc.callbacks.append(self.on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        self.classes[0].tick = self.tick
+        self.classes[0].heartbeat = self.beat
+        self.classes[1]._scaleout_resync = self.resync
+        gc.callbacks.remove(self.on_gc)
+        return False
+
+    def reset(self):
+        self.t0 = time.monotonic()
+        self.ticks, self.gaps, self.changes = {}, {}, []
+        self.resyncs, self.gcs, self.gc_t = [], [], None
+        self.beats, self.beat_gaps = {}, {}
+
+    def on_gc(self, phase, info):
+        if phase == "start":
+            self.gc_t = time.monotonic()
+        elif self.gc_t is not None:
+            secs = time.monotonic() - self.gc_t
+            if secs >= 0.1:
+                self.gcs.append((round(self.gc_t - self.t0, 3),
+                                 info["generation"], round(secs, 3)))
+
+    def report(self, label, smi):
+        gaps = {i: f"{g:.3f} s at {at:.3f}" for i, (g, at) in
+                sorted(self.gaps.items())}
+        beats = {i: f"{g:.3f} s at {at:.3f}" for i, (g, at) in
+                 sorted(self.beat_gaps.items())}
+        print(f"   {label}: longest gap between lease ticks per instance "
+              f"{gaps}, between lease renewals {beats}; membership "
+              f"changes (s, instance, live) "
+              f"{self.changes[:12]}{' ...' if len(self.changes) > 12 else ''}"
+              f" ({len(self.changes)}); gc pauses >= 0.1 s (s, gen, secs) "
+              f"{self.gcs[:8]} ({len(self.gcs)}) [{smi}]", flush=True)
+        for at, idx, live, secs, held in self.resyncs[:12]:
+            print(f"   {label}: resync at {at} s: instance {idx} live {live}"
+                  f" took {secs:.3f} s, its cache {held} nodes", flush=True)
+        if len(self.resyncs) > 12:
+            print(f"   {label}: {len(self.resyncs)} resyncs in all",
+                  flush=True)
+
+
+def instance_backends(clusters):
+    return [cl.scheduler.profiles["default-scheduler"].batch_backend
+            for cl in clusters]
+
+
+def check_instances(clusters, label, ran=None):
+    """No fallback: every instance's batch backend is a TorchBatchBackend
+    on the card, and each instance in `ran` (default: all) ran batches,
+    every one of them plain.  Returns (batches, waves) per instance."""
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    out = []
+    for i, b in enumerate(instance_backends(clusters)):
+        check(type(b) is TorchBatchBackend and b.device.type == "cuda",
+              f"{label}: instance {i}'s backend is {type(b).__name__} on "
+              f"{getattr(b, 'device', None)}")
+        st = b.stats
+        check(st.get("plain", 0) == st["batches"]
+              and (st["batches"] > 0 or (ran is not None and i not in ran)),
+              f"{label}: instance {i} batches {st['batches']} plain "
+              f"{st.get('plain', 0)}")
+        out.append((st["batches"], st["waves"]))
+    return out
+
+
+def conflict_counts(clusters):
+    """Per conflict kind, the sum over the instances' counters."""
+    out = dict.fromkeys(CONFLICT_KINDS, 0)
+    for cl in clusters:
+        for (kind,), v in cl.scheduler.metrics.prom.bind_conflict_total \
+                .values().items():
+            out[kind] = out.get(kind, 0) + int(v)
+    return out
+
+
+def profile_instances(clusters, n_pods, label, smi, timeout=120.0):
+    """One more batch of n_pods of the flood's shape (10m, 16Mi) across
+    every running instance under torch.profiler: wall from the create to
+    the last pod's scheduling attempt on whichever instance owns it, the
+    device busy time of the kernels and copies in it, and the idle share
+    (1 - busy / wall), as perf.bench.profile_batch reads it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.client.clientset import PODS
+    from kubernetes_tpu_torch.testing import make_pod
+
+    def attempted():
+        total = 0
+        for cl in clusters:
+            with cl.scheduler.metrics.lock:
+                total += cl.scheduler.metrics.schedule_attempts.get(
+                    "scheduled", 0)
+        return total
+    pods = [make_pod(f"prof-{label}-{i}").req(cpu="10m", mem="16Mi").build()
+            for i in range(n_pods)]
+    base = attempted()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        clusters[0].client.create_bulk(PODS, pods)
+        deadline = t0 + timeout
+        while attempted() < base + n_pods and time.monotonic() < deadline:
+            time.sleep(0.002)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    check(attempted() >= base + n_pods,
+          f"{label}: the profiled batch did not finish in {timeout} s")
+    busy_ms = sum(e.self_device_time_total / 1e3
+                  for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith("full."))
+    idle = 1 - busy_ms / wall_ms
+    print(f"   {label}: profiled batch of {n_pods} pods over "
+          f"{len(clusters)} instance(s): wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share {idle:.4f} [{smi}]", flush=True)
+    return idle
+
+
+def scaleout_flood(smi, watch, nodes, pods, batch, timeout):
+    """31(i): perf.bench.run_scaleout(4) on the card.  Each pass is
+    checked and printed when its row is read, before its clusters shut
+    down: pods/s, wall, bound pods, the conflict taxonomy, speedup_vs_1
+    (at the end), the claims launches (counts zeroed when the pass
+    starts), the pass's peak of allocated device memory and the watch's
+    lease ticks, membership changes, resyncs and collections; every pod
+    bound and no node over its CPU, memory or pod cap (read from the
+    store before the profiled batch); every instance's backend a
+    TorchBatchBackend on the card with plain batches only; then one
+    profiled batch at N=1 and N=2 (the device's idle share).  One claims
+    wave of an instance is recorded at N=2 and at N=4 (31(iii))."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.perf import bench
+    seen = {}
+
+    def before(n):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        rec.armed = n if n in SCALEOUT_WAVES else None
+        watch.reset()
+
+    def after(n, row, clusters, store):
+        torch.cuda.synchronize()
+        label = f"31(i) N={n}"
+        got = seen[n] = {"launches": kernels.LAUNCHES["claims"],
+                         "peak": torch.cuda.max_memory_allocated(),
+                         "caps": instance_backends(clusters)[0].caps.n_cap}
+        watch.report(label, smi)
+        placed = bench.check_placements(store, pods)
+        conflicts = conflict_counts(clusters)
+        per = check_instances(clusters, label)
+        print(f"   {label}: {row['pods_per_s']} pods/s, wall {row['wall_s']}"
+              f" s, bound {row['bound']}; conflicts {conflicts} (federated "
+              f"{row['conflicts']}, rate {row['conflict_rate']}); claims "
+              f"launches {got['launches']}; batches / waves per instance "
+              f"{per}; n_cap {got['caps']}; nodes used "
+              f"{placed['nodes_used']}, most pods on a node "
+              f"{placed['max_pods_per_node']}; peak device memory "
+              f"{got['peak'] / 2**30:.3f} GiB [{smi}]", flush=True)
+        if conflicts["fenced"]:
+            print(f"   {label}: FINDING: {conflicts['fenced']} pod binds "
+                  f"fenced with no churn (an instance outlived its own "
+                  f"lease)", flush=True)
+        check("error" not in row, f"{label}: {row.get('error')}")
+        check(row["bound"] >= pods and placed["bound"] == placed["pods"]
+              == pods, f"{label}: bound {row['bound']}, placements {placed}")
+        check(placed["nodes_over_capacity"] == 0,
+              f"{label}: nodes over capacity {placed['over_examples']}")
+        check(got["launches"] > 0,
+              f"{label}: the claims kernel never launched")
+        if n in SCALEOUT_PROFILED:
+            got["idle"] = profile_instances(clusters, PROFILED_PODS,
+                                            f"scaleout-{n}", smi)
+    with FirstWaveRecorder(kernels) as rec:
+        res = bench.run_scaleout(SCALEOUT_MAX, nodes=nodes, pods=pods,
+                                 batch=batch, timeout=timeout,
+                                 before=before, after=after)
+    print("   31(i) speedup_vs_1: " + ", ".join(
+        f"N={n} {row.get('speedup_vs_1')}"
+        for n, row in res["BENCH_SCALEOUT"].items()) + f" [{smi}]",
+        flush=True)
+    if all(n in seen for n in SCALEOUT_PROFILED):
+        print(f"   31(i) idle share N=1 {seen[1]['idle']:.4f}, N=2 "
+              f"{seen[2]['idle']:.4f} [{smi}]", flush=True)
+    return res, seen, rec.kept
+
+
+def scaleout_churn(smi, watch, nodes, pods, batch, timeout, n=2):
+    """31(ii): n instances at full width with an InstanceChurner
+    (script {1: kill instance 0}, min_live 1) stepped once a 10,000-pod
+    chunk of the flood; a kill holds the flood until every live survivor
+    has swept the victim out; instance 0 revives after the flood.  Each
+    instance's backend holds the whole cluster (caps_for_nodes(nodes)):
+    bench.py's 1.6/n sizing leaves no room for a dead peer's slices, and
+    a cache past n_cap sends every batch to the per-pod path.  Every
+    pod bound exactly once (bench.BindLedger over the store's whole pod
+    history: no nodeName ever moved node to node, none lost), the
+    survivor's cache holding every node after the kill, every node
+    within its caps, the fenced and requeued counts and each resync's
+    time printed.  Returns the claims launches."""
+    from kubernetes_tpu_torch.client.clientset import NODES, PODS, \
+        LocalClient
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.faults import (
+        KILL_INSTANCE, InstanceChurner, ScaleOutSchedule,
+    )
+    from kubernetes_tpu_torch.perf import bench, caps_for_nodes
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        ThroughputCollector, setup_cluster,
+    )
+    from kubernetes_tpu_torch.scheduler.config import ScaleOutPolicy
+    from kubernetes_tpu_torch.store import kv
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    label = f"31(ii) N={n} churn"
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    watch.reset()
+    store = kv.MemoryStore(history=2_000_000)
+    admin = LocalClient(store)
+    ledger = bench.BindLedger(store, since_rv=0)
+    caps = caps_for_nodes(nodes)
+    clusters = []
+    chunk = bench.SCALEOUT_CHUNK
+    try:
+        for i in range(n):
+            cl = setup_cluster(caps=caps, batch_size=batch, store=store,
+                               pipeline_depth=2)
+            clusters.append(cl)
+            cl.scheduler.configure_scaleout(ScaleOutPolicy(
+                instance_count=n, instance_index=i,
+                ring_slices=max(64, 16 * n)))
+        for lo in range(0, nodes, chunk):
+            admin.create_bulk(NODES, [
+                make_node(f"sn-{i}")
+                .capacity(cpu="64", mem="256Gi", pods=1000).build()
+                for i in range(lo, min(lo + chunk, nodes))])
+        time.sleep(1.0 + nodes / 50_000)
+        cos = [cl.scheduler.scaleout for cl in clusters]
+        churner = InstanceChurner(cos, ScaleOutSchedule(
+            instance_count=n, script={1: (KILL_INSTANCE, 0)}), min_live=1)
+        collector = ThroughputCollector(store)
+        collector.start()
+        t0 = time.monotonic()
+        for lo in range(0, pods, chunk):
+            admin.create_bulk(PODS, [
+                make_pod(f"sp-{i}").req(cpu="10m", mem="16Mi").build()
+                for i in range(lo, min(lo + chunk, pods))])
+            act = churner.step()
+            if act and act[0] == KILL_INSTANCE:
+                victim, t_kill = act[1], time.monotonic()
+                survivors = [c for c in cos
+                             if c.index != victim and c.self_live]
+                while not all(victim not in c.live for c in survivors):
+                    check(time.monotonic() - t_kill < 60.0,
+                          f"{label}: the survivors never swept instance "
+                          f"{victim} out")
+                    time.sleep(0.01)
+                swept = time.monotonic() - t_kill
+                surv = clusters[survivors[0].index].scheduler
+                while surv.cache.node_count() < nodes:
+                    check(time.monotonic() - t_kill < 120.0,
+                          f"{label}: the survivor's cache holds "
+                          f"{surv.cache.node_count()} of {nodes} nodes")
+                    time.sleep(0.01)
+                held, _, _ = surv.cache.comparison_snapshot()
+                check(len(held) == nodes, f"{label}: survivor holds "
+                                          f"{len(held)} nodes")
+                print(f"   {label}: killed instance {victim} after "
+                      f"{lo + chunk} pods ({round(t_kill - watch.t0, 3)} s "
+                      f"into the pass); survivors swept it out in "
+                      f"{swept:.3f} s, the survivor's cache held all "
+                      f"{len(held)} nodes after "
+                      f"{time.monotonic() - t_kill:.3f} s", flush=True)
+        for c in cos:
+            c.revive()
+        ok = False
+        while time.monotonic() - t0 < timeout:
+            if collector.bound_total() >= pods:
+                ok = True
+                break
+            time.sleep(0.25)
+        elapsed = time.monotonic() - t0
+        collector.stop()
+        torch.cuda.synchronize()
+        launches = kernels.LAUNCHES["claims"]
+        watch.report(label, smi)
+        check(ok, f"{label}: {collector.bound_total()} of {pods} bound in "
+                  f"{timeout} s; churn log {churner.log}")
+        ledger.drain()
+        check(not ledger.rebinds, f"{label}: pods bound to two nodes "
+                                  f"{ledger.rebinds[:5]}")
+        check(len(ledger.bound) == pods, f"{label}: {len(ledger.bound)} of "
+                                         f"{pods} pods ever bound")
+        placed = bench.check_placements(store, pods)
+        check(placed["bound"] == pods and placed["nodes_over_capacity"] == 0,
+              f"{label}: placements {placed}")
+        check(churner.injected[KILL_INSTANCE] == 1,
+              f"{label}: churn {churner.injected}")
+        check(launches > 0, f"{label}: the claims kernel never launched")
+        check(watch.resyncs, f"{label}: no membership change resynced")
+        inst = check_instances(clusters, label, ran=(1,))
+        per = [conflict_counts([cl]) for cl in clusters]
+        print(f"   {label}: {pods} pods bound exactly once in "
+              f"{elapsed:.3f} s ({pods / elapsed:.1f} pods/s); churn log "
+              f"{churner.log}; conflicts {conflict_counts(clusters)} "
+              f"(instance 0: fenced {per[0]['fenced']}, requeued "
+              f"{per[0]['requeued']}; instance 1: fenced {per[1]['fenced']},"
+              f" requeued {per[1]['requeued']}); batches / waves per "
+              f"instance {inst}; claims launches {launches} [{smi}]",
+              flush=True)
+        return launches
+    finally:
+        bench.shutdown_all(clusters)
+        ledger.stop()
+
+
+def scaleout_phase(smi, nodes=100_000, pods=200_000, batch=16384,
+                   timeout=SCALEOUT_TIMEOUT):
+    """Phase 31: in-process scale-out on the card (scheduler/scaleout.py,
+    perf.bench.run_scaleout): (i) the flood through 1, 2 and 4 instances
+    over one store, (ii) two instances with instance 0 killed and revived
+    mid-flood, (iii) the recorded waves of (i) at N=2 and N=4 replayed
+    through the claims kernel against its plain version at each
+    instance's own n_cap, timed beside the plain version and the bound.
+    Returns (claims launches of (i) and (ii), max |best err| of (iii))."""
+    from kubernetes_tpu_torch.ops import kernels
+    with Phase("31 in-process scale-out on the card"), \
+            ScaleOutWatch() as watch:
+        res, seen, waves = scaleout_flood(smi, watch, nodes, pods, batch,
+                                          timeout)
+        launches = sum(got["launches"] for got in seen.values())
+        launches += scaleout_churn(smi, watch, nodes, pods, batch, timeout)
+        errs = []
+        for n in SCALEOUT_WAVES:
+            check(n in waves, f"31(iii) N={n}: no claims wave recorded")
+            *wave, noise, pod_ids = waves.pop(n)
+            args = tuple(wave)
+            P, N, _R = args[0]["shape"]
+            label = f"31(iii) N={n} recorded wave {P}x{N}"
+            err, *answer = check_claims(kernels, args, noise, label, pod_ids)
+            errs.append(err)
+            ms = time_cuda(lambda: kernels.claims(
+                *args, noise=noise, pod_ids=pod_ids), 20)
+            plain_ms = time_cuda(lambda: kernels.claims_reference(
+                *args, noise=noise, pod_ids=pod_ids), 3, warmup=1)
+            b = claims_bounds(args, noise, answer)
+            print(f"   {label} {noise}: live pods "
+                  f"{int(args[1].sum())}, n_cap {seen[n]['caps']}: "
+                  f"{ms:.4f} ms/launch, plain version {plain_ms:.4f} ms, "
+                  f"bound {b['required'][0]:.4f} ms ({b['required'][1]}) "
+                  f"[{smi}]", flush=True)
+            del wave, args, answer
+        torch.cuda.empty_cache()
+    return launches, max(errs)
+
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -3033,10 +3515,10 @@ def parse_args(argv):
                     help="a checkout of another revision whose claims "
                          "and dry-run wrappers to time beside this one's")
     ap.add_argument("--only", choices=("seam", "sharded", "snapshot",
-                                       "http"),
+                                       "http", "scaleout"),
                     help="phases 1-2 and then only these (seam: 22-25, "
-                         "sharded: 26-27, snapshot: 28-29, http: 30); "
-                         "prints no result line")
+                         "sharded: 26-27, snapshot: 28-29, http: 30, "
+                         "scaleout: 31); prints no result line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -3338,6 +3820,10 @@ def main(argv=None) -> int:
         front_door_phase(smi)
         print("partial run (--only http): no result line")
         return 0
+    if opts.only == "scaleout":
+        scaleout_phase(smi)
+        print("partial run (--only scaleout): no result line")
+        return 0
 
     with Phase("3 kernel vs plain version"):
         # (P, N, seed, options): random cases, ragged P and N, identical
@@ -3538,6 +4024,8 @@ def main(argv=None) -> int:
     k10, dry_launches = snapshot_phases(dev, smi)
     # the front door: the apiserver and its HTTP client
     http_launches = front_door_phase(smi)
+    # in-process scale-out: N Schedulers over one store on this card
+    scaleout_launches, scaleout_err = scaleout_phase(smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     # K10 has no hand kernel: its numbers ride a line of their own
@@ -3552,8 +4040,8 @@ def main(argv=None) -> int:
         "launches": (launches + loop_launches["Scheduling100k"]["claims"]
                      + seam_launches["Scheduling100k"]["claims"]
                      + shard_launches + dry_launches
-                     + sum(http_launches.values())),
-        "max_abs_err": max(errs + [shard_err]), "ms": ms,
+                     + sum(http_launches.values()) + scaleout_launches),
+        "max_abs_err": max(errs + [shard_err, scaleout_err]), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
         "name": "preempt_dry_run", "route": "cuda",

@@ -1,13 +1,15 @@
 """Deterministic fault injection for the port's batch path.
 
-Counterpart of the load and topology halves of kubernetes_tpu/ops/
-faults.py, copied: the seeded OverloadSchedule and the ChaosBatchBackend
-wrapper that injects slow and all-escape waves at the BatchBackend
-contract, and the seeded ChurnStormSchedule with the NodeStormDriver that
-floods node adds, drains and relabels through a live store.  Given the
-same seed, each schedule here makes the same decisions as the JAX one,
-so the port and the reference replay identical storms
-(tests/test_torch_faults.py, tests/test_torch_storm.py).
+Counterpart of the load, topology and in-process scale-out halves of
+kubernetes_tpu/ops/faults.py, copied: the seeded OverloadSchedule and the
+ChaosBatchBackend wrapper that injects slow and all-escape waves at the
+BatchBackend contract, the seeded ChurnStormSchedule with the
+NodeStormDriver that floods node adds, drains and relabels through a live
+store, and the seeded ScaleOutSchedule with the InstanceChurner.  Given
+the same seed, each schedule here makes the same decisions as the JAX
+one, so the port and the reference replay identical storms
+(tests/test_torch_faults.py, tests/test_torch_storm.py,
+tests/test_torch_scaleout.py).
 
 Reference: test/e2e's disruptive "chaosmonkey" pattern (test/e2e/
 chaosmonkey: register disruptions, run them against live components,
@@ -33,7 +35,12 @@ error ladder claims to handle is injected on a seeded schedule:
              forwarding: the call lands on a state-lost worker and the
              client runs its checkpoint + journal resync.
 
-The scale-out churners come with the scale-out layer (ROADMAP item 10).
+The scale-out half (ScaleOutSchedule, InstanceChurner) kills and revives
+whole scheduler instances in this process through their
+ScaleOutCoordinator (scheduler/scaleout.py); the process-true churners
+(ProcessChurner, UpgradeSchedule, UpgradeDriver) need the process
+supervisor and wait for it (ROADMAP item 10b).
+
 A chaos wrapper is applied only when a caller asks for it (the harness's
 chaos_schedule, the nodeStorm opcode, the RemoteSeamFaulty row); it never
 stands in for a failed device.
@@ -292,6 +299,102 @@ class ChaosBatchBackend:
     @property
     def census_kind(self) -> str:
         return getattr(self.inner, "census_kind", "chaos")
+
+
+# -- scale-out chaos -----------------------------------------------------
+#
+# One seam further out again: where ChaosBatchBackend stresses a single
+# scheduler's device path, the scale-out harness stresses the MEMBERSHIP
+# of N cooperating scheduler instances — killing and reviving whole
+# instances mid-wave so the survivors must absorb the dead instance's
+# ring slices while its in-flight batch lands in backoff, never on a
+# node a peer now owns.  Seeded + scriptable like the schedules above so
+# tests/test_scaleout.py and tests/test_torch_scaleout.py replay
+# identical churn.
+
+KILL_INSTANCE = "kill_instance"
+REVIVE_INSTANCE = "revive_instance"
+
+
+class ScaleOutSchedule:
+    """Seeded, reproducible per-wave instance-churn decisions.
+
+    One rng draw per wave regardless of the script (the stream-stability
+    rule shared with FaultSchedule/OverloadSchedule).  The single draw
+    decides BOTH the action and the victim: the draw's position inside
+    its action band is re-scaled to an instance index, so adding a
+    scripted wave never shifts the stream of the waves around it.
+    Scripted entries are (action, instance_index) pairs and win."""
+
+    def __init__(self, seed: int = 0, instance_count: int = 2,
+                 kill_rate: float = 0.0, revive_rate: float = 0.0,
+                 script: dict[int, tuple[str, int]] | None = None):
+        self.rng = random.Random(seed)
+        self.instance_count = instance_count
+        self.kill_rate = kill_rate
+        self.revive_rate = revive_rate
+        self.script = dict(script or {})
+
+    def action(self, wave_index: int) -> tuple[str, int]:
+        u = self.rng.random()
+        scripted = self.script.get(wave_index)
+        if scripted is not None:
+            return scripted
+        if self.kill_rate and u < self.kill_rate:
+            victim = int(u / self.kill_rate * self.instance_count)
+            return (KILL_INSTANCE, min(victim, self.instance_count - 1))
+        if self.revive_rate and u < self.kill_rate + self.revive_rate:
+            frac = (u - self.kill_rate) / self.revive_rate
+            victim = int(frac * self.instance_count)
+            return (REVIVE_INSTANCE, min(victim, self.instance_count - 1))
+        return (NONE, -1)
+
+
+class InstanceChurner:
+    """Applies ScaleOutSchedule actions to live ScaleOutCoordinators.
+
+    The in-process kill switch is coordinator.retire(): the instance
+    stops renewing its lease AND flips self_live to False, so its next
+    bind wave takes the fenced path — exactly what lease expiry or a
+    store fence does to a real deployment, minus the process exit.
+    A min_live floor refuses kills that would leave the cluster with no
+    scheduler at all (chaos must not deadlock the test).  `injected`
+    counts actions that actually changed state, for assertions."""
+
+    def __init__(self, coordinators, schedule: ScaleOutSchedule,
+                 min_live: int = 1):
+        self.coordinators = list(coordinators)
+        self.schedule = schedule
+        self.min_live = min_live
+        self.waves = 0
+        self.injected = {KILL_INSTANCE: 0, REVIVE_INSTANCE: 0}
+        self.log: list[tuple[int, str, int]] = []
+        self._lock = threading.Lock()
+
+    def step(self) -> tuple[str, int] | None:
+        """Consult the schedule for the next wave; returns the applied
+        (action, instance) or None when nothing changed."""
+        with self._lock:
+            i = self.waves
+            self.waves += 1
+            act, idx = self.schedule.action(i)
+            if act == NONE or not (0 <= idx < len(self.coordinators)):
+                return None
+            co = self.coordinators[idx]
+            retired = getattr(co, "_retired", False)
+            if act == KILL_INSTANCE:
+                alive = sum(1 for c in self.coordinators
+                            if not getattr(c, "_retired", False))
+                if retired or alive <= self.min_live:
+                    return None
+                co.retire()
+            else:
+                if not retired:
+                    return None
+                co.revive()
+            self.injected[act] += 1
+            self.log.append((i, act, idx))
+            return (act, idx)
 
 
 # -- churn-storm chaos ----------------------------------------------------

@@ -79,6 +79,16 @@ at --worker-url) and through the in-process backend; RemoteSeamFaulty
 adds the seeded faults, a worker kill and resync and an outage that trips
 the failover breaker and fails back.
 
+Horizontal scale-out (bench.py's --instances N, run_scaleout):
+    python3 -m kubernetes_tpu_torch.perf.bench --instances 4
+runs 1, 2, 4 (and N) scheduler instances in this process over one
+MemoryStore, partitioned on the scaleOut node-pool ring, each with its own
+TorchBatchBackend on --device: 100,000 nodes and 200,000 pods, batch
+16,384, depth 2 unless --nodes/--pods/--batch say otherwise; one JSON row
+whose value is the best count's pods/s and whose detail holds every
+count's pods/s, wall, bound pods, bind conflicts by kind, conflict rate
+and speedup over one instance.
+
 The observatory read-outs (the JAX bench.py's --profile and --timeline):
     python3 -m kubernetes_tpu_torch.perf.bench --profile [--out PATH]
     python3 -m kubernetes_tpu_torch.perf.bench --timeline [--out PATH]
@@ -1093,6 +1103,137 @@ def run_trace(out_path: str | None = None, device=None, nodes: int = 1000,
             "barrier_ok": stats_t.get("barrier_ok", False)}
 
 
+# --instances N (bench.py's run_scaleout and its BENCH_SCALEOUT_* defaults)
+SCALEOUT_NODES = 100_000
+SCALEOUT_PODS = 200_000
+SCALEOUT_BATCH = 16_384
+SCALEOUT_TIMEOUT = 1200.0
+SCALEOUT_CHUNK = 10_000
+
+
+def shutdown_all(clusters) -> None:
+    """Shut the instances of one store down together: one stopped while
+    its peers still schedule lapses its lease under them, and their next
+    tick would start a resync of the whole cluster during the teardown."""
+    if clusters:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(len(clusters)) as pool:
+            list(pool.map(lambda cl: cl.shutdown(), clusters))
+
+
+def run_scaleout(max_instances: int, device=None,
+                 nodes: int = SCALEOUT_NODES, pods: int = SCALEOUT_PODS,
+                 batch: int = SCALEOUT_BATCH,
+                 timeout: float = SCALEOUT_TIMEOUT, before=None,
+                 after=None) -> dict:
+    """--instances N: horizontal scale-out A/B (bench.py's run_scaleout).
+    1, 2, ... N cooperating scheduler instances (each with its own
+    informers, cache, queue and TorchBatchBackend on `device`, CUDA unless
+    the caller names the CPU) share ONE MemoryStore, the Omega
+    shared-state shape, and drain the Scheduling100k-scale flood together:
+    `nodes` nodes of 64 CPU / 256Gi / 1,000 pods, then `pods` pods of
+    10m / 16Mi, both created in chunks of 10,000, batch `batch`, depth 2.
+    Instances >1 partition nodes AND pods over the scaleOut node-pool ring
+    (ring_slices max(64, 16 n), the default leases), so the steady-state
+    conflict rate should be ~0; every optimistic-bind loss that does
+    happen is counted by scheduler_bind_conflict_total, read through
+    federate_texts over every instance's exposition, and reported as
+    conflict_rate (conflicted pod-events / pods).
+
+    In-process by design, as bench.py's: N interpreters would each pay the
+    device warmup, and the instances must share a store object.
+    `before(n)` runs at the start of each pass, before its store exists;
+    `after(n, row, clusters, store)` once its row is read, before its
+    clusters shut down (chip_smoke.py checks placements there).
+    Returns {"nodes", "pods", "batch", "BENCH_SCALEOUT": {str(n): row}}
+    with bench.py's row keys (pods_per_s, wall_s, bound, conflicts,
+    conflict_rate, speedup_vs_1; error when pods were left unbound)."""
+    from ..client.clientset import LocalClient
+    from ..component_base.profiling import federate_texts
+    from ..scheduler.config import ScaleOutPolicy
+    from ..testing import make_node, make_pod
+    from . import caps_for_nodes
+    from .scheduler_perf import ThroughputCollector, setup_cluster
+
+    def one_pass(n: int) -> dict:
+        if before is not None:
+            before(n)
+        store = kv.MemoryStore(history=2_000_000)
+        admin = LocalClient(store)
+        # each instance tracks only ~1/n of the ring, so its backend's
+        # node capacity shrinks with n (1.6/n covers crc32 slice skew)
+        caps = caps_for_nodes(
+            nodes if n == 1 else min(nodes, int(nodes * 1.6 / n) + 256))
+        clusters = []
+        try:
+            for i in range(n):
+                cl = setup_cluster(caps=caps, batch_size=batch, store=store,
+                                   pipeline_depth=2, device=device)
+                clusters.append(cl)
+                if n > 1:
+                    cl.scheduler.configure_scaleout(ScaleOutPolicy(
+                        instance_count=n, instance_index=i,
+                        ring_slices=max(64, 16 * n)))
+            for lo in range(0, nodes, SCALEOUT_CHUNK):
+                admin.create_bulk(NODES, [
+                    make_node(f"sn-{i}")
+                    .capacity(cpu="64", mem="256Gi", pods=1000).build()
+                    for i in range(lo, min(lo + SCALEOUT_CHUNK, nodes))])
+            # let every instance fold its node partition into its host
+            # tensors before the flood (same reason as the idle prefetch)
+            time.sleep(1.0 + nodes / 50_000)
+            collector = ThroughputCollector(store)
+            collector.start()
+            t0 = time.monotonic()
+            for lo in range(0, pods, SCALEOUT_CHUNK):
+                admin.create_bulk(PODS, [
+                    make_pod(f"sp-{i}").req(cpu="10m", mem="16Mi").build()
+                    for i in range(lo, min(lo + SCALEOUT_CHUNK, pods))])
+            ok = False
+            while time.monotonic() - t0 < timeout:
+                if collector.bound_total() >= pods:
+                    ok = True
+                    break
+                time.sleep(0.25)
+            elapsed = time.monotonic() - t0
+            collector.stop()
+            # one merged view over every instance's /metrics exposition
+            # text, through the parse-and-sum code an HTTP-pull federator
+            # would run
+            fleet = federate_texts(
+                cl.scheduler.expose_metrics() for cl in clusters)
+            conflicts = {
+                labels[0]: v for labels, v in
+                fleet.get("scheduler_bind_conflict_total", {}).items()}
+            out = {"pods_per_s": round(pods / elapsed, 1) if ok else 0.0,
+                   "wall_s": round(elapsed, 1),
+                   "bound": collector.bound_total(),
+                   "conflicts": {k: int(v) for k, v in
+                                 sorted(conflicts.items())},
+                   "conflict_rate": round(
+                       sum(conflicts.values()) / max(pods, 1), 6)}
+            if not ok:
+                out["error"] = "pods left unscheduled"
+            if after is not None:
+                after(n, out, clusters, store)
+            return out
+        finally:
+            shutdown_all(clusters)
+
+    counts = [c for c in (1, 2, 4) if c <= max_instances]
+    if max_instances not in counts:
+        counts.append(max_instances)
+    instances: dict[str, dict] = {}
+    for n in counts:
+        instances[str(n)] = one_pass(n)
+    base = instances.get("1", {}).get("pods_per_s") or 0.0
+    for out in instances.values():
+        if base and out.get("pods_per_s"):
+            out["speedup_vs_1"] = round(out["pods_per_s"] / base, 2)
+    return {"nodes": nodes, "pods": pods, "batch": batch,
+            "BENCH_SCALEOUT": instances}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default=["SchedulingBasic"], nargs="+",
@@ -1126,6 +1267,12 @@ def main(argv=None) -> int:
                       help="SchedulingBasicLarge over the device worker "
                            "seam, every batch traced, then untraced; "
                            "writes the Chrome trace to --out")
+    mode.add_argument("--instances", type=int, nargs="?", const=2,
+                      default=None, metavar="N",
+                      help="horizontal scale-out: 1, 2, 4 and N scheduler "
+                           "instances over one store (bench.py's "
+                           "--instances; 100,000 nodes, 200,000 pods, "
+                           "batch 16,384 unless --nodes/--pods/--batch)")
     ap.add_argument("--out", default=None,
                     help="the --profile / --timeline / --trace artifact's "
                          f"path (default under {ARTIFACT_DIR})")
@@ -1158,6 +1305,17 @@ def main(argv=None) -> int:
             out = run(args.out, args.device, **sizes)
         print(json.dumps(out), flush=True)
         return 0 if out["barrier_ok"] else 1
+    if args.instances is not None:
+        sizes = {k: v for k, v in (("nodes", args.nodes),
+                                   ("pods", args.pods),
+                                   ("batch", args.batch)) if v is not None}
+        res = run_scaleout(args.instances, args.device, **sizes)
+        best = max((r.get("pods_per_s") or 0.0)
+                   for r in res["BENCH_SCALEOUT"].values())
+        print(json.dumps(row(best, res["nodes"], res["pods"], res["batch"],
+                             {"mode": "scaleout", **res})), flush=True)
+        return 1 if any("error" in r for r in
+                        res["BENCH_SCALEOUT"].values()) else 0
     failed = False
     policy = None
     if args.host_profile:

@@ -790,13 +790,19 @@ class Scheduler:
         scheduling loop, and the bind-side write fence.  Accepts a
         config.ScaleOutPolicy or a prebuilt ScaleOutCoordinator (tests
         and the bench harness inject one with a controlled clock).
-        Pass None to detach.  The scale-out layer is not part of this
-        package yet (ROADMAP queue 1 item 10), so only detaching works."""
-        if policy_or_coordinator is not None:
-            raise NotImplementedError(
-                "configure_scaleout: the scale-out layer (scaleout.py) is "
-                "not ported (ROADMAP queue 1 item 10)")
-        self.scaleout = None
+        Pass None to detach.  While the loop runs, the coordinator also
+        renews its lease from a thread of its own (start_heartbeat; this
+        package's addition, scaleout.py "Lease renewal")."""
+        from .scaleout import ScaleOutCoordinator
+        so = policy_or_coordinator
+        if so is not None and not isinstance(so, ScaleOutCoordinator):
+            so = ScaleOutCoordinator(so) if so.enabled else None
+        old = self.scaleout
+        if old is not None and old is not so:
+            old.stop_heartbeat()
+        self.scaleout = so
+        if so is not None and self._threads and not self._stop.is_set():
+            so.start_heartbeat(self.client)
 
     def configure_profiling(self, profiler, slo=None,
                             census: bool = False,
@@ -1280,12 +1286,18 @@ class Scheduler:
         t = threading.Thread(target=self._loop, name="sched-loop", daemon=True)
         t.start()
         self._threads.append(t)
+        if self.scaleout is not None:
+            self.scaleout.start_heartbeat(self.client)
 
     def stop(self) -> None:
         self._stop.set()
         self.queue.close()
         for t in self._threads:
             t.join(timeout=2.0)
+        if self.scaleout is not None:
+            # renewing until the loop is gone: a loop still running must
+            # not see its own lease lapse; a stopped instance is dead
+            self.scaleout.stop_heartbeat()
         if not any(t.is_alive() for t in self._threads):
             self._flush_pending()  # loop thread gone: safe to drain here
         self._binder_worker.stop()  # runs queued commits inline

@@ -234,3 +234,60 @@ def test_seam_rows_on_the_cpu(name):
         assert d["failover"]["remote_resyncs"] >= 1
         assert d["failover"]["failovers"] >= 1
         assert d["breakers"]["remote"] == 0.0 and d["remote_rounds_equal"]
+
+
+# -- --instances N: bench.py's run_scaleout -----------------------------------
+
+def test_instances_run_passes_bench_py_parameters(jax_bench, monkeypatch):
+    """The port's run_scaleout passes what bench.py's does at its defaults
+    (BENCH_SCALEOUT_* unset): the shared store's history, each count's
+    caps, setup_cluster's batch, depth and shared store, the ScaleOutPolicy
+    of every instance, the prefetch sleep, the node and pod chunks and
+    specs, and the counts 1, 2, 4 and N; only the device argument is the
+    port's own (bench.py's tpu=True).  The returned keys are bench.py's."""
+    for var in ("NODES", "PODS", "BATCH", "TIMEOUT"):
+        monkeypatch.delenv(f"BENCH_SCALEOUT_{var}", raising=False)
+    from torch_cases import record_scaleout
+    theirs, jrec = record_scaleout(monkeypatch, "kubernetes_tpu", jax_bench,
+                                   lambda: jax_bench.run_scaleout(6))
+    ours, prec = record_scaleout(monkeypatch, "kubernetes_tpu_torch", bench,
+                                 lambda: bench.run_scaleout(6, device="cpu"))
+    for kw in jrec["clusters"]:
+        assert kw.pop("tpu") is True
+    for kw in prec["clusters"]:
+        assert kw.pop("device") == "cpu"
+    assert prec == jrec
+    assert list(ours["BENCH_SCALEOUT"]) == list(theirs["BENCH_SCALEOUT"]) \
+        == ["1", "2", "4", "6"]
+    assert {k: v for k, v in ours.items() if k != "BENCH_SCALEOUT"} == {
+        k: v for k, v in theirs.items() if k != "BENCH_SCALEOUT"}
+    for n, row in theirs["BENCH_SCALEOUT"].items():
+        mine = ours["BENCH_SCALEOUT"][n]
+        assert sorted(mine) == sorted(row)
+        for key in ("bound", "conflicts", "conflict_rate"):
+            assert mine[key] == row[key]
+    # bench.py's sizes, spelled out: what the port's defaults must stay
+    assert (ours["nodes"], ours["pods"], ours["batch"]) == (
+        100_000, 200_000, 16_384)
+    assert prec["caps"] == [100_000, 80_256, 40_256, 26_922]
+    assert prec["sleeps"] == [3.0] * 4
+    assert set(prec["nodes"]) == {10_000} and len(prec["nodes"]) == 40
+
+
+def test_instances_cli_prints_one_row(monkeypatch, capsys):
+    """--instances N runs run_scaleout with --nodes/--pods/--batch and the
+    device, and prints bench.py's row: the best pass's pods/s as value."""
+    seen = {}
+
+    def run_scaleout(n, device, **sizes):
+        seen.update(n=n, device=device, **sizes)
+        return {"nodes": 7, "pods": 9, "batch": 3, "BENCH_SCALEOUT": {
+            "1": {"pods_per_s": 5.0}, "2": {"pods_per_s": 8.0}}}
+    monkeypatch.setattr(bench, "run_scaleout", run_scaleout)
+    assert bench.main(["--instances", "2", "--device", "cpu", "--nodes",
+                       "7", "--pods", "9"]) == 0
+    assert seen == {"n": 2, "device": "cpu", "nodes": 7, "pods": 9}
+    import json
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["value"] == 8.0 and out["detail"]["mode"] == "scaleout"
+    assert bench.main(["--instances"]) == 0 and seen["n"] == 2

@@ -1,6 +1,7 @@
 """kubernetes_tpu_torch stands alone: it imports and runs a CPU step (and
 a sharded one, on a mesh of CPU shards, and the entry point's snapshot
-step) with jax and kubernetes_tpu unimportable, and no module of it (nor
+step, and builds scale-out coordinators and steps a churner) with jax and
+kubernetes_tpu unimportable, and no module of it (nor
 chip_smoke.py) names either in an import statement."""
 
 import ast
@@ -53,6 +54,14 @@ assert all(name for name, _ in out), out
 from kubernetes_tpu_torch.entry import entry
 fn, args = entry(device="cpu")
 assert (fn(*args)["assignments"] >= 0).all()
+from kubernetes_tpu_torch.ops.faults import InstanceChurner, ScaleOutSchedule
+from kubernetes_tpu_torch.scheduler.config import ScaleOutPolicy
+from kubernetes_tpu_torch.scheduler.scaleout import ScaleOutCoordinator
+cos = [ScaleOutCoordinator(ScaleOutPolicy(instance_count=2,
+                                          instance_index=i))
+       for i in range(2)]
+assert sum(c.owns_node("n0") for c in cos) == 1
+InstanceChurner(cos, ScaleOutSchedule(instance_count=2)).step()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))
 assert not bad, bad
@@ -162,6 +171,16 @@ def test_the_scan_covers_the_front_door():
     scanned = {str(p.relative_to(ROOT)) for p in
                (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
     for name in FRONT_DOOR:
+        assert f"kubernetes_tpu_torch/{name}.py" in scanned, name
+
+
+SCALE_OUT = ("scheduler/scaleout", "ops/faults", "perf/bench")
+
+
+def test_the_scan_covers_the_scale_out():
+    scanned = {str(p.relative_to(ROOT)) for p in
+               (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
+    for name in SCALE_OUT:
         assert f"kubernetes_tpu_torch/{name}.py" in scanned, name
 
 

@@ -168,22 +168,31 @@ def test_remote_census_is_served():
 
 
 def test_apply_and_scaleout_raise():
-    """Scale-out (ROADMAP item 10b) still raises; LocalClient.apply no
-    longer does since the managed-fields merge is ported: it creates the
-    object with its manager recorded (tests/test_torch_http_client.py holds
-    it against the JAX package)."""
+    """Neither raises any more: LocalClient.apply creates the object with
+    its manager recorded since the managed-fields merge is ported
+    (tests/test_torch_http_client.py holds it against the JAX package),
+    and configure_scaleout attaches a ScaleOutCoordinator for an enabled
+    policy, none for a single instance, and None detaches it
+    (tests/test_torch_scaleout.py holds the layer against the JAX
+    package)."""
     from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
     from kubernetes_tpu_torch.scheduler import new_scheduler
     from kubernetes_tpu_torch.scheduler.config import ScaleOutPolicy
+    from kubernetes_tpu_torch.scheduler.scaleout import ScaleOutCoordinator
     from kubernetes_tpu_torch.testing import make_pod
     client = LocalClient(kv.MemoryStore())
     applied = client.apply("pods", make_pod("p").build(), "tester")
     assert [m["manager"] for m in applied["metadata"]["managedFields"]] == [
         "tester"]
     sched = new_scheduler(client, SharedInformerFactory(client))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.configure_scaleout(ScaleOutPolicy(instance_count=2))
+    policy = ScaleOutPolicy(instance_count=2, instance_index=1)
+    sched.configure_scaleout(policy)
+    assert isinstance(sched.scaleout, ScaleOutCoordinator)
+    assert sched.scaleout.policy is policy and sched.scaleout.index == 1
+    assert sched.scaleout.live == (0, 1) and sched.scaleout.self_live
     sched.configure_scaleout(None)
+    assert sched.scaleout is None
+    sched.configure_scaleout(ScaleOutPolicy(instance_count=1))
     assert sched.scaleout is None
 
 

@@ -1035,3 +1035,112 @@ def pipelined_run(pkg, deadline=None, n_batches=4, per_batch=24,
     finally:
         s.stop()
     return s.outcome(), dict(s.backend.stats), threads
+
+
+# -- bench --instances: the parameters a run passes, recorded ---------------
+
+class _SpecRecorder:
+    """make_node / make_pod stand-in: records the spec, builds a name."""
+
+    def __init__(self, rec, name, *_args):
+        self.rec, self.name = rec, name
+
+    def capacity(self, **kw):
+        self.rec["node_spec"].add(tuple(sorted(kw.items())))
+        return self
+
+    def req(self, **kw):
+        self.rec["pod_spec"].add(tuple(sorted(kw.items())))
+        return self
+
+    def build(self):
+        return self.name
+
+
+def record_scaleout(monkeypatch, pkg, bench_mod, run):
+    """Call `run()` (bench.py's run_scaleout or the port's, from
+    `bench_mod`) with `pkg`'s store, client, harness, make_node, make_pod
+    and the bench module's sleep replaced by recorders: nothing is built and no
+    scheduler runs; every pass binds all its pods at once.  Returns (what
+    run() returned, the record): per pass the store's arguments, the
+    caps_for_nodes argument, each instance's setup_cluster arguments (the
+    store as the pass's index) and ScaleOutPolicy, the sleeps, and the
+    sizes of the node and pod chunks with the node and pod specs."""
+    import dataclasses
+
+    def m(name):
+        return importlib.import_module(f"{pkg}.{name}")
+    rec = {"stores": [], "caps": [], "clusters": [], "policies": [],
+           "sleeps": [], "nodes": [], "pods": [], "node_spec": set(),
+           "pod_spec": set()}
+
+    class Store:
+        def __init__(self, **kw):
+            self.index = len(rec["stores"])
+            rec["stores"].append(kw)
+
+    class Client:
+        def __init__(self, store):
+            self.store = store
+
+        def create_bulk(self, resource, objs):
+            rec[resource].append(len(objs))
+
+    class Scheduler:
+        def __init__(self, kw):
+            self.kw = kw
+
+        def configure_scaleout(self, policy):
+            rec["policies"].append(dataclasses.asdict(policy))
+
+        def expose_metrics(self):
+            return ""
+
+    class Cluster:
+        def __init__(self, kw):
+            self.scheduler = Scheduler(kw)
+
+        def shutdown(self):
+            pass
+
+    def setup_cluster(**kw):
+        kw["store"] = kw["store"].index
+        rec["clusters"].append(kw)
+        return Cluster(kw)
+
+    class Collector:
+        def __init__(self, store):
+            pass
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def bound_total(self):
+            return sum(rec["pods"])
+
+    class Clock:
+        monotonic = staticmethod(time.monotonic)
+
+        @staticmethod
+        def sleep(s):
+            rec["sleeps"].append(s)
+
+    def caps_for_nodes(n):
+        rec["caps"].append(n)
+        return ("caps", n)
+
+    monkeypatch.setattr(m("store.kv"), "MemoryStore", Store)
+    monkeypatch.setattr(m("client.clientset"), "LocalClient", Client)
+    monkeypatch.setattr(m("perf.scheduler_perf"), "setup_cluster",
+                        setup_cluster)
+    monkeypatch.setattr(m("perf.scheduler_perf"), "ThroughputCollector",
+                        Collector)
+    monkeypatch.setattr(m("perf"), "caps_for_nodes", caps_for_nodes)
+    for name in ("make_node", "make_pod"):
+        monkeypatch.setattr(m("testing"), name,
+                            lambda *a, **_k: _SpecRecorder(rec, *a))
+    monkeypatch.setattr(bench_mod, "time", Clock)
+    return run(), rec
