@@ -442,27 +442,44 @@ class ClaimsRecorder:
     """Within the block, every kernels.claims call goes through a wrapper
     that records (pods, live pods, nodes, noise) and a pair of CUDA events
     around the call, and with keep=True a copy of its inputs and of its
-    outputs.  The launch count stays the package's own
-    (kernels.LAUNCHES)."""
+    outputs.  With first_live=True it records nothing of the kind: once
+    armed with a tag (`armed`), it keeps in kept[tag] a copy of the inputs
+    of the first single-device launch with a live pod (finding it reads
+    `active` back: a sync per launch until then) and disarms.  The launch
+    count stays the package's own (kernels.LAUNCHES)."""
 
-    def __init__(self, kernels, keep=False):
+    def __init__(self, kernels, keep=False, first_live=False):
         self.kernels, self.keep, self.rows, self.inputs = kernels, keep, [], []
         self.outputs = []
+        self.first_live, self.armed, self.kept = first_live, None, {}
+
+    @staticmethod
+    def copy_inputs(static, active, used, used_nz, npods, noise, pod_ids):
+        return ({k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in static.items()},
+                *(t.clone() for t in (active, used, used_nz, npods)),
+                noise, None if pod_ids is None else pod_ids.clone())
 
     def __enter__(self):
         inner = self.inner = self.kernels.claims
 
         def claims(static, active, used, used_nz, npods, noise="sin",
                    pod_ids=None, node_offset=0):
+            args = (static, active, used, used_nz, npods, noise, pod_ids)
+            if self.first_live:
+                tag = self.armed
+                if tag is not None and not node_offset \
+                        and bool(active.any()):
+                    self.armed = None
+                    self.kept[tag] = self.copy_inputs(*args)
+                return inner(static, active, used, used_nz, npods,
+                             noise=noise, pod_ids=pod_ids,
+                             node_offset=node_offset)
             # the kept inputs replay at offset 0: the single device's
             check(not (self.keep and node_offset),
                   "ClaimsRecorder keeps single-device launches only")
             if self.keep:
-                self.inputs.append((
-                    {k: v.clone() if torch.is_tensor(v) else v
-                     for k, v in static.items()},
-                    *(t.clone() for t in (active, used, used_nz, npods)),
-                    noise, None if pod_ids is None else pod_ids.clone()))
+                self.inputs.append(self.copy_inputs(*args))
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             t0 = time.monotonic()
@@ -3002,44 +3019,12 @@ CONFLICT_KINDS = ("lost_to_peer", "requeued", "fenced",
                   "already_bound_same_node")
 
 
-class FirstWaveRecorder:
-    """Within the block, kernels.claims goes through a wrapper that, once
-    armed with a tag, keeps a copy of the inputs of the first launch with
-    a live pod under that tag (finding it reads `active` back: a sync per
-    launch until then) and disarms.  The launch count stays the
-    package's own."""
-
-    def __init__(self, kernels):
-        self.kernels, self.armed, self.kept = kernels, None, {}
-
-    def __enter__(self):
-        inner = self.inner = self.kernels.claims
-
-        def claims(static, active, used, used_nz, npods, noise="sin",
-                   pod_ids=None, node_offset=0):
-            tag = self.armed
-            if tag is not None and not node_offset and bool(active.any()):
-                self.armed = None
-                self.kept[tag] = (
-                    {k: v.clone() if torch.is_tensor(v) else v
-                     for k, v in static.items()},
-                    *(t.clone() for t in (active, used, used_nz, npods)),
-                    noise, None if pod_ids is None else pod_ids.clone())
-            return inner(static, active, used, used_nz, npods, noise=noise,
-                         pod_ids=pod_ids, node_offset=node_offset)
-        self.kernels.claims = claims
-        return self
-
-    def __exit__(self, *exc):
-        self.kernels.claims = self.inner
-        return False
-
-
 class ScaleOutWatch:
     """Within the block: for each scale-out instance the longest gap
     between two of its coordinator's ticks (one a scheduling-loop
     iteration: the sweep and the resync run only there) and between two
-    renewals of its lease (from the tick or the heartbeat thread), every
+    renewals of its lease (from the tick's heartbeat or the renewal
+    thread's renew_off_loop, timed from when each read its clock), every
     membership change a tick reported, every _scaleout_resync with its
     seconds and the node count of the cache after it, and every garbage
     collection of 0.1 s or more; times from the last reset()."""
@@ -3052,17 +3037,30 @@ class ScaleOutWatch:
         tick = self.tick = ScaleOutCoordinator.tick
         resync = self.resync = Scheduler._scaleout_resync
         beat = self.beat = ScaleOutCoordinator.heartbeat
+        renew = self.renew = ScaleOutCoordinator.renew_off_loop
         watch = self
         self.reset()
 
-        def timed_beat(co, client, now):
-            t = time.monotonic()
+        def renewed(co, t):
+            # t: when the renewal read its clock (the Lease's renewTime)
             last = watch.beats.get(co.index)
             if last is not None and t - last > watch.beat_gaps.get(
                     co.index, (0.0, 0.0))[0]:
                 watch.beat_gaps[co.index] = (t - last, last - watch.t0)
             watch.beats[co.index] = t
-            return beat(co, client, now)
+
+        def timed_beat(co, client, now):
+            t = time.monotonic()
+            out = beat(co, client, now)
+            renewed(co, t)
+            return out
+
+        def timed_renew(co, client, now=None):
+            t = time.monotonic()
+            out = renew(co, client, now)
+            if out:
+                renewed(co, t)
+            return out
 
         def timed_tick(co, client, now=None):
             t = time.monotonic()
@@ -3086,6 +3084,7 @@ class ScaleOutWatch:
                                   sched.cache.node_count()))
         ScaleOutCoordinator.tick = timed_tick
         ScaleOutCoordinator.heartbeat = timed_beat
+        ScaleOutCoordinator.renew_off_loop = timed_renew
         Scheduler._scaleout_resync = timed_resync
         gc.callbacks.append(self.on_gc)
         return self
@@ -3093,6 +3092,7 @@ class ScaleOutWatch:
     def __exit__(self, *exc):
         self.classes[0].tick = self.tick
         self.classes[0].heartbeat = self.beat
+        self.classes[0].renew_off_loop = self.renew
         self.classes[1]._scaleout_resync = self.resync
         gc.callbacks.remove(self.on_gc)
         return False
@@ -3121,8 +3121,9 @@ class ScaleOutWatch:
               f"{gaps}, between lease renewals {beats}; membership "
               f"changes (s, instance, live) "
               f"{self.changes[:12]}{' ...' if len(self.changes) > 12 else ''}"
-              f" ({len(self.changes)}); gc pauses >= 0.1 s (s, gen, secs) "
-              f"{self.gcs[:8]} ({len(self.gcs)}) [{smi}]", flush=True)
+              f" ({len(self.changes)}); gc pauses >= 0.1 s, longest first "
+              f"(s, gen, secs) {sorted(self.gcs, key=lambda g: -g[2])[:8]} "
+              f"({len(self.gcs)}) [{smi}]", flush=True)
         for at, idx, live, secs, held in self.resyncs[:12]:
             print(f"   {label}: resync at {at} s: instance {idx} live {live}"
                   f" took {secs:.3f} s, its cache {held} nodes", flush=True)
@@ -3138,11 +3139,15 @@ def instance_backends(clusters):
 
 def check_instances(clusters, label, ran=None):
     """No fallback: every instance's batch backend is a TorchBatchBackend
-    on the card, and each instance in `ran` (default: all) ran batches,
-    every one of them plain.  Returns (batches, waves) per instance."""
+    on the card, each instance in `ran` (default: all) ran batches, every
+    one of them plain, and no instance sent a pod to the per-pod path: a
+    batch whose cache outgrew the backend's n_cap (a peer's slices
+    absorbed past it) escapes whole as ("BatchEncoder", "vocab_full")
+    before it counts as a batch.  Returns (batches, waves) per
+    instance."""
     from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
     out = []
-    for i, b in enumerate(instance_backends(clusters)):
+    for i, (cl, b) in enumerate(zip(clusters, instance_backends(clusters))):
         check(type(b) is TorchBatchBackend and b.device.type == "cuda",
               f"{label}: instance {i}'s backend is {type(b).__name__} on "
               f"{getattr(b, 'device', None)}")
@@ -3151,6 +3156,11 @@ def check_instances(clusters, label, ran=None):
               and (st["batches"] > 0 or (ran is not None and i not in ran)),
               f"{label}: instance {i} batches {st['batches']} plain "
               f"{st.get('plain', 0)}")
+        cl.scheduler._drain_backend_telemetry(b)  # tallies not yet drained
+        esc = pass_escapes(cl)
+        check(esc["escaped"] == 0 and not esc["by_reason"],
+              f"{label}: instance {i} sent pods to the per-pod path: "
+              f"{esc}")
         out.append((st["batches"], st["waves"]))
     return out
 
@@ -3266,7 +3276,7 @@ def scaleout_flood(smi, watch, nodes, pods, batch, timeout):
         if n in SCALEOUT_PROFILED:
             got["idle"] = profile_instances(clusters, PROFILED_PODS,
                                             f"scaleout-{n}", smi)
-    with FirstWaveRecorder(kernels) as rec:
+    with ClaimsRecorder(kernels, first_live=True) as rec:
         res = bench.run_scaleout(SCALEOUT_MAX, nodes=nodes, pods=pods,
                                  batch=batch, timeout=timeout,
                                  before=before, after=after)

@@ -48,11 +48,17 @@ loop iteration can outlast the 2 s lease (on an H100 host, two ticks of
 one loop 5.4 s apart while the node flood arrived, and a resync 2.5-7.3
 s): the first instance to tick again declares its peers dead,
 absorbs their slices past its backend's node capacity, and its batches
-fall to the per-pod path.  Here the Scheduler, while its
-loop runs, also renews from start_heartbeat's thread, as client-go's
-LeaderElector renews from a goroutine of its own; sweeps, resyncs and
-the bind fence stay on the loop, and a retired instance stops renewing
-as before.
+fall to the per-pod path.  Here the Scheduler, while its loop runs,
+also renews from start_heartbeat's thread, as client-go's LeaderElector
+renews from a goroutine of its own; sweeps, resyncs and the bind fence
+stay on the loop, and a retired instance stops renewing as before.
+The thread renews only while the loop has ticked within
+LOOP_STALL_LEASES lease durations (renew_off_loop).  The trade-off
+against the JAX package: a loop that hangs keeps its lease for that
+window after its last tick (20 s at the default 2 s lease) and loses
+it one lease_duration later, where the JAX instance loses it one
+lease_duration after its last tick; until then its ring slices stay
+with it and its pending pods wait.
 
 Reference: staging/src/k8s.io/client-go/tools/leaderelection/leaderelection.go
 (Lease acquire/renew discipline, here per-instance instead of
@@ -72,6 +78,9 @@ from ..store import kv
 
 LEASE_NAMESPACE = "kube-system"
 LEASE_PREFIX = "scheduler-instance-"
+# the renewal thread renews only while the loop ticked within this many
+# lease durations, so a hung loop still fails over ("Lease renewal")
+LOOP_STALL_LEASES = 10
 
 
 def _slice(key: str, slices: int) -> int:
@@ -95,6 +104,7 @@ class ScaleOutCoordinator:
         self._retired = False
         self._last_tick = float("-inf")
         self._boot = now_fn()
+        self._loop_seen = self._boot  # the last tick() call's now
         self._beat: tuple[threading.Event, threading.Thread] | None = None
 
     # -- identity ---------------------------------------------------------
@@ -215,6 +225,7 @@ class ScaleOutCoordinator:
         membership changed and the caller must resync its partition."""
         if now is None:
             now = self._now()
+        self._loop_seen = now
         if now - self._last_tick < self.policy.renew_interval:
             return False
         self._last_tick = now
@@ -235,22 +246,49 @@ class ScaleOutCoordinator:
 
     # -- renewal off the loop (this package's addition) -------------------
 
+    def renew_off_loop(self, client, now: float | None = None) -> bool:
+        """The renewal thread's step: renew this instance's Lease unless it
+        is retired or its loop has not ticked for LOOP_STALL_LEASES lease
+        durations; True when it renewed."""
+        if now is None:
+            now = self._now()
+        stalled = now - self._loop_seen > (LOOP_STALL_LEASES
+                                           * self.policy.lease_duration)
+        if self._retired or stalled:
+            return False
+        name = self._lease_name(self.index)
+        body = {"kind": "Lease", "apiVersion": "coordination.k8s.io/v1",
+                "metadata": {"namespace": LEASE_NAMESPACE, "name": name},
+                "spec": {"holderIdentity": str(self.index),
+                         "renewTime": now}}
+        try:
+            # heartbeat's Lease in one store write (an update with no
+            # resourceVersion is unconditional): heartbeat's create, get
+            # and update wait for the store lock three times, behind the
+            # peers' bulk binds
+            client.update(LEASES, body)
+        except kv.NotFoundError:
+            try:
+                self.heartbeat(client, now)
+            except (kv.StoreError, OSError):
+                return False
+        except (kv.StoreError, OSError):
+            return False  # as in tick: the sweep handles a silent lease
+        return True
+
     def start_heartbeat(self, client) -> None:
-        """Renew this instance's Lease now and every renew_interval from a
-        thread of its own until stop_heartbeat(), skipping while retired.
-        The Scheduler starts it with its loop, so a loop iteration longer
-        than lease_duration does not lapse a live instance.  Idempotent."""
+        """Call renew_off_loop now and every renew_interval from a thread
+        of its own until stop_heartbeat().  The Scheduler starts it with
+        its loop, so a loop iteration longer than lease_duration does not
+        lapse a live instance.  Idempotent."""
         if self._beat is not None:
             return
+        self._loop_seen = self._now()  # the loop starts now
         stop = threading.Event()
 
         def renew() -> None:
             while True:
-                if not self._retired:
-                    try:
-                        self.heartbeat(client, self._now())
-                    except (kv.StoreError, OSError):
-                        pass  # as in tick: the sweep handles a silent lease
+                self.renew_off_loop(client)
                 if stop.wait(self.policy.renew_interval):
                     return
         t = threading.Thread(target=renew, daemon=True,

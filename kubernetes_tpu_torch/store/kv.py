@@ -187,6 +187,47 @@ class Watch:
             yield ev
 
 
+def _bound_pod(resource: str, key: str, entry: tuple, cur: Obj | None,
+               transform) -> tuple[Obj | None, StoreError | None]:
+    """MemoryStore.bind_many's check and build for one (namespace, name,
+    node_name[, expect_rv]) entry against the stored object `cur`: the
+    bound pod (its resourceVersion is set at commit) or the error."""
+    node = entry[2]
+    expect_rv = entry[3] if len(entry) > 3 else None
+    if not node:
+        # a falsy nodeName would store a bind that every reader treats
+        # as "unbound" — the pod is silently lost (seen under churn when
+        # a caller resolves a name across a node's in-place removal).
+        # Refuse loudly; the scheduler's failure path requeues.
+        return None, StoreError(f"bind {key!r}: empty node name refused")
+    if cur is None:
+        return None, NotFoundError(f"{resource} {key!r} not found")
+    if transform is not None:
+        cur = transform.decrypt_obj(cur)
+    if (cur.get("spec") or {}).get("nodeName"):
+        bound_to = cur["spec"]["nodeName"]
+        return None, BindConflict(
+            f"pod {key!r} is already bound to {bound_to!r}",
+            key=key, current_node=bound_to, wanted_node=node)
+    if expect_rv is not None and \
+            cur["metadata"].get("resourceVersion") != expect_rv:
+        return None, BindConflict(
+            f"pod {key!r} moved past resourceVersion {expect_rv!r} (now "
+            f"{cur['metadata'].get('resourceVersion')!r})",
+            key=key, current_node=None, wanted_node=node)
+    # 2-level copy, not deep: only metadata/spec/status own mutated
+    # slots; nested values are shared with the prior stored object, which
+    # is safe under the read contract (returned objects are never mutated
+    # in place — the store itself always writes fresh containers)
+    status = cur.get("status") or {}
+    return {**cur,
+            "metadata": dict(cur["metadata"]),
+            "spec": {**(cur.get("spec") or {}), "nodeName": node},
+            "status": {**status,
+                       "conditions": list(status.get("conditions") or ())
+                       + [{"type": "PodScheduled", "status": "True"}]}}, None
+
+
 class MemoryStore:
     """The cluster store. One instance == one 'etcd'."""
 
@@ -563,65 +604,48 @@ class MemoryStore:
         resourceVersion moved past it — returns a structured BindConflict
         instead of silently double-binding, so N scheduler instances can
         commit optimistically against one shared store and losers detect it.
+
+        The bound pods are built outside the lock from the stored objects
+        read under it; the commit, under the lock again, installs each
+        one whose stored object is still the one read and redoes the
+        rest in place, so the outcome is the one a single locked pass
+        gives.  Why: with several scheduler instances in one process the
+        lock's holder shares the GIL with every other thread, and a
+        16,384-pod bind held the lock for 0.4-0.6 s while its peers'
+        lease renewals waited behind it (this package's change; the JAX
+        package's store builds them under the lock).
         """
         self._check_fence()
         out: list[tuple[Obj | None, StoreError | None]] = []
         evs: list[WatchEvent] = []
         recs: list[tuple] = []
         transform = self._transformers.get(resource)
+        keys = []
+        for entry in bindings:
+            ns, nm = entry[0], entry[1]
+            keys.append(f"{ns}/{nm}" if ns else nm)
+        with self._lock:
+            table = self._table(resource)
+            read = [table.get(key) for key in keys]
+        # stored objects are never mutated in place (the read contract),
+        # so the ones read stay valid to build from outside the lock
+        built = [_bound_pod(resource, key, entry, cur, transform)
+                 for key, entry, cur in zip(keys, bindings, read)]
         with self._lock:
             logging_on = self._logging  # invariant while the lock is held
             table = self._table(resource)
             rev = self._rev
-            for entry in bindings:
-                ns, nm, node = entry[0], entry[1], entry[2]
-                expect_rv = entry[3] if len(entry) > 3 else None
-                key = f"{ns}/{nm}" if ns else nm
-                if not node:
-                    # a falsy nodeName would store a bind that every
-                    # reader treats as "unbound" — the pod is silently
-                    # lost (seen under churn when a caller resolves a
-                    # name across a node's in-place removal).  Refuse
-                    # loudly; the scheduler's failure path requeues.
-                    out.append((None, StoreError(
-                        f"bind {key!r}: empty node name refused")))
+            for key, entry, cur, (obj, err) in zip(keys, bindings, read,
+                                                   built):
+                now_cur = table.get(key)
+                if now_cur is not cur:  # written since the read: redo
+                    obj, err = _bound_pod(resource, key, entry, now_cur,
+                                          transform)
+                if err is not None:
+                    out.append((None, err))
                     continue
-                cur = table.get(key)
-                if cur is None:
-                    out.append((None, NotFoundError(
-                        f"{resource} {key!r} not found")))
-                    continue
-                if transform is not None:
-                    cur = transform.decrypt_obj(cur)
-                if (cur.get("spec") or {}).get("nodeName"):
-                    bound_to = cur["spec"]["nodeName"]
-                    out.append((None, BindConflict(
-                        f"pod {key!r} is already bound to {bound_to!r}",
-                        key=key, current_node=bound_to, wanted_node=node)))
-                    continue
-                if expect_rv is not None and \
-                        cur["metadata"].get("resourceVersion") != expect_rv:
-                    out.append((None, BindConflict(
-                        f"pod {key!r} moved past resourceVersion "
-                        f"{expect_rv!r} (now "
-                        f"{cur['metadata'].get('resourceVersion')!r})",
-                        key=key, current_node=None, wanted_node=node)))
-                    continue
-                # 2-level copy, not deep: only metadata/spec/status own
-                # mutated slots; nested values are shared with the prior
-                # stored object, which is safe under the read contract
-                # (returned objects are never mutated in place — the store
-                # itself always writes fresh containers)
-                status = cur.get("status") or {}
                 rev += 1
-                obj = {**cur,
-                       "metadata": {**cur["metadata"], "resourceVersion": rev},
-                       "spec": {**(cur.get("spec") or {}), "nodeName": node},
-                       "status": {**status,
-                                  "conditions": list(status.get(
-                                      "conditions") or ()) + [
-                                      {"type": "PodScheduled",
-                                       "status": "True"}]}}
+                obj["metadata"]["resourceVersion"] = rev
                 sealed = (transform.encrypt_obj(obj)
                           if transform is not None else obj)
                 table[key] = sealed

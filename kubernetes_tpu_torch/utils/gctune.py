@@ -41,7 +41,14 @@ def tune_for_throughput(freeze_startup: bool = True) -> None:
     if freeze_startup:
         gc.collect()
         gc.freeze()
-    gc.set_threshold(200_000, 100, 100)
+    # Generation 1 every 5 generation-0 passes, not every 100: a pass
+    # walks the survivors of the passes before it, and 100 of 200,000
+    # each let 20M objects pile up (four scale-out instances at 100,000
+    # nodes: one 9.2 s pass that stopped every thread and lapsed every
+    # lease).  The total walked is the same.  Generation 2 stays where
+    # the JAX package's (200_000, 100, 100) has it: after 10,000
+    # generation-0 passes.
+    gc.set_threshold(200_000, 5, 2_000)
     # Fewer GIL handoffs: the pipeline runs 5-6 cooperating threads
     # (sched loop, binder, informer, event broadcaster, collector) that
     # each do long CPU bursts; the default 5ms switch interval forces

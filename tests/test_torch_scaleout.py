@@ -29,13 +29,14 @@ half of ops/faults.py, Scheduler.configure_scaleout, perf.bench's
 Then the port's one addition, which the JAX package lacks: while the
 loop runs, the coordinator renews its lease from a thread of its own
 (scheduler/scaleout.py "Lease renewal"), so a loop iteration longer than
-the lease does not lapse a live instance.
+the lease does not lapse a live instance, while a loop stalled past
+LOOP_STALL_LEASES leases still fails over; both held against the JAX
+package's loop-only renewal on a hand clock.
 """
 
 import importlib
 import itertools
 import signal
-import threading
 import time
 
 import pytest
@@ -652,6 +653,93 @@ def test_run_scaleout_binds_every_pod_with_bench_py_keys(
         assert sorted(ours["BENCH_SCALEOUT"][n]) == sorted(row), n
 
 
+# -- the shared store's compare-and-bind --------------------------------------
+
+def bind_script(seed):
+    """Pods in three namespaces, then four bulk binds: fresh pods, pods
+    bound already (by the earlier call or twice in one call), missing
+    pods, an empty node name, stale and current expect_rv."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pods = [("" if i % 7 == 0 else f"ns-{i % 3}", f"p-{i}")
+            for i in range(60)]
+    calls = []
+    for _c in range(4):
+        call = []
+        for _ in range(40):
+            ns, nm = (pods[int(rng.integers(len(pods)))]
+                      if rng.random() < 0.92 else ("ns-0", "gone"))
+            node = "" if rng.random() < 0.05 else f"n-{int(rng.integers(8))}"
+            entry = (ns, nm, node)
+            if rng.random() < 0.3:
+                entry += (int(rng.integers(1, 130)),)
+            call.append(entry)
+        calls.append(call)
+    return pods, calls
+
+
+def run_binds(pkg, seed, interfere=None):
+    kv, api = m(pkg, "store.kv"), m(pkg, "api.meta")
+    store = kv.MemoryStore()
+    pods, calls = bind_script(seed)
+    for ns, nm in pods:
+        md = {"name": nm, "uid": f"u-{nm}", "creationTimestamp": 1.0}
+        if ns:
+            md["namespace"] = ns
+        store.create("pods", {"metadata": md, "spec": {}})
+    watch = store.watch("pods", since_rv=0)
+    seen = []
+    for call in calls:
+        if interfere is not None:
+            interfere(store, call)
+        for obj, err in store.bind_many("pods", call):
+            seen.append((type(err).__name__, str(err)) if err is not None
+                        else (api.resource_version(obj),
+                              obj["spec"]["nodeName"],
+                              obj["status"]["conditions"]))
+    events = [(e.type, e.revision, e.object["metadata"]["name"],
+               e.object["spec"].get("nodeName")) for e in watch.next_batch(1)]
+    watch.stop()
+    return seen, events, store.revision, store.list("pods")[0]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bind_many_matches_the_jax_store(seed):
+    """The port's bind_many builds the bound pods outside the store lock
+    and commits under it; on the same script it returns the same results
+    and errors, emits the same events and stores the same objects as the
+    JAX package's single locked pass."""
+    assert run_binds(PORT, seed) == run_binds(JAX, seed)
+
+
+def test_bind_many_redoes_a_pod_written_since_its_read(monkeypatch):
+    """A pod bound by another writer between bind_many's read and its
+    commit: the commit sees the stored object changed, redoes the entry
+    under the lock and reports the BindConflict the JAX store reports
+    when that write lands first."""
+    kv = m(PORT, "store.kv")
+    build = kv._bound_pod
+    raced = []
+
+    def racing(resource, key, entry, cur, transform):
+        if not raced and key == "ns-1/p-1" and cur is not None:
+            raced.append(key)  # outside the lock: a peer binds it first
+            store.bind_many("pods", [("ns-1", "p-1", "peer-node")])
+        return build(resource, key, entry, cur, transform)
+    store = kv.MemoryStore()
+    for nm in ("p-0", "p-1"):
+        store.create("pods", {"metadata": {"namespace": "ns-1", "name": nm},
+                              "spec": {}})
+    monkeypatch.setattr(kv, "_bound_pod", racing)
+    out = store.bind_many("pods", [("ns-1", "p-0", "n-0"),
+                                   ("ns-1", "p-1", "n-1")])
+    assert raced and out[0][1] is None
+    assert out[0][0]["spec"]["nodeName"] == "n-0"
+    assert isinstance(out[1][1], kv.BindConflict)
+    assert out[1][1].current_node == "peer-node"
+    assert store.get("pods", "ns-1", "p-1")["spec"]["nodeName"] == "peer-node"
+
+
 # -- the port's lease renewal off the loop --------------------------------------
 
 def lease_renewed(store, index):
@@ -661,77 +749,95 @@ def lease_renewed(store, index):
 
 
 def test_heartbeat_thread_renews_until_retired_or_stopped(deadline):
-    """start_heartbeat renews the lease every renew_interval with no
-    tick; a retired coordinator stops renewing and a revived one resumes;
-    stop_heartbeat ends the thread; both calls are idempotent.  The JAX
-    package has no such thread: tick() alone renews there."""
+    """On a hand clock renew_off_loop renews the lease, a retired
+    coordinator does not and a revived one does again.  start_heartbeat's
+    thread renews at once; stop_heartbeat ends it and no renewal follows;
+    both calls are idempotent.  The JAX package has no such thread:
+    tick() alone renews there."""
     kv, clientset = m(PORT, "store.kv"), m(PORT, "client.clientset")
     store = kv.MemoryStore()
-    co = coordinator(PORT, 0, 2, lease_duration=2.0, renew_interval=0.02)
-    co.start_heartbeat(clientset.LocalClient(store))
-    co.start_heartbeat(clientset.LocalClient(store))
-    assert wait_for(lambda: lease_renewed(store, 0) is not None)
-    first = lease_renewed(store, 0)
-    assert wait_for(lambda: lease_renewed(store, 0) > first, timeout=10.0)
+    client = clientset.LocalClient(store)
+    clock = [100.0]
+    co = coordinator(PORT, 0, 2, now_fn=lambda: clock[0],
+                     lease_duration=2.0, renew_interval=0.5)
+    assert co.renew_off_loop(client) and lease_renewed(store, 0) == 100.0
+    clock[0] = 101.0
     co.retire()
-    time.sleep(0.1)
-    held = lease_renewed(store, 0)
-    time.sleep(0.2)
-    assert lease_renewed(store, 0) == held
+    assert not co.renew_off_loop(client)
+    assert lease_renewed(store, 0) == 100.0
     co.revive()
-    assert wait_for(lambda: lease_renewed(store, 0) > held, timeout=10.0)
-    beat = co._beat[1]
-    co.stop_heartbeat()
-    co.stop_heartbeat()
-    assert not beat.is_alive() and co._beat is None
-    held = lease_renewed(store, 0)
+    assert co.renew_off_loop(client) and lease_renewed(store, 0) == 101.0
+    live = coordinator(PORT, 1, 2, lease_duration=2.0, renew_interval=0.02)
+    live.start_heartbeat(client)
+    live.start_heartbeat(client)
+    assert wait_for(lambda: lease_renewed(store, 1) is not None)
+    beat = live._beat[1]
+    live.stop_heartbeat()
+    live.stop_heartbeat()
+    assert not beat.is_alive() and live._beat is None
+    held = lease_renewed(store, 1)
     time.sleep(0.1)
-    assert lease_renewed(store, 0) == held
+    assert lease_renewed(store, 1) == held
 
 
-def stalled_peer_run(keep_heartbeat):
-    """Two running port instances (per-pod profile) with 0.5 s leases;
-    instance 0's loop then stalls for 1.5 s in one iteration.  Returns
-    every membership instance 1 held while instance 0 stalled."""
-    store = m(PORT, "store.kv").MemoryStore()
-    instances = [new_instance(PORT, store, live_policy(
-        PORT, i, 2, lease_duration=0.5, renew_interval=0.05), False)
-        for i in range(2)]
-    views = set()
-    try:
-        first, second = instances[0][0], instances[1][0]
-        assert wait_for(lambda: lease_renewed(store, 0) is not None
-                        and lease_renewed(store, 1) is not None)
-        if not keep_heartbeat:
-            first.scaleout.stop_heartbeat()
-        stalled = threading.Event()
-        step = first.schedule_step
+STALL_AT = 10.0
 
-        def slow_step(timeout=None):
-            if not stalled.is_set():
-                stalled.set()
-                time.sleep(1.5)
-            return step(timeout=timeout)
-        first.schedule_step = slow_step
-        assert stalled.wait(10.0)
-        t_end = time.monotonic() + 1.4
-        while time.monotonic() < t_end:
-            views.add(second.scaleout.live)
-            time.sleep(0.01)
-    finally:
-        for s, f in instances:
-            s.stop()
-            f.stop()
+
+def stall_views(pkg, stall):
+    """Two coordinators of `pkg` over one store on a hand clock (2 s
+    leases, 0.5 s renewal) tick every 0.25 s; from STALL_AT instance 0's
+    loop stalls for `stall` s while the port's renewal thread still
+    steps every renew_interval (the JAX package has none), then ticks
+    again.  Returns [(t, instance 1's live view)] from STALL_AT to 5 s
+    after the stall."""
+    kv, clientset = m(pkg, "store.kv"), m(pkg, "client.clientset")
+    client = clientset.LocalClient(kv.MemoryStore())
+    clock = [0.0]
+    cos = [coordinator(pkg, i, 2, now_fn=lambda: clock[0],
+                       lease_duration=2.0, renew_interval=0.5)
+           for i in range(2)]
+    renew = getattr(cos[0], "renew_off_loop", None)
+    views = []
+    for k in range(int((STALL_AT + stall + 5.0) * 4)):
+        t = clock[0] = k * 0.25
+        if not STALL_AT <= t < STALL_AT + stall:
+            cos[0].tick(client, t)
+        elif renew is not None and k % 2 == 0:
+            renew(client, t)
+        cos[1].tick(client, t)
+        if t >= STALL_AT:
+            views.append((t, cos[1].live))
     return views
 
 
-def test_a_stalled_loop_keeps_its_lease(deadline):
-    """With the heartbeat thread a loop iteration longer than the lease
-    does not lapse the instance: its peer's view stays (0, 1).  Without
-    it (the JAX package's renewal, on the loop only) the peer declares
-    the stalled instance dead."""
-    assert stalled_peer_run(keep_heartbeat=True) == {(0, 1)}
-    assert (1,) in stalled_peer_run(keep_heartbeat=False)
+def first_lapse(views):
+    return next((t for t, live in views if live == (1,)), None)
+
+
+def test_a_stalled_loop_keeps_its_lease():
+    """A loop stalled three leases long, within the window: the port's
+    instance keeps its lease (its peer's view stays (0, 1)); the JAX
+    package's, which renews on the loop only, lapses one lease after its
+    last tick and rejoins when it ticks again."""
+    assert {live for _t, live in stall_views(PORT, 6.0)} == {(0, 1)}
+    theirs = stall_views(JAX, 6.0)
+    assert STALL_AT < first_lapse(theirs) <= STALL_AT + 2.5
+    assert theirs[-1][1] == (0, 1)
+
+
+def test_a_hung_loop_fails_over():
+    """A loop stalled past LOOP_STALL_LEASES leases: the renewal thread
+    stops with it, so the peer sweeps the instance out one lease after
+    the window (the JAX package: one lease after the last tick), and the
+    instance rejoins when its loop ticks again."""
+    window = m(PORT, "scheduler.scaleout").LOOP_STALL_LEASES * 2.0
+    stall = window + 20.0
+    ours, theirs = stall_views(PORT, stall), stall_views(JAX, stall)
+    assert STALL_AT + window < first_lapse(ours) <= STALL_AT + window + 2.5
+    assert all(live == (1,) for t, live in ours
+               if STALL_AT + window + 2.5 <= t < STALL_AT + stall)
+    assert STALL_AT < first_lapse(theirs) <= STALL_AT + 2.5
+    assert ours[-1][1] == theirs[-1][1] == (0, 1)
 
 
 def test_heartbeat_follows_the_loop_and_the_coordinator():
