@@ -92,15 +92,15 @@ Phases (each prints its wall time; any failed check exits non-zero):
  17. SchedulingHostNull: SchedulingBasic's 5,000 nodes and 50,000 pods
      with the device step nulled (ops/nullbackend.py, by name), depth 1,
      then the host ceiling at SchedulingBasic's depth 2: the nulled row
-     and SchedulingBasic on the card in turns, three rounds each, the
+     and SchedulingBasic on the card in turns, two rounds each, the
      card's share of the ceiling per round and the spread of both;
  18. SchedulingOverloadFlood: 2,000 nodes, a 30,000-pod flood with every
      50th pod outside the tensor encoding, under the full overload policy
      and a seeded chaos schedule of slow and all-escape waves;
  19. SchedulingChurnStorm: 500 nodes, a 12,000-pod flood during a seeded
      storm of node adds, drains and relabels, default overload policy.
-     8-19 run every pass the config has (two where bench.py says
-     two_pass: 11-16), print the bench row and for each pass its pods/s,
+     8-19 run one pass a row (ROW_PASSES; bench.py runs its two_pass
+     rows, 11-16, twice), print the bench row and for each pass its pods/s,
      pod e2e p50/p95/p99 ms, waves per batch, escape rate and its
      reasons and the set-up times outside the window, and check every
      pass from the store: every pod left is bound (the rest are deleted
@@ -126,7 +126,7 @@ Phases (each prints its wall time; any failed check exits non-zero):
  21. observability: SchedulingBasic through the Scheduler (5,000 nodes,
      50,000 pods, batch 16,384, depth 2) with tracing at 1,000,000 per
      million, profiling.timeline and the device census armed, and with all
-     three off, in turns, three rounds (armed / off pods/s printed, no
+     three off, in turns, two rounds (armed / off pods/s printed, no
      gate); the first armed pass prints the span count by name and checks
      that a bound batch's trace holds every pipeline span under its JAX
      parent, prints the timeline's stages, device idle share and per-pod
@@ -169,7 +169,7 @@ Phases (each prints its wall time; any failed check exits non-zero):
      the remote rung's rounds after the resync equal to the in-process
      run's, the breaker closed at the end, the faults printed.  23-24 run
      the HTTP seam, and say so, where grpc does not import;
- 25. PreemptionBasic (two passes) through the Scheduler over the worker
+ 25. PreemptionBasic (one pass) through the Scheduler over the worker
      process of 22, held to 11's checks; the worker must have served
      /preempt;
  26. the multi-device sharded path (parallel/) at 100,000 nodes: the
@@ -190,7 +190,7 @@ Phases (each prints its wall time; any failed check exits non-zero):
      make_mesh(), at bench.py's headline configuration (census and
      timeline armed), held to 9's checks, every batch plain and the
      claims kernel launched once a shard per wave, pods/s and p50/p99
-     beside 9's; then TopologySpreading (15's row, two passes) on 4
+     beside 9's; then TopologySpreading (15's row, one pass) on 4
      shards of cuda:0, held to 15's checks.  The two phases print their
      wall together;
  28. the single-device snapshot API (models/assign.py build_assign_fn):
@@ -249,6 +249,24 @@ Phases (each prints its wall time; any failed check exits non-zero):
      version, timed beside it and the bound.  Every pass also prints each
      instance's longest gap between two scheduling-loop ticks and between
      two lease renewals, the membership changes and the resyncs.
+ 32. the scheduler's binary (cmd/scheduler.py, client/leaderelection.py,
+     scheduler/debugger.py): the apiserver as a process (RBAC, the
+     default admission chain less the harness's list, a WAL) on 5,000
+     nodes of SchedulingBasicHTTP's shape, and two binaries, each
+     started as `chip_smoke.py --binary-child ARGS` (main unchanged, its
+     claims launches counted from the end of the backend's warmup, its
+     counts printed after every batch it retires and when main returns)
+     with --tpu-batch --leader-elect
+     --batch-size 4096 --node-capacity 5632 under system:kube-scheduler's
+     token; the leader named by its "became leader" line and the Lease;
+     1,000 warm-up pods bound; both caches in sync on SIGUSR2; a flood of
+     20,000 pods, the leader SIGKILLed once 5,000 are bound, the follower
+     leading and binding the rest; every pod bound exactly once within
+     caps and no nodeName changed (a watch), the survivor in sync on
+     SIGUSR2 and out with 0 within 10 s of SIGTERM; each binary's claims
+     launches above 0 and its escapes 0 (the killed leader's as of the
+     last batch it retired); pods/s before and after the kill, pod
+     e2e p50/p99, the takeover gap and each binary's device memory.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -268,9 +286,12 @@ are zeroed before each pass and read after it, and the claims kernel
 must have launched in 22, the preempt kernel in 25.  The last two lines
 are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
 22's Scheduling100k, 26's sharded assigns, 27's Scheduling100k and 29's
-dry run, 30's three rows and 31's passes; in 30 the counts are zeroed
-just before each row and read in its `after` hook, in 31 when each pass
-starts and when its row (or the churn's barrier) is read;
+dry run, 30's three rows, 31's passes and 32's two binaries; in 30 the
+counts are zeroed just before each row and read in its `after` hook, in
+31 when each pass starts and when its row (or the churn's barrier) is
+read, in 32 in each binary's process when its warmup ends, and read
+from the last count it printed: the survivor's as it exits, the killed
+leader's after the last batch it retired);
 preempt_dry_run in f, 11, 12 and 25) and the
 device line.  Without a CUDA device the script exits 2 and prints no
 result.
@@ -285,12 +306,13 @@ after checking that both return the same answers.
 --only seam runs phases 1-2 and 22-25, --only sharded phases 1-2 and
 26-27 (27 then prints no single-device row beside its own), --only
 snapshot phases 1-2, 28 and 29, --only http phases 1-2 and 30, --only
-scaleout phases 1-2 and 31; --until 4
+scaleout phases 1-2 and 31, --only binary phases 1-2 and 32; --until 4
 stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
 directory of its own, two at a time, with a process keeping the card busy
 beside the second half (ROADMAP Q4).  None of them prints a result line.
+--binary-child ARGS is phase 32's entry for one scheduler binary.
 """
 
 import argparse
@@ -303,9 +325,12 @@ import math
 import os
 import re
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1395,7 +1420,10 @@ CONSTRAINT_ROWS = ("SchedulingPodAntiAffinity", "SchedulingHighCardinality",
 # the profiled batch of a row whose pods are not SchedulingBasic's
 PROFILED_PODS = 4096
 # phase 17: nulled and card runs at SchedulingBasic's depth, in turns
-HOST_CEILING_ROUNDS = 3
+HOST_CEILING_ROUNDS = 2
+# one pass a row on the card, where bench.py's two_pass rows run two: the
+# script's time limit (the pass bench.py would keep is the better of two)
+ROW_PASSES = 1
 
 
 def profile_loop_batch(cluster, batch, label, smi, top=8, op=None):
@@ -1522,8 +1550,8 @@ def check_pass(name, cfg, res, seen, smi, preempting, marked):
 def loop_phases(smi):
     """Phases 8-19: the bench configs through perf.bench.run_config on the
     card (store, informers, queue, Scheduler, TorchBatchBackend, binder),
-    every pass a config has (two where bench.py says two_pass), each pass
-    held to check_pass's invariants.  The kernels' counts are zeroed
+    ROW_PASSES passes a config (bench.py runs its two_pass rows twice),
+    each pass held to check_pass's invariants.  The kernels' counts are zeroed
     before each config and again at the end of each pass's `after` hook,
     so each pass reads its own main path's launches; the checks read the
     store, not the backend.  After each pass of a row without preemption
@@ -1581,12 +1609,12 @@ def loop_phases(smi):
                 zero()       # the next pass starts from 0
 
             zero()
-            row, results = bench.run_config(name, after=after)
+            row, results = bench.run_config(name, after=after,
+                                            passes=ROW_PASSES)
             rows[name] = row
             print(json.dumps(row), flush=True)
             print(f"   {name} row measured on [{smi}]", flush=True)
-            check(len(results) == len(passes)
-                  == (2 if cfg.get("two_pass") else 1),
+            check(len(results) == len(passes) == ROW_PASSES,
                   f"{name}: {len(results)} passes, {len(passes)} read")
             for res, seen in zip(results, passes):
                 check_pass(name, cfg, res, seen, smi, preempting, marked)
@@ -1738,7 +1766,7 @@ def warm_start_phase(dev, smi, n_nodes=5000, n_pods=50_000, batch=16384):
 
 
 # phase 21: the batch pipeline's observability on the card
-OBS_ROUNDS = 3
+OBS_ROUNDS = 2
 OBS_GUARD_BATCHES = 20
 # tests/test_tracing.py's pipeline spans, each with its parent's name
 PIPELINE_PARENTS = {"queue.pop": "schedule_batch",
@@ -2189,12 +2217,12 @@ def row_over_worker(name, worker, smi, rows_inproc):
     worker.get("/debug/kernels?reset=1")
     try:
         row, results = bench.run_config(name, remote_seam=worker.url,
-                                        after=after)
+                                        after=after, passes=ROW_PASSES)
     except BaseException:
         print("\n".join(worker.lines[-20:]), flush=True)
         raise
     print(json.dumps(row), flush=True)
-    check(len(results) == len(passes) == (2 if cfg.get("two_pass") else 1),
+    check(len(results) == len(passes) == ROW_PASSES,
           f"{name} over the worker: {len(results)} passes, "
           f"{len(passes)} read")
     for res, seen in zip(results, passes):
@@ -2274,7 +2302,7 @@ def seam_phases(dev, smi, rows_inproc):
     six rounds of 4,096) with an in-process worker, the remote and
     in-process placements equal.  24: RemoteSeamFaulty: seeded faults, a
     kill and resync, an outage that opens the breaker and fails back.
-    25: PreemptionBasic (two passes) over the worker process, /preempt
+    25: PreemptionBasic (one pass) over the worker process, /preempt
     served there.  23-24 run gRPC where grpc imports, else HTTP, and say
     so.  Returns the launches of 22's Scheduling100k and 25 (the worker's
     counts)."""
@@ -2652,10 +2680,9 @@ def sharded_phases(dev, smi, rows):
             zero()
             row, results = bench.run_config(name, after=after,
                                             backend_kind="sharded",
-                                            mesh=mesh)
+                                            mesh=mesh, passes=ROW_PASSES)
             print(json.dumps(row), flush=True)
-            check(len(results) == len(passes)
-                  == (2 if cfg.get("two_pass") else 1),
+            check(len(results) == len(passes) == ROW_PASSES,
                   f"{name} sharded: {len(results)} passes, {len(passes)} "
                   f"read")
             for res, seen in zip(results, passes):
@@ -3461,6 +3488,531 @@ def scaleout_phase(smi, nodes=100_000, pods=200_000, batch=16384,
     return launches, max(errs)
 
 
+BINARY_NODES = 5000       # phase 32: Kubernetes v1.26's largest cluster
+BINARY_WARM = 1000        # warm-up pods, bound before the flood
+BINARY_FLOOD = 20_000     # the flood
+BINARY_KILL_AT = 5000     # the leader dies once this many flood pods bound
+BINARY_BATCH = 4096
+BINARY_STEP_S = 120.0     # every wait of phase 32, s
+BINARY_TERM_S = 10.0      # SIGTERM to exit, s
+BINARY_ADMIN = "phase32-admin"
+BINARY_SCHED = "phase32-scheduler"
+CHILD_TAG = "binary-child: "
+CHILD_BATCH_TAG = "binary-child batch: "
+CHILD_MEMORY_TAG = "binary-child memory MiB: "
+
+
+def binary_child(argv):
+    """--binary-child ARGS: kubernetes_tpu_torch.cmd.scheduler.main(ARGS),
+    unchanged, with the claims launches counted from the end of the
+    backend's warmup (kernels.LAUNCHES zeroed there).  After every batch
+    the loop retires (its escapes are tallied by then, before any of
+    them reaches the per-pod path) the process prints its counts so far
+    on one line, CHILD_BATCH_TAG and a JSON object: claims launches,
+    batches, plain batches, waves and escapes, in total and by reason.
+    A process that is killed leaves its last such line.  Once main
+    returns, the same counts follow CHILD_TAG.  Each SIGUSR2 also prints
+    the process's torch allocator memory (CHILD_MEMORY_TAG)."""
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.scheduler.debugger import CacheDebugger
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+
+    made = []
+    init, warmup = Scheduler.__init__, TorchBatchBackend.warmup
+    log_all, drain = CacheDebugger.log_all, Scheduler._drain_backend_telemetry
+
+    def counts():
+        out = {"launches": dict(kernels.LAUNCHES), "escaped": 0,
+               "by_reason": {}, "batches": 0, "plain": 0, "waves": 0}
+        for sched in made:
+            for prof in sched.profiles.values():
+                b = prof.batch_backend
+                if b is None:
+                    continue
+                out["escaped"] += b.stats.get("escaped", 0)
+                for k in ("batches", "plain", "waves"):
+                    out[k] += b.stats.get(k, 0)
+                out["device"] = str(b.device)
+            for k, v in sched.metrics.prom.tpu_escape_total.values().items():
+                out["by_reason"]["/".join(k)] = v
+        return out
+
+    def log_all_and_memory(self, *a):
+        log_all(self, *a)
+        mib = {}
+        if torch.cuda.is_initialized():
+            mib = {"reserved": torch.cuda.memory_reserved() / 2**20,
+                   "peak_reserved": torch.cuda.max_memory_reserved() / 2**20,
+                   "allocated": torch.cuda.memory_allocated() / 2**20}
+        print(CHILD_MEMORY_TAG + json.dumps(mib), flush=True)
+
+    def record(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def warm_then_zero(self):
+        warmup(self)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+
+    def drain_then_count(self, backend):
+        escapes = drain(self, backend)
+        print(CHILD_BATCH_TAG + json.dumps(counts()), flush=True)
+        return escapes
+    Scheduler.__init__ = record
+    TorchBatchBackend.warmup = warm_then_zero
+    Scheduler._drain_backend_telemetry = drain_then_count
+    CacheDebugger.log_all = log_all_and_memory
+    cmd.main(argv)
+    for sched in made:
+        for prof in sched.profiles.values():
+            if prof.batch_backend is not None:
+                drain(sched, prof.batch_backend)
+    print(CHILD_TAG + json.dumps(counts()), flush=True)
+    return 0
+
+
+class ChildLog:
+    """A child process whose output lines are kept, each with the
+    monotonic time it arrived; the caller never blocks on the pipe
+    (tests/test_torch_cmd_scheduler.py runs its binaries through it)."""
+
+    def __init__(self, argv, name, cwd):
+        self.name = name
+        self.proc = subprocess.Popen(argv, cwd=cwd, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT)
+        self.lines = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.monotonic(), line.rstrip("\n")))
+
+    def find(self, pattern, since=0):
+        for t, line in self.lines[since:]:
+            hit = re.search(pattern, line)
+            if hit:
+                return t, hit
+        return None
+
+    def last(self, pattern):
+        """The last line matching `pattern`, as find returns it."""
+        for t, line in reversed(self.lines[:]):
+            hit = re.search(pattern, line)
+            if hit:
+                return t, hit
+        return None
+
+    def wait_line(self, pattern, what, since=0, timeout=BINARY_STEP_S):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            got = self.find(pattern, since)
+            if got is not None:
+                return got
+            if self.proc.poll() is not None and not self._reader.is_alive():
+                break
+            time.sleep(0.02)
+        tail = "\n".join(line[:400] for _t, line in self.lines[-30:])
+        raise SystemExit(f"CHECK FAILED: {self.name}: {what} (no line "
+                         f"matching {pattern!r} within {timeout} s; rc "
+                         f"{self.proc.poll()}); its last lines:\n{tail}")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._reader.join(timeout=5)
+
+
+class BindWatch:
+    """Every pod's nodeName as a watch on the apiserver sees it: the time
+    each pod was first seen and first seen bound, the binds a pod got
+    (an unbound pod becoming bound), and any change of a set nodeName
+    (phase 32 and tests/test_torch_cmd_scheduler.py)."""
+
+    def __init__(self, client):
+        self.watch = client.watch("pods")
+        self.added, self.bound_at, self.node = {}, {}, {}
+        self.binds, self.changed = {}, []
+        self._stop = threading.Event()
+        self.error = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                evs = self.watch.next_batch(timeout=0.1)
+                now = time.monotonic()
+                for ev in evs:
+                    md = ev.object["metadata"]
+                    key = f"{md['namespace']}/{md['name']}"
+                    self.added.setdefault(key, now)
+                    node = (ev.object.get("spec") or {}).get("nodeName")
+                    old = self.node.get(key)
+                    if node and old and node != old:
+                        self.changed.append((key, old, node))
+                    if node and not old:
+                        self.binds[key] = self.binds.get(key, 0) + 1
+                        self.bound_at.setdefault(key, now)
+                        self.node[key] = node
+        except Exception as e:  # noqa: BLE001 - reported by the phase
+            self.error = repr(e)
+
+    def bound(self, prefix=""):
+        return sum(1 for k in list(self.bound_at) if k.startswith(prefix))
+
+    def wait_bound(self, want, prefix, what, alive,
+                   timeout=BINARY_STEP_S):
+        """Wait until `want` pods under `prefix` are bound; `alive()`
+        fails the phase when a child it expects to run has exited."""
+        deadline = time.monotonic() + timeout
+        while self.bound(prefix) < want:
+            alive()
+            check(self.error is None, f"32: the pods watch failed: "
+                                      f"{self.error}")
+            check(time.monotonic() < deadline,
+                  f"32: {what}: {self.bound(prefix)} of {want} bound "
+                  f"after {timeout} s")
+            time.sleep(0.005)
+        return time.monotonic()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.watch.stop()
+
+
+def device_memory():
+    """The card's memory in use (MiB, nvidia-smi's memory.used) and the
+    compute-apps rows (pid, MiB) as nvidia-smi prints them: inside a
+    container the pids may be its own namespace's, not the children's."""
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return float(used), apps.replace("\n", "; ")
+
+
+def usr2_verdict(child, what):
+    """SIGUSR2 to the binary; its cache comparer's line and its torch
+    allocator's memory (binary_child prints it after the comparison)."""
+    since = len(child.lines)
+    child.proc.send_signal(signal.SIGUSR2)
+    _t, hit = child.wait_line(r"cache comparer: (.*)", what, since)
+    _t, mib = child.wait_line(re.escape(CHILD_MEMORY_TAG) + "(.*)",
+                              f"{what}: its memory line", since)
+    return hit[1], json.loads(mib[1])
+
+
+def check_in_sync(child, what, tries=3):
+    """The binary's cache must compare in sync with the apiserver.  A
+    comparison may race an informer event still in flight, so it is
+    asked again after a second, up to `tries` times; every answer is
+    printed.  Returns the binary's torch allocator memory (MiB)."""
+    for i in range(tries):
+        verdict, mib = usr2_verdict(child, what)
+        print(f"   {what}: SIGUSR2 ({i + 1}): {verdict[:300]}; torch "
+              f"allocator MiB {mib}", flush=True)
+        if verdict.startswith("cache is in sync with apiserver"):
+            return mib
+        time.sleep(1.0)
+    raise SystemExit(f"CHECK FAILED: 32 {what}: cache not in sync after "
+                     f"{tries} comparisons")
+
+
+def check_binary_caps(client, want, label):
+    """Every pod bound, on a node of the cluster, within its CPU, memory
+    and pod caps (every pod asks 100m / 128Mi)."""
+    from kubernetes_tpu_torch.api import meta
+    from kubernetes_tpu_torch.api.quantity import parse_quantity
+    pods, _ = client.list("pods")
+    nodes = {meta.name(n): n for n in client.list("nodes")[0]}
+    check(len(pods) == want, f"{label}: {len(pods)} pods, {want} expected")
+    used = {}
+    for p in pods:
+        node = meta.pod_node_name(p)
+        check(node in nodes, f"{label}: {meta.name(p)} on {node!r}")
+        req = p["spec"]["containers"][0]["resources"]["requests"]
+        u = used.setdefault(node, [0.0, 0.0, 0])
+        u[0] += parse_quantity(req["cpu"])
+        u[1] += parse_quantity(req["memory"])
+        u[2] += 1
+    for node, (cpu, mem, n) in used.items():
+        cap = nodes[node]["status"]["allocatable"]
+        check(cpu <= parse_quantity(cap["cpu"]) + 1e-9
+              and mem <= parse_quantity(cap["memory"])
+              and n <= int(cap["pods"]),
+              f"{label}: node {node} over its caps: cpu {cpu} memory "
+              f"{mem} pods {n}")
+    return len(used)
+
+
+def binary_phase(smi, nodes=BINARY_NODES, warm=BINARY_WARM,
+                 flood=BINARY_FLOOD, kill_at=BINARY_KILL_AT,
+                 batch=BINARY_BATCH, device="cuda"):
+    """Phase 32: the scheduler's binary as a deployment on the card.  The
+    port's apiserver runs as a process (RBAC, the default admission chain
+    less the harness's list, a WAL), and two scheduler binaries, A and B
+    (python -m kubernetes_tpu_torch.cmd.scheduler, started through this
+    script's --binary-child entry, which counts their claims launches),
+    run behind it with --tpu-batch --leader-elect --batch-size 4096
+    --node-capacity caps_for_nodes(nodes).n_cap, each under
+    system:kube-scheduler's own token.  On 5,000 nodes of
+    SchedulingBasicHTTP's shape: the leader is named by its "became
+    leader" line and the Lease's holderIdentity; 1,000 warm-up pods are
+    bound; both caches compare in sync on SIGUSR2; a flood of 20,000
+    pods starts and the leader is SIGKILLed once 5,000 of them are
+    bound; the follower must lead (its own line and the Lease) and bind
+    the rest.  Every pod is bound exactly once within caps and no pod's
+    nodeName changes, as a watch sees them; the survivor's cache compares
+    in sync and SIGTERM ends it with 0 within 10 s.  Each binary's
+    claims launches must be more than 0 and its escapes 0: the survivor's
+    as it exits, the killed leader's as of the last batch it retired
+    (binary_child prints them after every batch; a pod escaped to the
+    per-pod path is counted before it gets there).  Returns the two
+    binaries' claims launches."""
+    import tempfile
+
+    from kubernetes_tpu_torch.client.http_client import HTTPClient
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        _HARNESS_DISABLED_ADMISSION, _bulk_create, _default_node,
+        _default_pod)
+
+    root = str(Path(__file__).resolve().parent)
+    n_cap = caps_for_nodes(nodes).n_cap
+    children, watch = [], None
+    with Phase("32 the scheduler's binary"), \
+            tempfile.TemporaryDirectory(prefix="phase32-") as tmp:
+        try:
+            tokens = Path(tmp) / "tokens.csv"
+            tokens.write_text(f"{BINARY_ADMIN},phase32,system:masters\n"
+                              f"{BINARY_SCHED},system:kube-scheduler\n")
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            url = f"http://127.0.0.1:{port}"
+            api = ChildLog(
+                [sys.executable, "-u", "-m",
+                 "kubernetes_tpu_torch.cmd.apiserver", "--secure-port",
+                 str(port), "--token-file", str(tokens),
+                 "--authorization-mode", "RBAC",
+                 "--enable-default-admission", "--disable-admission-plugins",
+                 ",".join(_HARNESS_DISABLED_ADMISSION), "--data-dir",
+                 str(Path(tmp) / "wal")], "32 apiserver", root)
+            children.append(api)
+            killed = set()
+
+            def alive():
+                for child in children:
+                    rc = child.proc.poll()
+                    check(rc is None or child in killed,
+                          f"{child.name} exited {rc}; its last lines: "
+                          f"{[line[:300] for _t, line in child.lines[-8:]]}")
+            api.wait_line("apiserver listening on", "the apiserver start")
+            admin = HTTPClient.from_url(url, token=BINARY_ADMIN)
+            t0 = time.monotonic()
+            _bulk_create(admin, "nodes", nodes, 0, _default_node, {})
+            print(f"   {nodes} nodes created in "
+                  f"{time.monotonic() - t0:.3f} s", flush=True)
+            watch = BindWatch(admin)
+            used0, _apps = device_memory()
+            me = str(Path(__file__).resolve())
+            binaries = {}
+            for tag in ("A", "B"):
+                binaries[tag] = ChildLog(
+                    [sys.executable, "-u", me, "--binary-child", "--server",
+                     url, "--token", BINARY_SCHED, "--tpu-batch",
+                     "--leader-elect", "--batch-size", str(batch),
+                     "--node-capacity", str(n_cap), "--device", device],
+                    f"32 binary {tag}", root)
+                children.append(binaries[tag])
+            for tag, b in binaries.items():
+                t, _ = b.wait_line(r"scheduler running \(tpu-batch profile\)",
+                                   "the binary's start")
+                print(f"   binary {tag} (pid {b.proc.pid}) running "
+                      f"{t - t0:.3f} s after the nodes were sent "
+                      f"(n_cap {n_cap}, batch {batch})", flush=True)
+            # the leader: its own line and the Lease's holder
+            deadline = time.monotonic() + BINARY_STEP_S
+            led = {}
+            while not led:
+                led = {tag: b.find(r"(kube-scheduler-[0-9a-f]+) became "
+                                   r"leader") for tag, b in binaries.items()}
+                led = {tag: got for tag, got in led.items() if got}
+                check(time.monotonic() < deadline,
+                      "32: no binary became leader")
+                alive()
+                time.sleep(0.02)
+            check(len(led) == 1, f"32: two leaders: {sorted(led)}")
+            (lead_tag, (_t, hit)), = led.items()
+            ident = {lead_tag: hit[1]}
+            lease = admin.get("leases", "kube-system", "kube-scheduler")
+            check(lease["spec"]["holderIdentity"] == ident[lead_tag],
+                  f"32: the Lease is held by "
+                  f"{lease['spec']['holderIdentity']}, binary {lead_tag} "
+                  f"said {ident[lead_tag]}")
+            follow_tag = "B" if lead_tag == "A" else "A"
+            leader, follower = binaries[lead_tag], binaries[follow_tag]
+            print(f"   leader: binary {lead_tag} ({ident[lead_tag]}, the "
+                  f"Lease's holder); follower: binary {follow_tag}",
+                  flush=True)
+
+            _bulk_create(admin, "pods", warm, 0, _default_pod,
+                         {"podNamePrefix": "warm-"})
+            watch.wait_bound(warm, "default/warm-", "the warm-up", alive)
+            time.sleep(1.0)
+            torch_mib = {tag: check_in_sync(b, f"binary {tag} after the "
+                                               f"warm-up")
+                         for tag, b in binaries.items()}
+            used2, apps2 = device_memory()
+            check(not follower.find("became leader"),
+                  "32: the follower led before the kill")
+
+            sent = {}
+
+            def submit():
+                _bulk_create(admin, "pods", flood, 0, _default_pod,
+                             {"podNamePrefix": "pod-"})
+                sent["t"] = time.monotonic()
+            t_flood = time.monotonic()
+            submitter = threading.Thread(target=submit, daemon=True)
+            submitter.start()
+            watch.wait_bound(kill_at, "default/pod-", "before the kill",
+                             alive)
+            killed.add(leader)
+            leader.proc.kill()
+            t_kill = time.monotonic()
+            bound_at_kill = watch.bound("default/pod-")
+            leader.proc.wait()
+            leader._reader.join(timeout=5)
+            print(f"   SIGKILL binary {lead_tag} at {bound_at_kill} flood "
+                  f"pods bound, {t_kill - t_flood:.3f} s into the flood",
+                  flush=True)
+            # the leader's counts as of the last batch it retired
+            last = leader.last(re.escape(CHILD_BATCH_TAG) + "(.*)")
+            check(last is not None, "32: the leader printed no batch count")
+            led_got = json.loads(last[1][1])
+            t_led, hit = follower.wait_line(
+                r"(kube-scheduler-[0-9a-f]+) became leader",
+                "the follower's takeover", timeout=BINARY_STEP_S)
+            ident[follow_tag] = hit[1]
+            t_end = watch.wait_bound(flood, "default/pod-", "the flood",
+                                     alive)
+            submitter.join(timeout=BINARY_STEP_S)
+            check("t" in sent, "32: the flood's submitter did not finish")
+            lease = admin.get("leases", "kube-system", "kube-scheduler")
+            check(lease["spec"]["holderIdentity"] == ident[follow_tag],
+                  f"32: after the takeover the Lease is held by "
+                  f"{lease['spec']['holderIdentity']}")
+            flood_keys = [k for k in watch.bound_at
+                          if k.startswith("default/pod-")]
+            after = sorted(watch.bound_at[k] for k in flood_keys
+                           if watch.bound_at[k] >= t_led)
+            check(after, "32: the survivor bound no pod")
+            t_first = after[0]
+            # exactly once, never moved, within caps
+            check(not watch.changed, f"32: nodeName changed: "
+                                     f"{watch.changed[:5]}")
+            check(len(watch.binds) == warm + flood
+                  and set(watch.binds.values()) == {1},
+                  f"32: {len(watch.binds)} pods bound, bind counts "
+                  f"{sorted(set(watch.binds.values()))}")
+            used = check_binary_caps(admin, warm + flood, "32")
+            time.sleep(1.0)
+            torch_mib["survivor"] = check_in_sync(
+                follower, f"binary {follow_tag} (the survivor)")
+            used1, apps1 = device_memory()
+
+            alive()
+            since = len(follower.lines)
+            killed.update(children)   # from here on exits are expected
+            follower.proc.send_signal(signal.SIGTERM)
+            t_term = time.monotonic()
+            try:
+                rc = follower.proc.wait(timeout=BINARY_TERM_S)
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"CHECK FAILED: 32: the survivor outlived "
+                                 f"SIGTERM by {BINARY_TERM_S} s") from None
+            term_s = time.monotonic() - t_term
+            follower._reader.join(timeout=5)
+            check(rc == 0, f"32: the survivor exited {rc}")
+            _t, hit = follower.wait_line(re.escape(CHILD_TAG) + "(.*)",
+                                         "its launch count", since)
+            got = json.loads(hit[1])
+
+            lat = sorted((watch.bound_at[k] - watch.added[k]) * 1e3
+                         for k in flood_keys)
+            p50 = lat[len(lat) // 2]
+            p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+            before_rate = bound_at_kill / (t_kill - t_flood)
+            after_rate = (flood - bound_at_kill) / (t_end - t_kill)
+            taken_rate = len(after) / max(t_end - t_first, 1e-9)
+            print(f"   flood: {flood} pods sent in "
+                  f"{sent['t'] - t_flood:.3f} s; pods/s before the kill "
+                  f"{before_rate:.1f}, after it {after_rate:.1f} (kill to "
+                  f"the last bind, {t_end - t_kill:.3f} s), from the "
+                  f"survivor's first bind {taken_rate:.1f} ({len(after)} "
+                  f"pods in {t_end - t_first:.3f} s) [{smi}]", flush=True)
+            print(f"   pod e2e (first seen to bound, the watch), flood: "
+                  f"p50 {p50:.2f} ms p99 {p99:.2f} ms [{smi}]", flush=True)
+            print(f"   takeover: kill to \"became leader\" "
+                  f"{t_led - t_kill:.3f} s, to the survivor's first bind "
+                  f"{t_first - t_kill:.3f} s ({t_first - t_led:.3f} s after "
+                  f"leading) [{smi}]", flush=True)
+            print(f"   device memory (nvidia-smi memory.used, MiB): "
+                  f"{used0:.0f} before the binaries, {used2:.0f} with both "
+                  f"warm, {used1:.0f} with the survivor alone after the "
+                  f"flood: the leader {lead_tag} {used2 - used1:.0f}, the "
+                  f"survivor {follow_tag} {used1 - used0:.0f}; compute "
+                  f"apps (pid, MiB) {apps2!r} then {apps1!r}; torch "
+                  f"allocator MiB {torch_mib} [{smi}]", flush=True)
+            print(f"   survivor binary {follow_tag}: "
+                  f"claims launches {got['launches']['claims']}, escapes "
+                  f"{got['escaped']} {got['by_reason']}, batches "
+                  f"{got['batches']} (plain {got['plain']}, waves "
+                  f"{got['waves']}) on {got.get('device')}; SIGTERM to exit "
+                  f"{term_s:.3f} s; pods on {used} nodes [{smi}]", flush=True)
+            check(got["launches"]["claims"] > 0,
+                  "32: the survivor never launched the claims kernel")
+            check(got["escaped"] == 0 and not got["by_reason"],
+                  f"32: the survivor sent pods to the per-pod path: {got}")
+            check(got["plain"] == got["batches"] > 0,
+                  f"32: the survivor's batches: {got}")
+            print(f"   killed leader binary {lead_tag}, as of its last "
+                  f"retired batch: claims launches "
+                  f"{led_got['launches']['claims']}, escapes "
+                  f"{led_got['escaped']} {led_got['by_reason']}, batches "
+                  f"{led_got['batches']} (plain {led_got['plain']}, waves "
+                  f"{led_got['waves']}) on {led_got.get('device')} [{smi}]",
+                  flush=True)
+            check(led_got["launches"]["claims"] > 0,
+                  "32: the leader never launched the claims kernel")
+            check(led_got["escaped"] == 0 and not led_got["by_reason"],
+                  f"32: the leader sent pods to the per-pod path: "
+                  f"{led_got}")
+            check(led_got["plain"] == led_got["batches"] > 0,
+                  f"32: the leader's batches: {led_got}")
+            api.proc.send_signal(signal.SIGTERM)
+            check(api.proc.wait(timeout=30) == 0,
+                  f"32: the apiserver exited {api.proc.returncode}")
+            return led_got["launches"]["claims"] + got["launches"]["claims"]
+        finally:
+            if watch is not None:
+                watch.close()
+            for child in reversed(children):
+                child.stop()
+
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -3525,10 +4077,10 @@ def parse_args(argv):
                     help="a checkout of another revision whose claims "
                          "and dry-run wrappers to time beside this one's")
     ap.add_argument("--only", choices=("seam", "sharded", "snapshot",
-                                       "http", "scaleout"),
+                                       "http", "scaleout", "binary"),
                     help="phases 1-2 and then only these (seam: 22-25, "
                          "sharded: 26-27, snapshot: 28-29, http: 30, "
-                         "scaleout: 31); prints no result line")
+                         "scaleout: 31, binary: 32); prints no result line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -3749,6 +4301,9 @@ def replay_launches(kernels, inputs, label, repeats=100):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--binary-child"]:
+        return binary_child(argv[1:])
     opts = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3833,6 +4388,10 @@ def main(argv=None) -> int:
     if opts.only == "scaleout":
         scaleout_phase(smi)
         print("partial run (--only scaleout): no result line")
+        return 0
+    if opts.only == "binary":
+        binary_phase(smi)
+        print("partial run (--only binary): no result line")
         return 0
 
     with Phase("3 kernel vs plain version"):
@@ -4036,6 +4595,8 @@ def main(argv=None) -> int:
     http_launches = front_door_phase(smi)
     # in-process scale-out: N Schedulers over one store on this card
     scaleout_launches, scaleout_err = scaleout_phase(smi)
+    # the scheduler's binary: two processes behind the apiserver process
+    binary_launches = binary_phase(smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     # K10 has no hand kernel: its numbers ride a line of their own
@@ -4050,7 +4611,8 @@ def main(argv=None) -> int:
         "launches": (launches + loop_launches["Scheduling100k"]["claims"]
                      + seam_launches["Scheduling100k"]["claims"]
                      + shard_launches + dry_launches
-                     + sum(http_launches.values()) + scaleout_launches),
+                     + sum(http_launches.values()) + scaleout_launches
+                     + binary_launches),
         "max_abs_err": max(errs + [shard_err, scaleout_err]), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {

@@ -33,8 +33,10 @@ Everything here is off by default and wired up only through the
 scheduler pays nothing.
 
 This copy leaves out the functions that read jax objects (the virtual
-CPU mesh bootstrap, compiled_cost, census_lowered): a device census on
-the GPU is ROADMAP queue 1 item 5.  The HLO-text census core stays.
+CPU mesh bootstrap, compiled_cost, census_lowered): the device census
+on the GPU is TorchBatchBackend.device_census (ops/backend.py), built
+from the profiler and the kernels' own counts.  The HLO-text census core
+stays.
 
 Reference: staging/src/k8s.io/component-base/metrics (the stability-
 levelled registry all of this exports through) and

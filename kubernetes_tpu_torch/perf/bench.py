@@ -883,10 +883,11 @@ def run_config(name: str, device=None, nodes: int | None = None,
                pods: int | None = None, batch: int | None = None,
                profiling_policy=None, after=None,
                profile_pods: int = 0, remote_seam: str | None = None,
-               backend_kind: str = "tpu", mesh=None) -> tuple:
+               backend_kind: str = "tpu", mesh=None,
+               passes: int | None = None) -> tuple:
     """Run a named config (sizes optionally overridden); returns (the row,
     every pass's run_once result in run order).  A two_pass config runs
-    twice; the row keeps the better pass (the higher pods/s, or for a
+    twice (`passes` overrides the count); the row keeps the better pass (the higher pods/s, or for a
     paced config the lower p99) and puts the other in
     detail.second_pass.  A pass that failed makes the row's error, even
     when the other pass is the one kept.  `after` runs after each
@@ -901,7 +902,8 @@ def run_config(name: str, device=None, nodes: int | None = None,
                         profiling_policy=profiling_policy, after=after,
                         profile_pods=profile_pods, remote_seam=remote_seam,
                         backend_kind=backend_kind, mesh=mesh)
-               for _ in range(2 if CONFIGS[name].get("two_pass") else 1)]
+               for _ in range(passes or (2 if CONFIGS[name].get("two_pass")
+                                         else 1))]
 
     def worse(r):
         if "error" in r:

@@ -3,7 +3,8 @@
 Reference: pkg/scheduler/apis/config/ (types.go:41 KubeSchedulerConfiguration,
 types.go:100+ KubeSchedulerProfile/Plugins/PluginSet, types_pluginargs.go)
 and apis/config/v1/default_plugins.go:28 (the single MultiPoint default
-list + the enabled/disabled merge rules).  Shape accepted (YAML or dict):
+list + the enabled/disabled merge rules).  Shape accepted (JSON, YAML or
+dict; JSON needs no PyYAML):
 
   apiVersion: kubescheduler.config.k8s.io/v1
   kind: KubeSchedulerConfiguration
@@ -58,6 +59,7 @@ Merge semantics (default_plugins.go mergePlugins):
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -568,16 +570,40 @@ class SchedulerConfig:
     profiling: ProfilingPolicy = field(default_factory=ProfilingPolicy)
 
 
-def load_config(source: str | dict) -> SchedulerConfig:
-    """Parse + validate a KubeSchedulerConfiguration (path, YAML text or
-    dict).  Mirrors apis/config/validation/."""
-    if isinstance(source, str):
+def _read_source(source: str) -> Any:
+    """A path's contents, or the text itself, parsed: JSON with the
+    standard library (a .json path, or text that parses as JSON), any
+    other document with PyYAML, imported only then."""
+    try:
+        with open(source) as f:
+            text = f.read()
+    except OSError:
+        text, path = source, None
+    else:
+        path = source
+    if not text.strip():
+        return None
+    try:
+        return json.loads(text)
+    except ValueError as e:
+        if path is not None and path.endswith(".json"):
+            raise ConfigError(f"{path}: invalid JSON: {e}") from None
+    try:
         import yaml
-        try:
-            with open(source) as f:
-                data = yaml.safe_load(f)
-        except OSError:
-            data = yaml.safe_load(source)
+    except ImportError:
+        raise ConfigError(
+            "the config is not JSON and PyYAML (the yaml package) is not "
+            "installed: give the configuration as JSON") from None
+    return yaml.safe_load(text)
+
+
+def load_config(source: str | dict) -> SchedulerConfig:
+    """Parse + validate a KubeSchedulerConfiguration (path, JSON or YAML
+    text, or dict).  Mirrors apis/config/validation/.  Unlike the JAX
+    package's, a JSON source needs no PyYAML (the card's machine has
+    none)."""
+    if isinstance(source, str):
+        data = _read_source(source)
     else:
         data = source
     data = data or {}

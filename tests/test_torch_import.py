@@ -1,6 +1,8 @@
 """kubernetes_tpu_torch stands alone: it imports and runs a CPU step (and
 a sharded one, on a mesh of CPU shards, and the entry point's snapshot
-step, and builds scale-out coordinators and steps a churner) with jax and
+step, and builds scale-out coordinators and steps a churner, and takes a
+Lease with the scheduler binary's elector and compares a cache with its
+debugger) with jax and
 kubernetes_tpu unimportable, and no module of it (nor
 chip_smoke.py) names either in an import statement."""
 
@@ -62,6 +64,21 @@ cos = [ScaleOutCoordinator(ScaleOutPolicy(instance_count=2,
        for i in range(2)]
 assert sum(c.owns_node("n0") for c in cos) == 1
 InstanceChurner(cos, ScaleOutSchedule(instance_count=2)).step()
+import kubernetes_tpu_torch.cmd.scheduler
+from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
+from kubernetes_tpu_torch.client.leaderelection import LeaderElector
+from kubernetes_tpu_torch.scheduler import (
+    Profile, Scheduler, new_default_framework)
+from kubernetes_tpu_torch.scheduler.debugger import CacheDebugger
+from kubernetes_tpu_torch.store import kv
+lc = LocalClient(kv.MemoryStore())
+assert LeaderElector(lc, "lock", identity="x")._try_acquire_or_renew()
+factory = SharedInformerFactory(lc)
+sched = Scheduler(lc, factory,
+                  {"default-scheduler": Profile(new_default_framework(
+                      lc, factory))})
+diff = CacheDebugger(sched, lc).compare()
+assert not any(v for side in diff.values() for v in side.values()), diff
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))
 assert not bad, bad
@@ -181,6 +198,17 @@ def test_the_scan_covers_the_scale_out():
     scanned = {str(p.relative_to(ROOT)) for p in
                (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
     for name in SCALE_OUT:
+        assert f"kubernetes_tpu_torch/{name}.py" in scanned, name
+
+
+BINARY = ("cmd/scheduler", "client/leaderelection", "scheduler/debugger",
+          "scheduler/config")
+
+
+def test_the_scan_covers_the_binary():
+    scanned = {str(p.relative_to(ROOT)) for p in
+               (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
+    for name in BINARY:
         assert f"kubernetes_tpu_torch/{name}.py" in scanned, name
 
 

@@ -4,9 +4,10 @@ The workload file is the JAX package's, converted to JSON; a tiny
 SchedulingBasic runs end to end through the port's Scheduler on a
 TorchBatchBackend(device="cpu") and binds what the JAX harness binds; the
 bench module prints one row in bench.py's shape; the census over the
-remote seam is served by the worker that runs its step; scale-out
-(ROADMAP item 10b) raises NotImplementedError, and the entry points refuse
-to run without a GPU unless the caller names the CPU.
+remote seam is served by the worker that runs its step; configure_scaleout
+attaches a ScaleOutCoordinator (tests/test_torch_scaleout.py holds
+scale-out against the JAX package), and the entry points refuse to run
+without a GPU unless the caller names the CPU.
 """
 
 import copy
