@@ -69,8 +69,9 @@ Phases (each prints its wall time; any failed check exits non-zero):
      and K8 (torch) timed at that shape beside its bound;
   f. TorchBatchBackend.preempt_batch at 100,000 nodes of PreemptionBasic's
      shape (4 CPU, 32Gi) holding 4 priority-0 pods of 900m / 500Mi each
-     (400,000 residents): one wave of 1,024 priority-10 preemptors (3000m,
-     500Mi), 4 dry-run chunks of 256; every result checked by arithmetic
+     (400,000 residents): one wave of 512 priority-10 preemptors (3000m,
+     500Mi; 1,024 until the script's time limit called for less), 2
+     dry-run chunks of 256; every result checked by arithmetic
      (victims on its node and of lower priority; with them evicted the
      preemptor fits beside the wave's earlier winners there); per chunk
      the dry run's time between CUDA events, the pull and the host
@@ -92,7 +93,8 @@ Phases (each prints its wall time; any failed check exits non-zero):
  17. SchedulingHostNull: SchedulingBasic's 5,000 nodes and 50,000 pods
      with the device step nulled (ops/nullbackend.py, by name), depth 1,
      then the host ceiling at SchedulingBasic's depth 2: the nulled row
-     and SchedulingBasic on the card in turns, two rounds each, the
+     and SchedulingBasic on the card in turns, one round each
+     (HOST_CEILING_ROUNDS, cut from two for the script's time limit), the
      card's share of the ceiling per round and the spread of both;
  18. SchedulingOverloadFlood: 2,000 nodes, a 30,000-pod flood with every
      50th pod outside the tensor encoding, under the full overload policy
@@ -126,9 +128,10 @@ Phases (each prints its wall time; any failed check exits non-zero):
  21. observability: SchedulingBasic through the Scheduler (5,000 nodes,
      50,000 pods, batch 16,384, depth 2) with tracing at 1,000,000 per
      million, profiling.timeline and the device census armed, and with all
-     three off, in turns, two rounds (armed / off pods/s printed, no
-     gate); the first armed pass prints the span count by name and checks
-     that a bound batch's trace holds every pipeline span under its JAX
+     three off, in turns, one round (OBS_ROUNDS, cut from two for the
+     script's time limit; armed / off pods/s printed, no gate); the
+     first armed pass prints the span count by name and checks that a
+     bound batch's trace holds every pipeline span under its JAX
      parent, prints the timeline's stages, device idle share and per-pod
      segment quantiles, and runs one more batch under torch.profiler,
      whose busy time the timeline's device-stage union over the same
@@ -137,7 +140,7 @@ Phases (each prints its wall time; any failed check exits non-zero):
      Scheduling100k's caps (110,080 rows) after one batch on 100,000
      nodes, which must leave LAUNCHES, the state and _gen as they were,
      with each kernel's launches, device time, bytes and bound;
-     then 20 steady batches at SchedulingBasic's shape under SyncGuard
+     then 10 steady batches at SchedulingBasic's shape under SyncGuard
      (every implicit sync at a `# sync-point:` site; the syncs per batch
      and per device wave) and BuildCounter (nothing built or loaded), and
      the same over 3 constraint batches of phase (a)'s mix on 5,000 nodes
@@ -178,7 +181,8 @@ Phases (each prints its wall time; any failed check exits non-zero):
      timed; ShardedTorchBatchBackend.assign on make_mesh() (every visible
      card, one shard each) and on 4 shards of cuda:0, beside
      TorchBatchBackend at murmur noise, each on its own copy of phase 6's
-     cluster, 4 batches of 16,384 plain pods: the placements equal batch
+     cluster, 2 batches of 16,384 plain pods (SHARD_BATCHES; 4 until the
+     script's time limit called for less): the placements equal batch
      by batch, pods/s for each, the claims kernel launched once a shard
      per wave; the census's collective bytes a wave by kind on the 4-shard
      mesh (counts of a 4-device mesh: the shards share one card);
@@ -267,6 +271,30 @@ Phases (each prints its wall time; any failed check exits non-zero):
      launches above 0 and its escapes 0 (the killed leader's as of the
      last batch it retired); pods/s before and after the kill, pod
      e2e p50/p99, the takeover gap and each binary's device memory.
+ 33. process-true scale-out (scheduler/procrun.py, ops/faults.py's
+     ProcessChurner and upgrade pair, perf.bench --processes): (i)
+     perf.bench.run_scaleout_proc at its row's shape (an apiserver
+     process; 20,000 nodes of 64 CPU / 256Gi / 1,000 pods, 60,000 pods
+     of 10m / 16Mi in chunks of 10,000, batch 4,096) through N = 1 and
+     2 scheduler processes (PROC_MAX; the row's N = 4 runs on the null
+     device only, in perf.bench --processes 4), each child a
+     TorchBatchBackend on the card sized for the whole cluster, started
+     as `chip_smoke.py --proc-child ARGS` with the timeline armed; at N >
+     1 the seeded crash sub-pass (child 0 SIGKILLed, 3,000 more pods):
+     per pass pods/s, the flood wall, speedup_vs_1, the federated
+     conflict counts, each child's device memory (nvidia-smi memory.used
+     before and with the children, over N) and the timeline's idle share
+     per child as the supervisor federates it; every pod bound exactly
+     once (the wire ledger) within caps; (ii) a rolling upgrade of two
+     such children with a warm-start directory while 6,000 pods arrive
+     in chunks: roll 0 clean, roll 1 sabotaged (one drain escalation),
+     the clean child's respawn warm-starting with more than 0 rows, the
+     escalated child's starting cold, every pod bound exactly once
+     within caps; (iii) child 1 of the N=2 pass holds its first plain
+     wave against the plain version in its own process, times both and
+     the bound.  Every child that ran batches launched the claims kernel,
+     with 0 escapes and plain batches only, as its own counts say (a
+     killed child's as of its last retired batch).
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -286,14 +314,15 @@ are zeroed before each pass and read after it, and the claims kernel
 must have launched in 22, the preempt kernel in 25.  The last two lines
 are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
 22's Scheduling100k, 26's sharded assigns, 27's Scheduling100k and 29's
-dry run, 30's three rows, 31's passes and 32's two binaries; in 30 the
-counts are zeroed just before each row and read in its `after` hook, in
-31 when each pass starts and when its row (or the churn's barrier) is
-read, in 32 in each binary's process when its warmup ends, and read
-from the last count it printed: the survivor's as it exits, the killed
-leader's after the last batch it retired);
-preempt_dry_run in f, 11, 12 and 25) and the
-device line.  Without a CUDA device the script exits 2 and prints no
+dry run, 30's three rows, 31's passes, 32's two binaries and 33's
+children; in 30 the counts are zeroed just before each row and read in
+its `after` hook, in 31 when each pass starts and when its row (or the
+churn's barrier) is read, in 32 in each binary's process when its warmup
+ends, and read from the last count it printed: the survivor's as it
+exits, the killed leader's after the last batch it retired; in 33
+likewise in each child: a drained child's as it exits, a killed one's
+after its last batch); preempt_dry_run in f, 11, 12 and 25) and the
+device line. Without a CUDA device the script exits 2 and prints no
 result.
 
 --compare TAG=DIR loads the kubernetes_tpu_torch package of another
@@ -306,13 +335,16 @@ after checking that both return the same answers.
 --only seam runs phases 1-2 and 22-25, --only sharded phases 1-2 and
 26-27 (27 then prints no single-device row beside its own), --only
 snapshot phases 1-2, 28 and 29, --only http phases 1-2 and 30, --only
-scaleout phases 1-2 and 31, --only binary phases 1-2 and 32; --until 4
+scaleout phases 1-2 and 31, --only binary phases 1-2 and 32, --only
+proc phases 1-2 and 33; --until 4
 stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
 directory of its own, two at a time, with a process keeping the card busy
 beside the second half (ROADMAP Q4).  None of them prints a result line.
---binary-child ARGS is phase 32's entry for one scheduler binary.
+--binary-child ARGS is phase 32's entry for one scheduler binary,
+--proc-child ARGS phase 33's for one child of the process supervisor
+(procrun's --child, its counts printed as --binary-child prints them).
 """
 
 import argparse
@@ -1255,7 +1287,7 @@ def check_preemptions(snap, pre, results, order, label):
     return winners, victims
 
 
-def preempt_phase(dev, smi, n_nodes=100_000, per_node=4, n_pre=1024,
+def preempt_phase(dev, smi, n_nodes=100_000, per_node=4, n_pre=512,
                   others=None):
     """Phase f: one wave of n_pre priority-10 preemptors (3000m, 500Mi)
     through TorchBatchBackend.preempt_batch against n_nodes nodes of
@@ -1419,8 +1451,9 @@ CONSTRAINT_ROWS = ("SchedulingPodAntiAffinity", "SchedulingHighCardinality",
                    "TopologySpreading")
 # the profiled batch of a row whose pods are not SchedulingBasic's
 PROFILED_PODS = 4096
-# phase 17: nulled and card runs at SchedulingBasic's depth, in turns
-HOST_CEILING_ROUNDS = 2
+# phase 17: nulled and card runs at SchedulingBasic's depth, in turns (one
+# round: two made the script too long for its 1,200 s limit)
+HOST_CEILING_ROUNDS = 1
 # one pass a row on the card, where bench.py's two_pass rows run two: the
 # script's time limit (the pass bench.py would keep is the better of two)
 ROW_PASSES = 1
@@ -1765,9 +1798,10 @@ def warm_start_phase(dev, smi, n_nodes=5000, n_pods=50_000, batch=16384):
         return {"adopted": adopted, "bytes": info["bytes"]}
 
 
-# phase 21: the batch pipeline's observability on the card
-OBS_ROUNDS = 2
-OBS_GUARD_BATCHES = 20
+# phase 21: the batch pipeline's observability on the card (one round:
+# two made the script too long for its 1,200 s limit)
+OBS_ROUNDS = 1
+OBS_GUARD_BATCHES = 10  # 20 made the script too long for its 1,200 s limit
 # tests/test_tracing.py's pipeline spans, each with its parent's name
 PIPELINE_PARENTS = {"queue.pop": "schedule_batch",
                     "snapshot.flatten": "schedule_batch",
@@ -2392,7 +2426,7 @@ def seam_phases(dev, smi, rows_inproc):
 
 # -- phases 26-27: the multi-device sharded path (parallel/) on the card ---
 
-SHARD_BATCHES = 4          # phase 26: batches of 16,384 at 100k nodes
+SHARD_BATCHES = 2          # phase 26: batches of 16,384 at 100k nodes
 SHARD_GUARD_BATCHES = 2    # phase 26: batches under SyncGuard
 SHARD_SPLIT = 4            # the one-card mesh: shards of cuda:0
 
@@ -3502,26 +3536,28 @@ CHILD_BATCH_TAG = "binary-child batch: "
 CHILD_MEMORY_TAG = "binary-child memory MiB: "
 
 
-def binary_child(argv):
-    """--binary-child ARGS: kubernetes_tpu_torch.cmd.scheduler.main(ARGS),
-    unchanged, with the claims launches counted from the end of the
-    backend's warmup (kernels.LAUNCHES zeroed there).  After every batch
-    the loop retires (its escapes are tallied by then, before any of
-    them reaches the per-pod path) the process prints its counts so far
-    on one line, CHILD_BATCH_TAG and a JSON object: claims launches,
-    batches, plain batches, waves and escapes, in total and by reason.
-    A process that is killed leaves its last such line.  Once main
-    returns, the same counts follow CHILD_TAG.  Each SIGUSR2 also prints
-    the process's torch allocator memory (CHILD_MEMORY_TAG)."""
-    from kubernetes_tpu_torch.cmd import scheduler as cmd
+def instrument_child(batch_tag, record=False):
+    """In a scheduler child's process (phases 32 and 33): every Scheduler
+    made is kept, the claims launches are counted from the end of the
+    backend's warmup (kernels.LAUNCHES zeroed there), and after every
+    batch the loop retires (its escapes are tallied by then, before any
+    of them reaches the per-pod path) the counts so far are printed on
+    one line, `batch_tag` and a JSON object: claims launches, batches,
+    plain batches, waves and escapes, in total and by reason, the
+    backend's device and the torch allocator's reserved and peak MiB.  A
+    process that is killed leaves its last such line.  With `record`, the
+    returned ClaimsRecorder (enter it around the child's main) keeps the
+    inputs of the first claims launch with a live pod after the warmup.
+    Returns (counts, finish, recorder): finish() drains the backends'
+    telemetry the loop had not drained; call it once main returns."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
-    from kubernetes_tpu_torch.scheduler.debugger import CacheDebugger
     from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
 
     made = []
     init, warmup = Scheduler.__init__, TorchBatchBackend.warmup
-    log_all, drain = CacheDebugger.log_all, Scheduler._drain_backend_telemetry
+    drain = Scheduler._drain_backend_telemetry
+    rec = ClaimsRecorder(kernels, first_live=True)
 
     def counts():
         out = {"launches": dict(kernels.LAUNCHES), "escaped": 0,
@@ -3537,7 +3573,49 @@ def binary_child(argv):
                 out["device"] = str(b.device)
             for k, v in sched.metrics.prom.tpu_escape_total.values().items():
                 out["by_reason"]["/".join(k)] = v
+        if torch.cuda.is_initialized():
+            out["reserved_mib"] = torch.cuda.memory_reserved() / 2**20
+            out["peak_reserved_mib"] = \
+                torch.cuda.max_memory_reserved() / 2**20
         return out
+
+    def made_too(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def warm_then_zero(self):
+        warmup(self)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        if record:
+            rec.armed = "wave"
+
+    def drain_then_count(self, backend):
+        escapes = drain(self, backend)
+        print(batch_tag + json.dumps(counts()), flush=True)
+        return escapes
+
+    def finish():
+        for sched in made:
+            for prof in sched.profiles.values():
+                if prof.batch_backend is not None:
+                    drain(sched, prof.batch_backend)
+    Scheduler.__init__ = made_too
+    TorchBatchBackend.warmup = warm_then_zero
+    Scheduler._drain_backend_telemetry = drain_then_count
+    return counts, finish, rec
+
+
+def binary_child(argv):
+    """--binary-child ARGS: kubernetes_tpu_torch.cmd.scheduler.main(ARGS),
+    unchanged, instrumented by instrument_child: its counts after every
+    batch (CHILD_BATCH_TAG) and, once main returns, after CHILD_TAG.
+    Each SIGUSR2 also prints the process's torch allocator memory
+    (CHILD_MEMORY_TAG)."""
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.scheduler.debugger import CacheDebugger
+
+    log_all = CacheDebugger.log_all
 
     def log_all_and_memory(self, *a):
         log_all(self, *a)
@@ -3547,29 +3625,10 @@ def binary_child(argv):
                    "peak_reserved": torch.cuda.max_memory_reserved() / 2**20,
                    "allocated": torch.cuda.memory_allocated() / 2**20}
         print(CHILD_MEMORY_TAG + json.dumps(mib), flush=True)
-
-    def record(self, *a, **kw):
-        init(self, *a, **kw)
-        made.append(self)
-
-    def warm_then_zero(self):
-        warmup(self)
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
-
-    def drain_then_count(self, backend):
-        escapes = drain(self, backend)
-        print(CHILD_BATCH_TAG + json.dumps(counts()), flush=True)
-        return escapes
-    Scheduler.__init__ = record
-    TorchBatchBackend.warmup = warm_then_zero
-    Scheduler._drain_backend_telemetry = drain_then_count
+    counts, finish, _rec = instrument_child(CHILD_BATCH_TAG)
     CacheDebugger.log_all = log_all_and_memory
     cmd.main(argv)
-    for sched in made:
-        for prof in sched.profiles.values():
-            if prof.batch_backend is not None:
-                drain(sched, prof.batch_backend)
+    finish()
     print(CHILD_TAG + json.dumps(counts()), flush=True)
     return 0
 
@@ -4013,6 +4072,365 @@ def binary_phase(smi, nodes=BINARY_NODES, warm=BINARY_WARM,
                 child.stop()
 
 
+
+# phase 33(i): perf.bench.run_scaleout_proc(PROC_MAX) on the card, N = 1
+# and 2.  perf.bench --processes 4 runs 1, 2 and 4; with N=4 on the card
+# phase 33 took 247.8 s on an H100 80GB HBM3 at 700 W, which beside phases
+# 1-32 (731-801 s there) leaves too little of the script's 1,200 s limit,
+# so N=4 stays on the null device's row
+PROC_MAX = 2
+PROC_RECORDS = 2          # 33(iii): child 1 of this count records a wave
+PROC_TIMEOUT = 180.0      # every barrier of phase 33, s
+PROC_DRAIN_S = 120.0      # SIGTERM to exit, the recording child's check in it
+PROC_ROLL_WARM = 2000     # 33(ii): pods bound before the roll
+PROC_ROLL_PODS = 6000     # ... and during it, in chunks of 1,000
+PROC_ROLL_GAP_S = 2.0     # between two chunks
+PROC_TAG = "proc-child: "
+PROC_BATCH_TAG = "proc-child batch: "
+PROC_WAVE_TAG = "proc-child wave: "
+PROC_RECORD_ENV = "KTPU_SMOKE_RECORD_WAVE"
+
+
+def proc_child(argv):
+    """--proc-child ARGS: the process supervisor's scheduler child
+    (kubernetes_tpu_torch.scheduler.procrun.main(["--child", *ARGS]),
+    unchanged), instrumented by instrument_child: its counts after every
+    batch (PROC_BATCH_TAG) and, once the child returns (its drain), after
+    PROC_TAG.  With KTPU_SMOKE_RECORD_WAVE=1 it keeps the inputs of its
+    first claims launch with a live pod after the warmup, and once the
+    child returns holds the kernel against its plain version on them
+    (check_claims: murmur exact, sin within 1e-4 at a feasible choice),
+    times both and prints PROC_WAVE_TAG and a JSON object (shape, live
+    pods, noise, max |best err|, ms, plain ms, bound ms and what bounds
+    it)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler import procrun
+
+    record = os.environ.get(PROC_RECORD_ENV) == "1"
+    counts, finish, rec = instrument_child(PROC_BATCH_TAG, record)
+    with rec:
+        try:
+            procrun.main(["--child", *argv])
+            rc = 0
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+            if not isinstance(e.code, int):
+                print(e.code, file=sys.stderr, flush=True)
+    finish()
+    print(PROC_TAG + json.dumps(counts()), flush=True)
+    if record and "wave" in rec.kept:
+        *wave, noise, pod_ids = rec.kept.pop("wave")
+        args = tuple(wave)
+        P, N, _R = args[0]["shape"]
+        label = f"33(iii) child wave {P}x{N}"
+        err, *answer = check_claims(kernels, args, noise, label, pod_ids)
+        ms = time_cuda(lambda: kernels.claims(
+            *args, noise=noise, pod_ids=pod_ids), 20)
+        plain_ms = time_cuda(lambda: kernels.claims_reference(
+            *args, noise=noise, pod_ids=pod_ids), 3, warmup=1)
+        b = claims_bounds(args, noise, answer)
+        print(PROC_WAVE_TAG + json.dumps({
+            "shape": [P, N], "live": int(args[1].sum()), "noise": noise,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["required"][0], "bound_by": b["required"][1]}),
+            flush=True)
+    return rc
+
+
+def smoke_proc_cluster():
+    """procrun.ProcCluster whose children are this script's --proc-child
+    entry, keeping every child it ever spawned (a respawn replaces the
+    supervisor's own record of an index)."""
+    from kubernetes_tpu_torch.scheduler.procrun import ProcCluster
+
+    class SmokeProcCluster(ProcCluster):
+        child_entry = (str(Path(__file__).resolve()), "--proc-child")
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.spawned = []
+
+        def _spawn(self, index):
+            child = super()._spawn(index)
+            self.spawned.append(child)
+            return child
+    return SmokeProcCluster
+
+
+def child_json(child, tag, timeout=10.0):
+    """The last line of a procrun child that starts with `tag`, decoded
+    (its output is read by a thread: give it `timeout` s to arrive)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for line in reversed(child.tail(200)):
+            if line.startswith(tag):
+                return json.loads(line[len(tag):])
+        if time.monotonic() > deadline:
+            return None
+        time.sleep(0.05)
+
+
+def drain_children(cluster, label, timeout=PROC_DRAIN_S):
+    """SIGTERM every live child and wait for each to exit 0."""
+    for i in cluster.live_indices():
+        rc = cluster.drain(i, timeout=timeout)
+        check(rc == 0, f"{label}: child {i} drained with {rc}; its last "
+                       f"lines {cluster._children[i].tail(12)}")
+
+
+def check_children(children, label, smi, killed=()):
+    """Every child that ran batches launched the claims kernel, sent no
+    pod to the per-pod path and ran plain batches only, on the card; a
+    child in `killed` is read from its last batch line.  Returns the
+    claims launches of all of them."""
+    total = 0
+    for n, child in enumerate(children):
+        tag = PROC_BATCH_TAG if child in killed else PROC_TAG
+        got = child_json(child, tag)
+        what = (f"{label} child {child.index} (spawn {n}, pid "
+                f"{child.proc.pid}{', killed' if child in killed else ''})")
+        check(got is not None, f"{what}: no counts; its last lines "
+                               f"{child.tail(12)}")
+        print(f"   {what}: claims launches {got['launches']['claims']}, "
+              f"batches {got['batches']} (plain {got['plain']}, waves "
+              f"{got['waves']}), escapes {got['escaped']} "
+              f"{got['by_reason']} on {got.get('device')}; torch allocator "
+              f"reserved {got.get('reserved_mib', 0):.0f} MiB, peak "
+              f"{got.get('peak_reserved_mib', 0):.0f} [{smi}]", flush=True)
+        if got["batches"]:
+            check(got.get("device", "").startswith("cuda"),
+                  f"{what}: its backend ran on {got.get('device')}")
+            check(got["launches"]["claims"] > 0,
+                  f"{what}: bound pods and never launched the claims kernel")
+            check(got["plain"] == got["batches"],
+                  f"{what}: batches {got['batches']} plain {got['plain']}")
+        check(got["escaped"] == 0 and not got["by_reason"],
+              f"{what}: sent pods to the per-pod path: {got}")
+        total += got["launches"]["claims"]
+    return total
+
+
+def idle_shares(cluster):
+    """Each child's wave-timeline idle share, as the supervisor federates
+    it (scheduler_proc_wave_device_idle_share)."""
+    out = {}
+    for line in cluster.supervisor_metrics_text().splitlines():
+        hit = re.match(r'scheduler_proc_wave_device_idle_share'
+                       r'\{instance="(\d+)"\} (\S+)', line)
+        if hit:
+            out[int(hit[1])] = round(float(hit[2]), 4)
+    return out
+
+
+def proc_scaleout(smi, cls, nodes, pods, batch, device):
+    """33(i): perf.bench.run_scaleout_proc(PROC_MAX) at the row's shape
+    with every child a TorchBatchBackend on the card (backend "tpu"), the
+    timeline armed in each (KTPU_PROC_TIMELINE=1) and child 1 of the N=2
+    pass recording its first wave (33(iii)).  Returns (claims launches,
+    the recorded wave's line)."""
+    from kubernetes_tpu_torch.perf import bench
+    seen, wave = {"launches": 0}, {}
+
+    def before(n):
+        seen[n] = {"used0": device_memory()[0]}
+
+    def flooded(n, row, cluster):
+        used, apps = device_memory()
+        seen[n].update(used=used, apps=apps, idle=idle_shares(cluster))
+        label = f"33(i) N={n}"
+        print(f"   {label}: {row['pods_per_s']} pods/s, flood wall "
+              f"{row['wall_s']} s, bound {row['bound']}, double binds "
+              f"{row['double_binds']}; conflicts {row['conflicts']} (rate "
+              f"{row['conflict_rate']}); device memory (nvidia-smi "
+              f"memory.used) {seen[n]['used0']:.0f} MiB before the "
+              f"children, {used:.0f} with them: "
+              f"{(used - seen[n]['used0']) / n:.0f} MiB a child; compute "
+              f"apps {apps!r}; the timeline's idle share per child "
+              f"{seen[n]['idle']} [{smi}]", flush=True)
+        check("error" not in row, f"{label}: {row.get('error')}")
+        check(row["bound"] == pods and row["double_binds"] == 0,
+              f"{label}: bound {row['bound']}, double binds "
+              f"{row['double_binds']}")
+        check(len(seen[n]["idle"]) == n,
+              f"{label}: idle shares of {sorted(seen[n]['idle'])}")
+
+    def after(n, row, cluster):
+        label = f"33(i) N={n}"
+        want = pods
+        churn = row.get("churn")
+        if churn is not None:
+            print(f"   {label} crash sub-pass: {churn} [{smi}]", flush=True)
+            check(churn["applied"] == ["kill_instance", 0]
+                  and churn["zero_lost"] and churn["double_binds"] == 0,
+                  f"{label}: the crash sub-pass {churn}")
+            want += churn["extra_pods"]
+            check(churn["bound_after"] == want,
+                  f"{label}: {churn['bound_after']} of {want} bound")
+        used = check_binary_caps(cluster.admin_client(), want, label)
+        print(f"   {label}: every one of {want} pods bound once within "
+              f"caps, on {used} nodes", flush=True)
+        children = cluster.spawned
+        if n == PROC_RECORDS:   # child 1 checks its recorded wave as it exits
+            rc = cluster.drain(1, timeout=PROC_DRAIN_S)
+            check(rc == 0, f"{label}: the recording child exited {rc}")
+            got = child_json(children[1], PROC_WAVE_TAG)
+            check(got is not None, f"{label}: child 1 printed no recorded "
+                                   f"wave; its last lines "
+                                   f"{children[1].tail(12)}")
+            wave.update(got)
+            print(f"   33(iii) N={n} child 1's first wave {got['shape']} "
+                  f"({got['live']} live pods, {got['noise']}) in its own "
+                  f"process: max |best err| {got['max_abs_err']}, "
+                  f"{got['ms']:.4f} ms/launch, plain version "
+                  f"{got['plain_ms']:.4f} ms, bound {got['bound_ms']:.4f} ms "
+                  f"({got['bound_by']}) [{smi}]", flush=True)
+        drain_children(cluster, label)
+        killed = [children[0]] if churn is not None else []
+        seen["launches"] += check_children(children, label, smi, killed)
+        check(cluster.drain_escalations == 0,
+              f"{label}: {cluster.drain_escalations} drains escalated")
+
+    res = bench.run_scaleout_proc(
+        PROC_MAX, nodes=nodes, pods=pods, batch=batch,
+        timeout=PROC_TIMEOUT, backend="tpu", device=device,
+        cluster_cls=cls,
+        child_env={i: {"KTPU_PROC_TIMELINE": "1",
+                       **({PROC_RECORD_ENV: "1"} if i == 1 else {})}
+                   for i in range(PROC_MAX)},
+        before=before, flooded=flooded, after=after)
+    rows = res["BENCH_SCALEOUT_PROC"]
+    print("   33(i) speedup_vs_1: " + ", ".join(
+        f"N={n} {row.get('speedup_vs_1')}" for n, row in rows.items())
+        + f" (host cores {res['host_cores']}) [{smi}]", flush=True)
+    check(wave, "33(iii): no recorded wave")
+    return seen["launches"], wave
+
+
+def proc_roll(smi, cls, nodes, batch, device):
+    """33(ii): a rolling upgrade of two children on the card while pods
+    arrive: UpgradeDriver(UpgradeSchedule(seed=17, script={1: (roll,
+    1, sabotaged)})).roll_all() over a ProcCluster with a warm-start
+    directory; roll 0 drains child 0 (its mirror checkpointed) and
+    respawns it warm, roll 1 SIGKILLs child 1 mid-drain and respawns it
+    cold.  PROC_ROLL_WARM pods bound first, PROC_ROLL_PODS more in
+    chunks of 1,000 during the roll.  The roll has a cluster of its own:
+    on the N=2 pass's cluster every respawn lists that pass's 63,000
+    pods, and the roll took 39.3 s there against 17.1-30.0 s on a
+    cluster of its own, on an H100 80GB HBM3 at 700 W (PERF.md §6).
+    Returns the claims launches."""
+    import tempfile
+
+    from kubernetes_tpu_torch.ops.faults import (
+        ROLL_INSTANCE, UpgradeDriver, UpgradeSchedule,
+    )
+    from kubernetes_tpu_torch.perf import bench
+    from kubernetes_tpu_torch.scheduler.procrun import WireBindLedger
+    from kubernetes_tpu_torch.testing import make_node
+    label = "33(ii) roll"
+    total = PROC_ROLL_WARM + PROC_ROLL_PODS
+    with tempfile.TemporaryDirectory(prefix="phase33-") as warm:
+        cluster = cls(2, backend="tpu", batch_size=batch, nodes=nodes,
+                      warm_dir=warm, ready_timeout=PROC_TIMEOUT,
+                      device=device)
+        try:
+            cluster.start()
+            admin = cluster.admin_client()
+            for lo in range(0, nodes, bench.SCALEOUT_CHUNK):
+                admin.create_bulk("nodes", [
+                    make_node(f"sn-{i}")
+                    .capacity(cpu="64", mem="256Gi", pods=1000).build()
+                    for i in range(lo, min(lo + bench.SCALEOUT_CHUNK,
+                                           nodes))])
+            time.sleep(2.0 + nodes / 20_000)
+            ledger = WireBindLedger(admin)
+            bench.create_flood_pods(admin, 0, PROC_ROLL_WARM)
+            check(bench.await_bound(ledger, PROC_ROLL_WARM, PROC_TIMEOUT),
+                  f"{label}: {ledger.bound_total()} of {PROC_ROLL_WARM} "
+                  f"warm-up pods bound")
+            sent = []
+
+            def submit():
+                for lo in range(PROC_ROLL_WARM, total, 1000):
+                    bench.create_flood_pods(admin, lo, lo + 1000)
+                    sent.append(time.monotonic())
+                    time.sleep(PROC_ROLL_GAP_S)
+            submitter = threading.Thread(target=submit, daemon=True)
+            upgrader = UpgradeDriver(cluster, UpgradeSchedule(
+                seed=17, instance_count=2,
+                script={1: (ROLL_INSTANCE, 1, True)}),
+                drain_timeout=PROC_DRAIN_S, ready_timeout=PROC_TIMEOUT)
+            t0 = time.monotonic()
+            submitter.start()
+            rolled = upgrader.roll_all()
+            roll_s = time.monotonic() - t0
+            submitter.join(timeout=PROC_TIMEOUT)
+            check(len(sent) == PROC_ROLL_PODS // 1000,
+                  f"{label}: {len(sent)} chunks sent")
+            ok = bench.await_bound(ledger, total, PROC_TIMEOUT)
+            bound_s = time.monotonic() - t0
+            check(ok, f"{label}: {ledger.bound_total()} of {total} bound")
+            try:
+                ledger.assert_no_double_binds()
+            except AssertionError as e:
+                raise SystemExit(f"CHECK FAILED: {label}: {e}") from None
+            check(ledger.bound_total() == total,
+                  f"{label}: {ledger.bound_total()} of {total} bound")
+            ledger.stop()
+            check_binary_caps(admin, total, label)
+            check(rolled == [(ROLL_INSTANCE, 0), (ROLL_INSTANCE, 1)]
+                  and upgrader.injected["sabotaged"] == 1,
+                  f"{label}: rolled {rolled}, {upgrader.injected}")
+            check(cluster.drain_escalations == 1,
+                  f"{label}: {cluster.drain_escalations} drains escalated")
+            first0, first1, again0, again1 = cluster.spawned
+            cut = [line for line in first0.tail(200)
+                   if "checkpointed" in line]
+            warm_rows = [int(hit[1]) for line in again0.tail(200)
+                         for hit in [re.search(r"warm start: (\d+) rows",
+                                               line)] if hit]
+            print(f"   {label}: rolled {rolled} in {roll_s:.3f} s, "
+                  f"{total} pods bound exactly once within caps "
+                  f"{bound_s:.3f} s after the roll began; drain "
+                  f"escalations {cluster.drain_escalations}; child 0's "
+                  f"drain: {cut[-1:]}; its respawn: warm start of "
+                  f"{warm_rows} rows; child 1's respawn: warm start lines "
+                  f"{[ln for ln in again1.tail(200) if 'warm start' in ln]}"
+                  f" [{smi}]", flush=True)
+            check(warm_rows and warm_rows[0] > 0,
+                  f"{label}: the respawned clean child did not warm-start; "
+                  f"its lines {again0.tail(12)}")
+            check(not any("warm start" in line for line in again1.tail(200)),
+                  f"{label}: the escalated child did not start cold")
+            drain_children(cluster, label)
+            return check_children(cluster.spawned, label, smi,
+                                  killed=[first1])
+        finally:
+            cluster.shutdown()
+
+
+def proc_phase(smi, nodes=20_000, pods=60_000, batch=4096, device=None):
+    """Phase 33: process-true scale-out on the card (scheduler/procrun.py):
+    (i) an apiserver process and N = 1, 2 (PROC_MAX) scheduler
+    processes, each a TorchBatchBackend on the card, at perf.bench
+    --processes' shape (20,000 nodes of 64 CPU / 256Gi / 1,000 pods,
+    60,000 pods of 10m / 16Mi in chunks of 10,000, batch 4,096), the
+    seeded crash sub-pass at N > 1; (ii) a rolling upgrade of two
+    children with a warm-start directory, the second roll sabotaged,
+    while 6,000 pods arrive; (iii) child 1 of the N=2 pass holds its
+    first recorded wave against the plain version in its own process.
+    Every pass: every pod bound exactly once within caps, every child
+    that ran batches launched the claims kernel with 0 escapes.  `device`
+    is the children's --device (None: their default, CUDA).  Returns
+    (claims launches of every child, the recorded wave's max |best
+    err|)."""
+    cls = smoke_proc_cluster()
+    with Phase("33 process-true scale-out on the card"):
+        launches, wave = proc_scaleout(smi, cls, nodes, pods, batch, device)
+        launches += proc_roll(smi, cls, nodes, batch, device)
+        print(f"   33: claims launches in the children {launches} [{smi}]",
+              flush=True)
+    return launches, wave["max_abs_err"]
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -4077,10 +4495,11 @@ def parse_args(argv):
                     help="a checkout of another revision whose claims "
                          "and dry-run wrappers to time beside this one's")
     ap.add_argument("--only", choices=("seam", "sharded", "snapshot",
-                                       "http", "scaleout", "binary"),
+                                       "http", "scaleout", "binary", "proc"),
                     help="phases 1-2 and then only these (seam: 22-25, "
                          "sharded: 26-27, snapshot: 28-29, http: 30, "
-                         "scaleout: 31, binary: 32); prints no result line")
+                         "scaleout: 31, binary: 32, proc: 33); prints no "
+                         "result line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -4304,6 +4723,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--binary-child"]:
         return binary_child(argv[1:])
+    if argv[:1] == ["--proc-child"]:
+        return proc_child(argv[1:])
     opts = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4392,6 +4813,10 @@ def main(argv=None) -> int:
     if opts.only == "binary":
         binary_phase(smi)
         print("partial run (--only binary): no result line")
+        return 0
+    if opts.only == "proc":
+        proc_phase(smi)
+        print("partial run (--only proc): no result line")
         return 0
 
     with Phase("3 kernel vs plain version"):
@@ -4597,6 +5022,8 @@ def main(argv=None) -> int:
     scaleout_launches, scaleout_err = scaleout_phase(smi)
     # the scheduler's binary: two processes behind the apiserver process
     binary_launches = binary_phase(smi)
+    # process-true scale-out: N scheduler processes on this card
+    proc_launches, proc_err = proc_phase(smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     # K10 has no hand kernel: its numbers ride a line of their own
@@ -4609,11 +5036,13 @@ def main(argv=None) -> int:
         "source": "kubernetes_tpu_torch/ops/csrc/claims.cu",
         "replaces": "kubernetes_tpu/ops/pallas_kernels.py:171",
         "launches": (launches + loop_launches["Scheduling100k"]["claims"]
-                     + seam_launches["Scheduling100k"]["claims"]
+                     + sum(seam_launches[name]["claims"]
+                           for name in SEAM_LOOP_ROWS)
                      + shard_launches + dry_launches
                      + sum(http_launches.values()) + scaleout_launches
-                     + binary_launches),
-        "max_abs_err": max(errs + [shard_err, scaleout_err]), "ms": ms,
+                     + binary_launches + proc_launches),
+        "max_abs_err": max(errs + [shard_err, scaleout_err, proc_err]),
+        "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
         "name": "preempt_dry_run", "route": "cuda",

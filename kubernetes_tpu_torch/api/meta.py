@@ -122,9 +122,30 @@ def finalize_new(o: Obj) -> None:
         md["creationTimestamp"] = time.time()
 
 
+def _copy_json(o):
+    t = type(o)
+    if t is dict:
+        return {k: _copy_json(v) for k, v in o.items()}
+    if t is list:
+        return [_copy_json(v) for v in o]
+    if t is tuple:
+        return tuple(_copy_json(v) for v in o)
+    if t is str or t is int or t is float or t is bool or o is None:
+        return o
+    raise TypeError(f"not a JSON tree: {t.__name__}")
+
+
 def deep_copy(o: Obj) -> Obj:
-    """Deep copy an object tree."""
-    return copy.deepcopy(o)
+    """Deep copy an object tree.  A dict / list / tuple tree of str, int,
+    float, bool and None (every API object) is copied by walking it,
+    sharing the immutable leaves, which skips copy.deepcopy's memo and
+    dispatch; anything else falls back to copy.deepcopy.  The JAX package's native
+    copier (utils/fastcopy.py) has the same semantics, so neither keeps
+    aliasing inside the tree."""
+    try:
+        return _copy_json(o)
+    except TypeError:
+        return copy.deepcopy(o)
 
 
 def pod_is_terminal(pod: Obj) -> bool:

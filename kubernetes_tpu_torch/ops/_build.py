@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# name -> ctypes.CDLL, one load per process
+# process-local: name -> ctypes.CDLL, one load per process (each
+# scheduler child of scheduler/procrun.py loads its own)
 _loaded: dict[str, ctypes.CDLL] = {}
 # nvcc compiles started and libraries loaded, by source name
 COUNTS: dict[str, dict[str, int]] = {"builds": {}, "loads": {}}

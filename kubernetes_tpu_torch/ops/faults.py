@@ -5,7 +5,8 @@ kubernetes_tpu/ops/faults.py, copied: the seeded OverloadSchedule and the
 ChaosBatchBackend wrapper that injects slow and all-escape waves at the
 BatchBackend contract, the seeded ChurnStormSchedule with the
 NodeStormDriver that floods node adds, drains and relabels through a live
-store, and the seeded ScaleOutSchedule with the InstanceChurner.  Given
+store, the seeded ScaleOutSchedule with the InstanceChurner and the
+ProcessChurner, and the seeded UpgradeSchedule with the UpgradeDriver.  Given
 the same seed, each schedule here makes the same decisions as the JAX
 one, so the port and the reference replay identical storms
 (tests/test_torch_faults.py, tests/test_torch_storm.py,
@@ -37,9 +38,11 @@ error ladder claims to handle is injected on a seeded schedule:
 
 The scale-out half (ScaleOutSchedule, InstanceChurner) kills and revives
 whole scheduler instances in this process through their
-ScaleOutCoordinator (scheduler/scaleout.py); the process-true churners
-(ProcessChurner, UpgradeSchedule, UpgradeDriver) need the process
-supervisor and wait for it (ROADMAP item 10b).
+ScaleOutCoordinator (scheduler/scaleout.py); its process-true sibling
+ProcessChurner, and the rolling-upgrade pair UpgradeSchedule /
+UpgradeDriver, act on the process supervisor
+(scheduler/procrun.ProcCluster) and replay the JAX package's decisions
+for the same seed (tests/test_torch_upgrade.py).
 
 A chaos wrapper is applied only when a caller asks for it (the harness's
 chaos_schedule, the nodeStorm opcode, the RemoteSeamFaulty row); it never
@@ -395,6 +398,143 @@ class InstanceChurner:
             self.injected[act] += 1
             self.log.append((i, act, idx))
             return (act, idx)
+
+
+class ProcessChurner:
+    """InstanceChurner's process-true sibling: applies the SAME seeded
+    ScaleOutSchedule to a procrun.ProcCluster, so the chaos an instance
+    sees is identical whether it lives in this interpreter or in its own
+    OS process.  KILL_INSTANCE becomes SIGKILL (no drain — the victim's
+    lease lapses and survivors absorb its ring slices); REVIVE_INSTANCE
+    becomes a respawn with the old instance identity.  Same min_live
+    floor and `injected` accounting as InstanceChurner."""
+
+    def __init__(self, cluster, schedule: ScaleOutSchedule,
+                 min_live: int = 1):
+        self.cluster = cluster
+        self.schedule = schedule
+        self.min_live = min_live
+        self.waves = 0
+        self.injected = {KILL_INSTANCE: 0, REVIVE_INSTANCE: 0}
+        self.log: list[tuple[int, str, int]] = []
+        self._lock = threading.Lock()
+
+    def step(self) -> tuple[str, int] | None:
+        with self._lock:
+            i = self.waves
+            self.waves += 1
+            act, idx = self.schedule.action(i)
+            if act == NONE or not (0 <= idx < self.cluster.n):
+                return None
+            if act == KILL_INSTANCE:
+                if not self.cluster.alive(idx) \
+                        or len(self.cluster.live_indices()) <= self.min_live:
+                    return None
+                self.cluster.kill(idx)
+            else:
+                if self.cluster.alive(idx):
+                    return None
+                self.cluster.respawn(idx)
+            self.injected[act] += 1
+            self.log.append((i, act, idx))
+            return (act, idx)
+
+
+# -- rolling-upgrade chaos ----------------------------------------------
+#
+# The churners above kill and revive instances at random; the upgrade
+# UpgradeDriver below cycles them DELIBERATELY — drain -> respawn -> readiness,
+# one at a time, the way an operator rolls a new build through the
+# topology — while the seeded schedule decides which rolls get sabotaged
+# with a mid-drain SIGKILL (the child that ignores SIGTERM: the drain
+# escalation must fire and the upgrade must still complete).
+
+ROLL_INSTANCE = "roll_instance"
+HANDOFF_APISERVER = "handoff_apiserver"
+
+
+class UpgradeSchedule:
+    """Seeded, reproducible rolling-upgrade decisions.
+
+    One rng draw per step (the stream-stability rule shared with the
+    other schedules): step k rolls instance k mod instance_count, and
+    the draw only decides whether that roll is sabotaged with a
+    mid-drain SIGKILL.  Scripted entries are (action, instance,
+    sabotage) triples and win without consuming extra draws, so adding
+    a scripted step never shifts the decisions around it."""
+
+    def __init__(self, seed: int = 0, instance_count: int = 2,
+                 sabotage_rate: float = 0.0,
+                 script: dict[int, tuple[str, int, bool]] | None = None):
+        self.rng = random.Random(seed)
+        self.instance_count = instance_count
+        self.sabotage_rate = sabotage_rate
+        self.script = dict(script or {})
+
+    def action(self, step_index: int) -> tuple[str, int, bool]:
+        u = self.rng.random()
+        scripted = self.script.get(step_index)
+        if scripted is not None:
+            return scripted
+        idx = step_index % self.instance_count
+        sabotage = bool(self.sabotage_rate and u < self.sabotage_rate)
+        return (ROLL_INSTANCE, idx, sabotage)
+
+
+class UpgradeDriver:
+    """Applies an UpgradeSchedule to a procrun.ProcCluster.
+
+    One step = one rolled child (drain -> respawn -> stdout READY ->
+    /readyz 200), so the never-more-than-one-out invariant holds by
+    construction.  A sabotaged step shrinks the drain window to zero,
+    forcing ProcCluster.drain's SIGTERM->SIGKILL escalation mid-roll;
+    the roll proceeds anyway — a hung child cannot stall the upgrade.
+    HANDOFF_APISERVER steps replace the apiserver over its WAL
+    (requires the cluster's data_dir)."""
+
+    def __init__(self, cluster, schedule: UpgradeSchedule,
+                 drain_timeout: float = 20.0, ready_timeout: float = 60.0):
+        self.cluster = cluster
+        self.schedule = schedule
+        self.drain_timeout = drain_timeout
+        self.ready_timeout = ready_timeout
+        self.steps = 0
+        self.injected = {ROLL_INSTANCE: 0, HANDOFF_APISERVER: 0,
+                         "sabotaged": 0}
+        self.log: list[tuple[int, str, int, bool]] = []
+        self._lock = threading.Lock()
+
+    def step(self) -> tuple[str, int] | None:
+        with self._lock:
+            i = self.steps
+            self.steps += 1
+            act, idx, sabotage = self.schedule.action(i)
+            if act == HANDOFF_APISERVER:
+                self.cluster.handoff_apiserver()
+                self.injected[HANDOFF_APISERVER] += 1
+                self.log.append((i, act, idx, False))
+                return (act, idx)
+            if act != ROLL_INSTANCE or not self.cluster.alive(idx):
+                return None
+            self.cluster.drain(idx,
+                               timeout=0.0 if sabotage
+                               else self.drain_timeout)
+            self.cluster.respawn(idx, wait_ready=True)
+            self.cluster.wait_child_ready(idx, timeout=self.ready_timeout)
+            self.injected[ROLL_INSTANCE] += 1
+            if sabotage:
+                self.injected["sabotaged"] += 1
+            self.log.append((i, act, idx, sabotage))
+            return (act, idx)
+
+    def roll_all(self) -> list[tuple[str, int]]:
+        """One full rolling upgrade: every instance cycled once."""
+        out = []
+        for _ in range(self.cluster.n):
+            applied = self.step()
+            if applied is not None:
+                out.append(applied)
+        return out
 
 
 # -- churn-storm chaos ----------------------------------------------------

@@ -141,19 +141,56 @@ class GroupBucket:
     register_sg).  Wrong answers stay structurally impossible; only
     the escape rate varies with cardinality (backend stats)."""
 
-    __slots__ = ("topology_key", "groups", "allow_share")
+    __slots__ = ("topology_key", "groups", "allow_share", "_by_kv",
+                 "_complex")
 
     def __init__(self, group: SelectorGroup, allow_share: bool = False):
         self.topology_key = group.topology_key
-        self.groups = [group]
+        self.groups: list[SelectorGroup] = []
         self.allow_share = allow_share
+        # members by their single exact (key, value), and the rest
+        self._by_kv: dict[tuple[str, str], list[SelectorGroup]] = {}
+        self._complex: list[SelectorGroup] = []
+        self.add(group)
+
+    def add(self, group: SelectorGroup) -> None:
+        self.groups.append(group)
+        kv = _exact_kv(group)
+        if kv is None:
+            self._complex.append(group)
+        else:
+            self._by_kv.setdefault(kv, []).append(group)
+
+    def __getstate__(self):
+        # a checkpoint holds the JAX package's fields only (either
+        # package reads the other's); the index is rebuilt on load
+        return None, {"topology_key": self.topology_key,
+                      "groups": self.groups,
+                      "allow_share": self.allow_share}
+
+    def __setstate__(self, state) -> None:
+        _, fields = state
+        self.topology_key = fields["topology_key"]
+        self.allow_share = fields["allow_share"]
+        self.groups, self._by_kv, self._complex = [], {}, []
+        for group in fields["groups"]:
+            self.add(group)
 
     @property
     def collided(self) -> bool:
         return len(self.groups) > 1
 
     def matches_pod(self, pi: PodInfo) -> bool:
-        return any(g.matches_pod(pi) for g in self.groups)
+        # a single-(key, value) member can match only a pod that carries
+        # that label: look members up by the pod's labels, so a bucket of
+        # a thousand per-service groups costs a few lookups a pod, not a
+        # thousand selector matches (register_sg recounts every resident
+        # pod against the bucket at each join)
+        for kv in pi.labels.items():
+            for g in self._by_kv.get(kv, ()):
+                if g.matches_pod(pi):
+                    return True
+        return any(g.matches_pod(pi) for g in self._complex)
 
 
 def _stable_group_hash(group: SelectorGroup) -> int:
@@ -639,7 +676,7 @@ class ClusterTensors:
             idx = self._probe_bucket(self.sgs, group)
             if idx is None:
                 return None
-            self.sgs[idx].groups.append(group)
+            self.sgs[idx].add(group)
             is_new_bucket = False
         self._sg_ids[group.key()] = idx
         self._index_group(self._sg_kv_index, self._sg_complex, idx, group)
@@ -662,7 +699,7 @@ class ClusterTensors:
                                                      exclude=bucket)
         changed = is_new_bucket or mask_changed
         for row, ni in enumerate(self.node_infos):
-            if ni is None or not self.valid[row] or not ni.pods:
+            if ni is None or not ni.pods or not self.valid[row]:
                 continue
             new = sum(1 for pi in ni.pods
                       if not meta.deletion_timestamp(pi.pod)
@@ -690,7 +727,7 @@ class ClusterTensors:
             idx = self._probe_bucket(self.asgs, group)
             if idx is None:
                 return None
-            self.asgs[idx].groups.append(group)
+            self.asgs[idx].add(group)
             is_new_bucket = False
         self._asg_ids[group.key()] = idx
         self._index_group(self._asg_kv_index, self._asg_complex, idx,

@@ -89,6 +89,17 @@ whose value is the best count's pods/s and whose detail holds every
 count's pods/s, wall, bound pods, bind conflicts by kind, conflict rate
 and speedup over one instance.
 
+Process-true scale-out (bench.py's --processes N, run_scaleout_proc):
+    python3 -m kubernetes_tpu_torch.perf.bench --processes 4
+starts an apiserver process and 1, 2, 4 (and N) scheduler processes
+(scheduler/procrun.py), each on the null device as bench.py has it:
+20,000 nodes, 60,000 pods, batch 4,096 unless BENCH_SCALEOUT_NODES/PODS/
+BATCH/TIMEOUT or --nodes/--pods/--batch say otherwise; one JSON row whose
+detail holds every count's pods/s, wall, bound pods, double binds, bind
+conflicts by kind, speedup over one process and, above one, the seeded
+crash sub-pass (child 0 SIGKILLed, then max(1,000, pods / 20) more pods).
+It exits 1 when a pass left a pod unbound or bound one twice.
+
 The observatory read-outs (the JAX bench.py's --profile and --timeline):
     python3 -m kubernetes_tpu_torch.perf.bench --profile [--out PATH]
     python3 -m kubernetes_tpu_torch.perf.bench --timeline [--out PATH]
@@ -1236,6 +1247,186 @@ def run_scaleout(max_instances: int, device=None,
             "BENCH_SCALEOUT": instances}
 
 
+# --processes N (bench.py's run_scaleout_proc and its BENCH_SCALEOUT_*
+# environment defaults; the variables win over these, arguments over both)
+SCALEOUT_PROC_NODES = 20_000
+SCALEOUT_PROC_PODS = 60_000
+SCALEOUT_PROC_BATCH = 4096
+SCALEOUT_PROC_TIMEOUT = 1200.0
+
+
+def await_bound(ledger, want: int, timeout: float) -> bool:
+    """Poll the ledger until `want` pods are bound; False after
+    `timeout` s."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if ledger.bound_total() >= want:
+            return True
+        time.sleep(0.25)
+    return False
+
+
+def create_flood_pods(admin, lo: int, hi: int) -> None:
+    """Pods sp-lo .. sp-(hi - 1) of 10m / 16Mi, in chunks of 10,000."""
+    from ..testing import make_pod
+    for start in range(lo, hi, SCALEOUT_CHUNK):
+        admin.create_bulk(PODS, [
+            make_pod(f"sp-{i}").req(cpu="10m", mem="16Mi").build()
+            for i in range(start, min(start + SCALEOUT_CHUNK, hi))])
+
+
+def run_scaleout_proc(max_procs: int, nodes: int | None = None,
+                      pods: int | None = None, batch: int | None = None,
+                      timeout: float | None = None, backend: str = "null",
+                      device=None, cluster_cls=None, child_env=None,
+                      before=None, flooded=None, after=None) -> dict:
+    """--processes N: PROCESS-TRUE scale-out A/B (bench.py's
+    run_scaleout_proc).  Unlike --instances (N schedulers sharing one
+    interpreter and one MemoryStore object), this spawns one apiserver
+    process (kubernetes_tpu_torch.cmd.apiserver) plus 1, 2, ... N
+    scheduler OS processes through the procrun supervisor: every
+    list/watch/bind crosses an actual process boundary over HTTP, so the
+    numbers carry serialization, socket and GIL-free costs the
+    in-process row hides.
+
+    `nodes` nodes of 64 CPU / 256Gi / 1,000 pods, then `pods` pods of
+    10m / 16Mi, both created in chunks of 10,000, batch `batch`
+    (defaults: BENCH_SCALEOUT_NODES/PODS/BATCH/TIMEOUT, else 20,000,
+    60,000, 4,096 and 1,200 s).  Exactly-once is proved per pass by a
+    store-watch WireBindLedger (zero double-binds, zero lost pods), and
+    every multi-process count re-validates it under a seeded crash ->
+    failover sub-pass: ScaleOutSchedule(seed=13) SIGKILLs child 0, then
+    max(1000, pods // 20) more pods must bind.
+
+    On the null device by default, as bench.py's row: the question it
+    answers is whether the control plane scales across processes.
+    `backend` "tpu" gives every child a TorchBatchBackend on `device`
+    (None: the child's default, CUDA); `cluster_cls` replaces ProcCluster
+    (a subclass whose children a harness wraps) and `child_env` is its
+    per-child environment.  `before(n)` runs at the start of each pass,
+    before its processes exist; `flooded(n, row, cluster)` once the
+    flood's row is read, before the crash sub-pass; `after(n, row,
+    cluster)` at the end of the pass, before its processes shut down.
+    Returns {"nodes", "pods", "batch", "host_cores",
+    "BENCH_SCALEOUT_PROC": {str(n): row}} with bench.py's row keys
+    (pods_per_s, wall_s, bound, double_binds, conflicts, conflict_rate,
+    speedup_vs_1, churn; error when pods were left unbound)."""
+    from ..component_base.profiling import federate_texts
+    from ..ops.faults import KILL_INSTANCE, ProcessChurner, ScaleOutSchedule
+    from ..scheduler.procrun import ProcCluster, WireBindLedger
+    from ..testing import make_node
+
+    env = os.environ
+    nodes = nodes or int(env.get("BENCH_SCALEOUT_NODES",
+                                 SCALEOUT_PROC_NODES))
+    pods = pods or int(env.get("BENCH_SCALEOUT_PODS", SCALEOUT_PROC_PODS))
+    batch = batch or int(env.get("BENCH_SCALEOUT_BATCH",
+                                 SCALEOUT_PROC_BATCH))
+    timeout = timeout or float(env.get("BENCH_SCALEOUT_TIMEOUT",
+                                       SCALEOUT_PROC_TIMEOUT))
+    cluster_cls = cluster_cls or ProcCluster
+
+    def doubles(ledger) -> int | str:
+        try:
+            ledger.assert_no_double_binds()
+            return 0
+        except AssertionError as e:  # record, don't abort the sweep
+            return str(e)[:500]
+
+    def one_pass(n: int) -> dict:
+        if before is not None:
+            before(n)
+        cluster = cluster_cls(n, backend=backend, batch_size=batch,
+                              nodes=nodes, device=device,
+                              child_env=child_env)
+        try:
+            cluster.start()
+            admin = cluster.admin_client()
+            for lo in range(0, nodes, SCALEOUT_CHUNK):
+                admin.create_bulk(NODES, [
+                    make_node(f"sn-{i}")
+                    .capacity(cpu="64", mem="256Gi", pods=1000).build()
+                    for i in range(lo, min(lo + SCALEOUT_CHUNK, nodes))])
+            # let every child replicate its node partition over the wire
+            # before the flood (the in-process pass sleeps for the same
+            # reason; here the watch stream adds HTTP latency on top)
+            time.sleep(2.0 + nodes / 20_000)
+            ledger = WireBindLedger(admin)
+            t0 = time.monotonic()
+            create_flood_pods(admin, 0, pods)
+            ok = await_bound(ledger, pods, timeout)
+            elapsed = time.monotonic() - t0
+            fleet = federate_texts(cluster.metrics_texts())
+            conflicts = {
+                labels[0]: v for labels, v in
+                fleet.get("scheduler_bind_conflict_total", {}).items()}
+            out = {"pods_per_s": round(pods / elapsed, 1) if ok else 0.0,
+                   "wall_s": round(elapsed, 1),
+                   "bound": ledger.bound_total(),
+                   "double_binds": doubles(ledger),
+                   "conflicts": {k: int(v) for k, v in
+                                 sorted(conflicts.items())},
+                   "conflict_rate": round(
+                       sum(conflicts.values()) / max(pods, 1), 6)}
+            if not ok:
+                out["error"] = "pods left unscheduled"
+            if flooded is not None:
+                flooded(n, out, cluster)
+            # seeded crash->failover validation: SIGKILL one child, then
+            # prove the survivors drain a fresh flood with the same
+            # exactly-once guarantees (ledger stays live: it has seen
+            # every bind since rv=0, so double-binds across the crash
+            # boundary are visible too)
+            if n > 1 and ok:
+                churner = ProcessChurner(
+                    cluster,
+                    ScaleOutSchedule(seed=13, instance_count=n,
+                                     script={0: (KILL_INSTANCE, 0)}),
+                    min_live=1)
+                applied = churner.step()
+                extra = max(1000, pods // 20)
+                create_flood_pods(admin, pods, pods + extra)
+                c0 = time.monotonic()
+                c_ok = await_bound(ledger, pods + extra, timeout)
+                out["churn"] = {
+                    "applied": list(applied) if applied else None,
+                    "extra_pods": extra,
+                    "bound_after": ledger.bound_total(),
+                    "zero_lost": c_ok,
+                    "double_binds": doubles(ledger),
+                    "wall_s": round(time.monotonic() - c0, 1)}
+            ledger.stop()
+            if after is not None:
+                after(n, out, cluster)
+            return out
+        finally:
+            cluster.shutdown()
+
+    counts = [c for c in (1, 2, 4) if c <= max_procs]
+    if max_procs not in counts:
+        counts.append(max_procs)
+    procs: dict[str, dict] = {}
+    for n in counts:
+        procs[str(n)] = one_pass(n)
+    base = procs.get("1", {}).get("pods_per_s") or 0.0
+    for out in procs.values():
+        if base and out.get("pods_per_s"):
+            out["speedup_vs_1"] = round(out["pods_per_s"] / base, 2)
+    return {"nodes": nodes, "pods": pods, "batch": batch,
+            "host_cores": os.cpu_count(),
+            "BENCH_SCALEOUT_PROC": procs}
+
+
+def proc_row_failed(res: dict) -> bool:
+    """A --processes pass that left a pod unbound, saw a double bind or
+    lost a pod across its crash sub-pass."""
+    for out in res["BENCH_SCALEOUT_PROC"].values():
+        churn = out.get("churn", {"zero_lost": True, "double_binds": 0})
+        if ("error" in out or out["double_binds"] != 0
+                or not churn["zero_lost"] or churn["double_binds"] != 0):
+            return True
+    return False
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", default=["SchedulingBasic"], nargs="+",
@@ -1275,6 +1466,14 @@ def main(argv=None) -> int:
                            "instances over one store (bench.py's "
                            "--instances; 100,000 nodes, 200,000 pods, "
                            "batch 16,384 unless --nodes/--pods/--batch)")
+    mode.add_argument("--processes", type=int, nargs="?", const=2,
+                      default=None, metavar="N",
+                      help="process-true scale-out: an apiserver process "
+                           "and 1, 2, 4 and N scheduler processes on the "
+                           "null device (bench.py's --processes; 20,000 "
+                           "nodes, 60,000 pods, batch 4,096 unless "
+                           "BENCH_SCALEOUT_NODES/PODS/BATCH or "
+                           "--nodes/--pods/--batch)")
     ap.add_argument("--out", default=None,
                     help="the --profile / --timeline / --trace artifact's "
                          f"path (default under {ARTIFACT_DIR})")
@@ -1318,6 +1517,14 @@ def main(argv=None) -> int:
                              {"mode": "scaleout", **res})), flush=True)
         return 1 if any("error" in r for r in
                         res["BENCH_SCALEOUT"].values()) else 0
+    if args.processes is not None:
+        res = run_scaleout_proc(args.processes, args.nodes, args.pods,
+                                args.batch)
+        best = max((r.get("pods_per_s") or 0.0)
+                   for r in res["BENCH_SCALEOUT_PROC"].values())
+        print(json.dumps(row(best, res["nodes"], res["pods"], res["batch"],
+                             {"mode": "scaleout-proc", **res})), flush=True)
+        return 1 if proc_row_failed(res) else 0
     failed = False
     policy = None
     if args.host_profile:
