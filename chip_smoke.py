@@ -295,6 +295,27 @@ Phases (each prints its wall time; any failed check exits non-zero):
      the bound.  Every child that ran batches launched the claims kernel,
      with 0 escapes and plain batches only, as its own counts say (a
      killed child's as of its last retired batch).
+ 34. store replication (store/replica.py) under the scheduler: a
+     primary store (a promoted FollowerStore) with a ReplicationHub in
+     sync, fencing mode (sync_timeout 2 s, heartbeat 0.1 s) and a
+     follower behind a TCP forwarder that can go silent both ways,
+     auto-promoting after 5 s of silence; scheduler A (a TorchBatchBackend
+     on the card, batch 4,096, depth 2) over the primary binds 1,000
+     warm-up pods on 5,000 nodes of SchedulingBasicHTTP's shape, then a
+     flood of 10,000; once 3,000 flood binds are acknowledged the
+     forwarder freezes, A's next commit fences the primary and its bind
+     wave requeues, A stops, the follower promotes itself and scheduler
+     B (its own TorchBatchBackend on the card) over the promoted store
+     relists and binds the rest; the deposed primary then rejoins as a
+     follower of a hub on the promoted store.  Every bind A saw
+     acknowledged stands on the promoted store on its node, every pod is
+     bound exactly once within caps, the epoch rose by one, the deposed
+     primary's pods equal the promoted store's after the rejoin, A and B
+     each launched the claims kernel with plain batches and 0 escapes,
+     and B's first recorded wave equals the plain version; pods/s before
+     the partition beside 30(iii)'s, the times from the freeze to A's
+     first FencedError, to the promotion and to B's first bind, A's
+     acknowledged binds, the dirty tail and the card's memory printed.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -314,14 +335,15 @@ are zeroed before each pass and read after it, and the claims kernel
 must have launched in 22, the preempt kernel in 25.  The last two lines
 are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
 22's Scheduling100k, 26's sharded assigns, 27's Scheduling100k and 29's
-dry run, 30's three rows, 31's passes, 32's two binaries and 33's
-children; in 30 the counts are zeroed just before each row and read in
+dry run, 30's three rows, 31's passes, 32's two binaries, 33's
+children and 34's two schedulers; in 30 the counts are zeroed just before each row and read in
 its `after` hook, in 31 when each pass starts and when its row (or the
 churn's barrier) is read, in 32 in each binary's process when its warmup
 ends, and read from the last count it printed: the survivor's as it
 exits, the killed leader's after the last batch it retired; in 33
 likewise in each child: a drained child's as it exits, a killed one's
-after its last batch); preempt_dry_run in f, 11, 12 and 25) and the
+after its last batch; in 34 for each scheduler from the end of its
+backend's warmup to its stop); preempt_dry_run in f, 11, 12 and 25) and the
 device line. Without a CUDA device the script exits 2 and prints no
 result.
 
@@ -336,7 +358,7 @@ after checking that both return the same answers.
 26-27 (27 then prints no single-device row beside its own), --only
 snapshot phases 1-2, 28 and 29, --only http phases 1-2 and 30, --only
 scaleout phases 1-2 and 31, --only binary phases 1-2 and 32, --only
-proc phases 1-2 and 33; --until 4
+proc phases 1-2 and 33, --only replica phases 1-2 and 34; --until 4
 stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
@@ -2974,6 +2996,7 @@ def snapshot_phases(dev, smi):
     return k10, launches
 
 
+FRONT_DOOR_RATES = {}   # phase 30's pods/s by row tag, read in phase 34
 FRONT_DOOR_ROWS = (("i", "SchedulingBasicHTTP"),
                    ("ii", "SchedulingBasicHTTPProc"),
                    ("iii", "SchedulingBasicHTTP"))   # (iii): LocalClient
@@ -3063,6 +3086,7 @@ def front_door_phase(smi):
                   f"{d.get('pod_e2e_p99_ms')} ms, claims launches "
                   f"{launches[tag]}, wall {res['wall_s']} s [{smi}]",
                   flush=True)
+        FRONT_DOOR_RATES.update(rates)
         print(f"   REST tax: LocalClient pods/s over the front door's: "
               f"(iii)/(i) {rates['iii'] / rates['i']:.4f}, (iii)/(ii) "
               f"{rates['iii'] / rates['ii']:.4f} [{smi}]", flush=True)
@@ -3198,9 +3222,9 @@ def instance_backends(clusters):
             for cl in clusters]
 
 
-def check_instances(clusters, label, ran=None):
+def check_instances(clusters, label, ran=None, device_type="cuda"):
     """No fallback: every instance's batch backend is a TorchBatchBackend
-    on the card, each instance in `ran` (default: all) ran batches, every
+    on the card (on `device_type`), each instance in `ran` (default: all) ran batches, every
     one of them plain, and no instance sent a pod to the per-pod path: a
     batch whose cache outgrew the backend's n_cap (a peer's slices
     absorbed past it) escapes whole as ("BatchEncoder", "vocab_full")
@@ -3209,7 +3233,8 @@ def check_instances(clusters, label, ran=None):
     from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
     out = []
     for i, (cl, b) in enumerate(zip(clusters, instance_backends(clusters))):
-        check(type(b) is TorchBatchBackend and b.device.type == "cuda",
+        check(type(b) is TorchBatchBackend
+              and b.device.type == device_type,
               f"{label}: instance {i}'s backend is {type(b).__name__} on "
               f"{getattr(b, 'device', None)}")
         st = b.stats
@@ -4431,6 +4456,399 @@ def proc_phase(smi, nodes=20_000, pods=60_000, batch=4096, device=None):
               flush=True)
     return launches, wave["max_abs_err"]
 
+
+# phase 34: store replication (store/replica.py) under the port's scheduler
+REPLICA_NODES = 5000       # SchedulingBasicHTTP's cluster (bench.py:127-140)
+REPLICA_WARM = 1000        # warm-up pods, bound before the flood
+REPLICA_FLOOD = 10_000     # the flood, created in one bulk write
+REPLICA_FREEZE_AT = 3000   # the partition once this many flood binds acked
+REPLICA_BATCH = 4096
+REPLICA_SYNC_S = 2.0       # the hub's sync_timeout
+REPLICA_GRACE_S = 5.0      # the follower's auto_promote_after: > sync_timeout
+REPLICA_STEP_S = 120.0     # every wait of phase 34, s
+
+
+class BlackholeProxy:
+    """A TCP forwarder between a follower and its hub that can go silent
+    both ways (freeze()) without closing either socket: a network
+    partition, not a clean FIN (tests/test_store_replica.py's
+    _BlackholeProxy, with close())."""
+
+    def __init__(self, target_host, target_port):
+        self._target = (target_host, target_port)
+        self._ls = socket.socket()
+        self._ls.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._ls.bind(("127.0.0.1", 0))
+        self._ls.listen(1)
+        self.address = self._ls.getsockname()
+        self.frozen = threading.Event()
+        self._socks = []
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        try:
+            a, _ = self._ls.accept()
+            b = socket.create_connection(self._target)
+            self._socks = [a, b]
+            for src, dst in ((a, b), (b, a)):
+                threading.Thread(target=self._pump, args=(src, dst),
+                                 daemon=True).start()
+        except OSError:
+            pass
+
+    def _pump(self, src, dst):
+        try:
+            while True:
+                data = src.recv(65536)
+                if not data:
+                    return
+                if self.frozen.is_set():
+                    continue  # swallowed: the partition never heals
+                dst.sendall(data)
+        except OSError:
+            pass
+
+    def freeze(self):
+        self.frozen.set()
+
+    def close(self):
+        for s in [self._ls, *self._socks]:
+            try:
+                s.close()
+            except OSError:
+                pass
+
+
+def replica_failover(nodes=REPLICA_NODES, warm=REPLICA_WARM,
+                     flood=REPLICA_FLOOD, freeze_at=REPLICA_FREEZE_AT,
+                     batch=REPLICA_BATCH, device=None,
+                     sync_timeout=REPLICA_SYNC_S, grace=REPLICA_GRACE_S,
+                     on_b_done=None):
+    """Phase 34's run, the card's or the CPU's (`device`: the backends';
+    None is CUDA).  The primary is a promoted FollowerStore with a
+    ReplicationHub(sync=True, fencing=True, sync_timeout, heartbeat
+    0.1 s); the follower follows through a BlackholeProxy and runs
+    auto_promote_after(grace).  Scheduler A (setup_cluster over the
+    primary, a TorchBatchBackend, depth 2) binds `warm` pods on `nodes`
+    nodes of SchedulingBasicHTTP's shape, then a flood of `flood` pods
+    made in one bulk write.  Right after the bind_many call that brings
+    A's acknowledged flood binds to `freeze_at` returns, the proxy
+    freezes; A's next commit fences the primary and its bind wave
+    requeues; A stops once bind_many has raised FencedError to it (its
+    in-flight batches retire in stop()).  The follower promotes itself;
+    scheduler B, over the promoted store, relists and binds the rest.
+    Then the deposed primary rejoins as the follower of a hub on the
+    promoted store.
+
+    Checked here (check() fails the run): every bind A saw acknowledged
+    (bind_many returned it without an error) stands on the promoted store
+    on the same node; A counted no pod as scheduled that it did not see
+    acknowledged; every pod is bound exactly once (a watch on the
+    follower from its first snapshot on) within its node's caps; the
+    epoch rose by one; after the rejoin the deposed primary's pods table
+    equals the promoted store's; each scheduler's backend is a
+    TorchBatchBackend on `device` whose batches were all plain, and no
+    pod escaped to the per-pod path.  The claims launches of A (counted
+    from the end of its backend's warmup to its stop) and of B (from the
+    end of its backend's warmup to its stop), and the inputs of B's first
+    claims launch with a live pod, are returned for the caller to check.
+    `on_b_done()` runs once B has bound every pod, before B stops."""
+    from kubernetes_tpu_torch.client import LocalClient
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        _bulk_create, _default_node, _default_pod, setup_cluster)
+    from kubernetes_tpu_torch.store import kv
+    from kubernetes_tpu_torch.store.replica import (
+        FollowerStore, ReplicationHub)
+
+    dev_type = torch.device(device or "cuda").type
+    caps = caps_for_nodes(nodes)
+    # what A saw acknowledged (key -> node), and when each step came
+    st = {"acked": {}, "flood_acked": 0, "a_fenced": threading.Event(),
+          "b_first": None, "t_freeze": None, "t_fenced": None,
+          "frozen_at": None, "t_store_fenced": None, "t_promoted": None}
+    primary = FollowerStore(history=1_000_000).promote()
+    hub = ReplicationHub(primary, sync=True, fencing=True,
+                         sync_timeout=sync_timeout,
+                         heartbeat_interval=0.1).start()
+    proxy = BlackholeProxy(*hub.address)
+    follower = FollowerStore(history=1_000_000)
+    follower.follow(*proxy.address)
+    follower.auto_promote_after(grace)
+    fence = primary.fence
+
+    def stamped_fence(reason):
+        if st["t_store_fenced"] is None:
+            st["t_store_fenced"] = time.monotonic()
+        fence(reason)
+    primary.fence = stamped_fence
+
+    def stamp_promotion():
+        if follower.promoted_event.wait(REPLICA_STEP_S * 2):
+            st["t_promoted"] = time.monotonic()
+    threading.Thread(target=stamp_promotion, daemon=True).start()
+    follower_client = LocalClient(follower)
+    watch = BindWatch(follower_client)
+    bind_many, warmup = LocalClient.bind_many, TorchBatchBackend.warmup
+    sides = {id(primary): "A", id(follower): "B"}
+    launches, arm = {}, {"tag": None}
+    rec = ClaimsRecorder(kernels, first_live=True)
+
+    def counted_bind_many(client, bindings):
+        side = sides.get(id(client.store))
+        try:
+            out = bind_many(client, bindings)
+        except kv.FencedError:
+            if side == "A" and st["t_fenced"] is None:
+                st["t_fenced"] = time.monotonic()
+                st["a_fenced"].set()
+            raise
+        now = time.monotonic()
+        if side == "A":
+            for entry, (_obj, err) in zip(bindings, out):
+                if err is None:
+                    key = f"{entry[0]}/{entry[1]}"
+                    st["acked"][key] = entry[2]
+                    st["flood_acked"] += key.startswith("default/pod-")
+            if st["t_freeze"] is None and st["flood_acked"] >= freeze_at:
+                proxy.freeze()
+                st["t_freeze"], st["frozen_at"] = now, st["flood_acked"]
+        elif side == "B" and st["b_first"] is None and any(
+                err is None for _obj, err in out):
+            st["b_first"] = now
+        return out
+
+    def warm_then_zero(backend):
+        warmup(backend)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        rec.armed = arm["tag"]
+
+    def wait(pred, what):
+        deadline = time.monotonic() + REPLICA_STEP_S
+        while not pred():
+            check(watch.error is None,
+                  f"34: the follower's pods watch failed: "
+                  f"{watch.error}")
+            check(time.monotonic() < deadline,
+                  f"34: {what} not within {REPLICA_STEP_S} s")
+            time.sleep(0.005)
+        return time.monotonic()
+
+    def pods_by_key(store):
+        items, _ = store.list("pods")
+        return {f"{o['metadata']['namespace']}/{o['metadata']['name']}": o
+                for o in items}
+
+    def pod_nodes(store):
+        return {k: (o.get("spec") or {}).get("nodeName")
+                for k, o in pods_by_key(store).items()}
+
+    cl_a = cl_b = hub2 = None
+    stopped = set()
+    LocalClient.bind_many = counted_bind_many
+    TorchBatchBackend.warmup = warm_then_zero
+    try:
+        with rec:
+            t0 = time.monotonic()
+            cl_a = setup_cluster(caps=caps, batch_size=batch, store=primary,
+                                 pipeline_depth=2, device=device)
+            _bulk_create(cl_a.client, "nodes", nodes, 0, _default_node, {})
+            _bulk_create(cl_a.client, "pods", warm, 0, _default_pod,
+                         {"podNamePrefix": "warm-"})
+            wait(lambda: watch.bound("default/warm-") >= warm,
+                 f"A's {warm} warm-up binds")
+            t_warm = time.monotonic()
+            params = {"podNamePrefix": "pod-"}
+            pods = [_default_pod(i, params) for i in range(flood)]
+            t_flood = time.monotonic()
+            cl_a.client.create_bulk("pods", pods)   # one commit, one frame
+            del pods
+            t_sent = time.monotonic()
+            wait(st["a_fenced"].is_set, "A's first FencedError from "
+                                        "bind_many")
+            check(st["t_freeze"] is not None,
+                  "34: A was fenced before the partition")
+            t_a = time.monotonic()
+            cl_a.shutdown()
+            stopped.add("A")
+            a_stop_s = time.monotonic() - t_a
+            sched_a = cl_a.scheduler
+            launches["A"] = kernels.LAUNCHES["claims"]
+            batches_a = check_instances([cl_a], "34 A",
+                                        device_type=dev_type)
+            fenced_a = conflict_counts([cl_a])
+            with sched_a.metrics.lock:
+                scheduled_a = sched_a.metrics.schedule_attempts["scheduled"]
+            check(scheduled_a == len(st["acked"]),
+                  f"34: A counted {scheduled_a} pods scheduled, "
+                  f"{len(st['acked'])} binds acknowledged")
+            check(fenced_a["fenced"] > 0,
+                  f"34: A requeued no pod as fenced: {fenced_a}")
+            wait(lambda: st["t_promoted"] is not None,
+                 "the follower's promotion")
+            check(follower.epoch == primary.epoch + 1,
+                  f"34: epoch {primary.epoch} -> {follower.epoch}")
+            old, new = pod_nodes(primary), pod_nodes(follower)
+            dirty = sorted(k for k, node in old.items()
+                           if node and new.get(k) != node)
+            lost = sorted(k for k, node in st["acked"].items()
+                          if new.get(k) != node)
+            check(not lost, f"34: {len(lost)} acknowledged binds are "
+                            f"not on the promoted store as acked: "
+                            f"{lost[:5]}")
+            b_bound = sum(1 for node in new.values() if not node)
+            arm["tag"] = "B"
+            t_b = time.monotonic()
+            cl_b = setup_cluster(caps=caps, batch_size=batch,
+                                 store=follower, pipeline_depth=2,
+                                 device=device)
+            t_b_up = time.monotonic()
+            t_end = wait(lambda: watch.bound("default/") >= warm + flood,
+                         f"all {warm + flood} pods bound")
+            if on_b_done is not None:
+                on_b_done()
+            t_b_stop = time.monotonic()
+            cl_b.shutdown()
+            stopped.add("B")
+            b_stop_s = time.monotonic() - t_b_stop
+            launches["B"] = kernels.LAUNCHES["claims"]
+            batches_b = check_instances([cl_b], "34 B",
+                                        device_type=dev_type)
+        t_checks = time.monotonic()
+        check(watch.error is None, f"34: the watch: {watch.error}")
+        check(not watch.changed, f"34: nodeName changed: "
+                                 f"{watch.changed[:5]}")
+        check(len(watch.binds) == warm + flood
+              and set(watch.binds.values()) == {1},
+              f"34: {len(watch.binds)} pods bound, bind counts "
+              f"{sorted(set(watch.binds.values()))}")
+        used = check_binary_caps(follower_client, warm + flood, "34")
+        checks_s = time.monotonic() - t_checks
+        # the rejoin: the deposed primary follows a hub on the new one
+        hub.stop()
+        hub2 = ReplicationHub(follower, sync=True,
+                              heartbeat_interval=0.1).start()
+        t_r = time.monotonic()
+        primary.rejoin(*hub2.address)
+        rejoin_s = time.monotonic() - t_r
+        t_cmp = time.monotonic()
+        # as the wire carries them: the rejoined table is decoded JSON
+        same = json.dumps(pods_by_key(primary), sort_keys=True) == \
+            json.dumps(pods_by_key(follower), sort_keys=True)
+        check(same, "34: after the rejoin the deposed primary's pods "
+                    "differ from the promoted store's")
+        return {
+            "a_stop_s": a_stop_s, "b_stop_s": b_stop_s,
+            "checks_s": checks_s, "compare_s": time.monotonic() - t_cmp,
+            "acked": len(st["acked"]), "frozen_at": st["frozen_at"],
+            "dirty": len(dirty), "launches": launches,
+            "wave": rec.kept.get("B"), "batches": (batches_a, batches_b),
+            "fenced": fenced_a, "nodes_used": used,
+            "epochs": (primary.epoch, follower.epoch),
+            "setup_s": t_warm - t0, "sent_s": t_sent - t_flood,
+            "rate_before": st["frozen_at"] / (st["t_freeze"] - t_flood),
+            "to_store_fenced": st["t_store_fenced"] - st["t_freeze"],
+            "to_fenced": st["t_fenced"] - st["t_freeze"],
+            "to_promoted": st["t_promoted"] - st["t_freeze"],
+            "to_b_first": st["b_first"] - st["t_freeze"],
+            "b_setup_s": t_b_up - t_b, "b_bound": b_bound,
+            "b_rate": b_bound / max(t_end - st["b_first"], 1e-9),
+            "rejoin_s": rejoin_s}
+    finally:
+        LocalClient.bind_many, TorchBatchBackend.warmup = bind_many, warmup
+        for tag, cl in (("A", cl_a), ("B", cl_b)):
+            if cl is not None and tag not in stopped:
+                cl.shutdown()
+        for h in (hub, hub2):
+            if h is not None:
+                h.stop()
+        proxy.close()
+        watch.close()
+        follower_client.close()
+
+
+def replica_phase(smi, **kw):
+    """Phase 34: store failover on the card.  replica_failover at its
+    defaults (5,000 nodes of SchedulingBasicHTTP's shape, 1,000 warm-up
+    pods, a flood of 10,000, batch 4,096, depth 2, the partition at
+    3,000 acknowledged flood binds, sync_timeout 2 s, grace 5 s), both
+    schedulers' backends on the card, and on top of its checks: A and B
+    each launched the claims kernel, and B's first claims launch with a
+    live pod replays equal to kernels.claims_reference under phase 5's
+    rule (check_claims).  Prints pods/s before the partition beside phase
+    30(iii)'s LocalClient number of this run, the times from the freeze
+    to A's first FencedError, to the promotion and to B's first bind, A's
+    acknowledged binds and the fenced primary's dirty tail, and the
+    memory the card used.  Returns (claims launches of A and B, the
+    recorded wave's max |best err|)."""
+    from kubernetes_tpu_torch.ops import kernels
+    with Phase("34 store failover on the card"):
+        # no gc.collect() here: after phases 1-33 a full collection walks
+        # every object they left, for seconds; the peak is read over what
+        # was allocated when the phase began
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mem = {}
+
+        def on_b_done():
+            torch.cuda.synchronize()
+            mem["used"], mem["apps"] = device_memory()
+        t0 = time.monotonic()
+        got = replica_failover(on_b_done=on_b_done, **kw)
+        run_s = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        n = got["launches"]
+        check(n["A"] > 0, "34: scheduler A never launched the claims kernel")
+        check(n["B"] > 0, "34: scheduler B never launched the claims kernel")
+        check(got["wave"] is not None, "34: B recorded no claims wave")
+        *wave, noise, pod_ids = got["wave"]
+        live = int(wave[1].sum())
+        err = check_claims(kernels, tuple(wave), noise,
+                           f"34 B's first wave ({live} live pods)",
+                           pod_ids)[0]
+        ref = FRONT_DOOR_RATES.get("iii")
+        print(f"   34: pods/s before the partition "
+              f"{got['rate_before']:.1f} ({got['frozen_at']} flood binds "
+              f"acknowledged, sync shipping to the follower); phase "
+              f"30(iii)'s LocalClient pods/s in this run "
+              f"{'not run' if ref is None else f'{ref:.1f}'} [{smi}]",
+              flush=True)
+        print(f"   34: from the freeze to the primary's fence "
+              f"{got['to_store_fenced']:.3f} s, to A's first FencedError "
+              f"{got['to_fenced']:.3f} s, to the promotion "
+              f"{got['to_promoted']:.3f} s, to B's first bind "
+              f"{got['to_b_first']:.3f} s (B's setup_cluster "
+              f"{got['b_setup_s']:.3f} s); B bound {got['b_bound']} pods "
+              f"at {got['b_rate']:.1f} pods/s from its first bind [{smi}]",
+              flush=True)
+        print(f"   34: A's acknowledged binds {got['acked']} (the warm-up's "
+              f"and {got['frozen_at']} of the flood); the fenced primary's "
+              f"dirty tail {got['dirty']} pods; A's conflict counts "
+              f"{got['fenced']}; epoch {got['epochs'][0]} -> "
+              f"{got['epochs'][1]}; the rejoin {got['rejoin_s']:.3f} s, "
+              f"the deposed primary's pods equal to the promoted store's; "
+              f"pods on {got['nodes_used']} nodes [{smi}]", flush=True)
+        print(f"   34: claims launches A {n['A']}, B {n['B']}; batches / "
+              f"waves A {got['batches'][0]}, B {got['batches'][1]}; setup "
+              f"to the warm-up's last bind {got['setup_s']:.3f} s, the "
+              f"flood's one bulk write {got['sent_s']:.3f} s [{smi}]",
+              flush=True)
+        print(f"   34: device memory: torch peak allocated over the phase's "
+              f"start {peak / 2**30:.3f} GiB; nvidia-smi memory.used "
+              f"{mem['used']:.0f} MiB with B's backend warm (the process's "
+              f"whole use) [{smi}]", flush=True)
+        print(f"   34: the run {run_s:.3f} s: A's stop {got['a_stop_s']:.3f} "
+              f"s, B's stop {got['b_stop_s']:.3f} s, the binds' checks "
+              f"{got['checks_s']:.3f} s, the rejoin {got['rejoin_s']:.3f} "
+              f"s and its comparison {got['compare_s']:.3f} s [{smi}]",
+              flush=True)
+    return n["A"] + n["B"], err
+
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -4495,11 +4913,12 @@ def parse_args(argv):
                     help="a checkout of another revision whose claims "
                          "and dry-run wrappers to time beside this one's")
     ap.add_argument("--only", choices=("seam", "sharded", "snapshot",
-                                       "http", "scaleout", "binary", "proc"),
+                                       "http", "scaleout", "binary", "proc",
+                                       "replica"),
                     help="phases 1-2 and then only these (seam: 22-25, "
                          "sharded: 26-27, snapshot: 28-29, http: 30, "
-                         "scaleout: 31, binary: 32, proc: 33); prints no "
-                         "result line")
+                         "scaleout: 31, binary: 32, proc: 33, replica: "
+                         "34); prints no result line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -4818,6 +5237,10 @@ def main(argv=None) -> int:
         proc_phase(smi)
         print("partial run (--only proc): no result line")
         return 0
+    if opts.only == "replica":
+        replica_phase(smi)
+        print("partial run (--only replica): no result line")
+        return 0
 
     with Phase("3 kernel vs plain version"):
         # (P, N, seed, options): random cases, ragged P and N, identical
@@ -5024,6 +5447,8 @@ def main(argv=None) -> int:
     binary_launches = binary_phase(smi)
     # process-true scale-out: N scheduler processes on this card
     proc_launches, proc_err = proc_phase(smi)
+    # store replication: a scheduler failing over to a promoted follower
+    replica_launches, replica_err = replica_phase(smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     # K10 has no hand kernel: its numbers ride a line of their own
@@ -5040,8 +5465,9 @@ def main(argv=None) -> int:
                            for name in SEAM_LOOP_ROWS)
                      + shard_launches + dry_launches
                      + sum(http_launches.values()) + scaleout_launches
-                     + binary_launches + proc_launches),
-        "max_abs_err": max(errs + [shard_err, scaleout_err, proc_err]),
+                     + binary_launches + proc_launches + replica_launches),
+        "max_abs_err": max(errs + [shard_err, scaleout_err, proc_err,
+                                   replica_err]),
         "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
