@@ -316,6 +316,25 @@ Phases (each prints its wall time; any failed check exits non-zero):
      the partition beside 30(iii)'s, the times from the freeze to A's
      first FencedError, to the promotion and to B's first bind, A's
      acknowledged binds, the dirty tail and the card's memory printed.
+ 35. the node agent (kubelet/, cmd/kubelet.py): the apiserver as a
+     process as in 32, the scheduler binary on the card (--binary-child,
+     --tpu-batch --batch-size 4096) and one kubelet binary running
+     KUBELET_NODES hollow nodes under an admin token; (i) the nodes and
+     their Leases register, KUBELET_PODS pods are created in one bulk
+     write, and every pod must be bound exactly once within caps and
+     reach Running with Ready=True and its containerStatuses on its node
+     (a watch), every node's Lease renewed at least once; (ii) a full
+     kubelet binary (--full --node-name full-0 --root-dir) runs a pod
+     with a readiness probe (Ready) and one whose container keeps exiting
+     under restartPolicy Always (its pod reads Failed, ROADMAP R14(e),
+     and its liveness probe has it restarted with a 0.25 s, then 0.5 s
+     backoff), is SIGKILLed once its checkpoint holds both and restarted
+     on the same root dir, and the running pod must then read Running,
+     Ready=False and no containerStatuses (R14(d)), the Failed one keep
+     its status; the scheduler's claims launches above 0 and its escapes
+     0, SIGTERM ending every binary with 0 within 10 s; registration,
+     bind and Running times, each binary's CPU and memory and the card's
+     memory printed.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -336,15 +355,15 @@ must have launched in 22, the preempt kernel in 25.  The last two lines
 are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
 22's Scheduling100k, 26's sharded assigns, 27's Scheduling100k and 29's
 dry run, 30's three rows, 31's passes, 32's two binaries, 33's
-children and 34's two schedulers; in 30 the counts are zeroed just before each row and read in
-its `after` hook, in 31 when each pass starts and when its row (or the
+children, 34's two schedulers and 35's scheduler binary; in 30 the
+counts are zeroed just before each row and read in its `after` hook, in 31 when each pass starts and when its row (or the
 churn's barrier) is read, in 32 in each binary's process when its warmup
 ends, and read from the last count it printed: the survivor's as it
 exits, the killed leader's after the last batch it retired; in 33
 likewise in each child: a drained child's as it exits, a killed one's
 after its last batch; in 34 for each scheduler from the end of its
-backend's warmup to its stop); preempt_dry_run in f, 11, 12 and 25) and the
-device line. Without a CUDA device the script exits 2 and prints no
+backend's warmup to its stop, in 35 as in 32); preempt_dry_run in f,
+11, 12 and 25) and the device line. Without a CUDA device the script exits 2 and prints no
 result.
 
 --compare TAG=DIR loads the kubernetes_tpu_torch package of another
@@ -358,14 +377,14 @@ after checking that both return the same answers.
 26-27 (27 then prints no single-device row beside its own), --only
 snapshot phases 1-2, 28 and 29, --only http phases 1-2 and 30, --only
 scaleout phases 1-2 and 31, --only binary phases 1-2 and 32, --only
-proc phases 1-2 and 33, --only replica phases 1-2 and 34; --until 4
-stops after phase 4
+proc phases 1-2 and 33, --only replica phases 1-2 and 34, --only
+kubelet phases 1-2 and 35; --until 4 stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
 directory of its own, two at a time, with a process keeping the card busy
 beside the second half (ROADMAP Q4).  None of them prints a result line.
---binary-child ARGS is phase 32's entry for one scheduler binary,
---proc-child ARGS phase 33's for one child of the process supervisor
+--binary-child ARGS is phase 32's (and 35's) entry for one scheduler
+binary, --proc-child ARGS phase 33's for one child of the process supervisor
 (procrun's --child, its counts printed as --binary-child prints them).
 """
 
@@ -3718,6 +3737,9 @@ class BindWatch:
     (an unbound pod becoming bound), and any change of a set nodeName
     (phase 32 and tests/test_torch_cmd_scheduler.py)."""
 
+    phase = "32"            # the phase named in a failed wait's message
+    step_s = BINARY_STEP_S  # wait_until's default bound, s
+
     def __init__(self, client):
         self.watch = client.watch("pods")
         self.added, self.bound_at, self.node = {}, {}, {}
@@ -3733,36 +3755,51 @@ class BindWatch:
                 evs = self.watch.next_batch(timeout=0.1)
                 now = time.monotonic()
                 for ev in evs:
-                    md = ev.object["metadata"]
-                    key = f"{md['namespace']}/{md['name']}"
-                    self.added.setdefault(key, now)
-                    node = (ev.object.get("spec") or {}).get("nodeName")
-                    old = self.node.get(key)
-                    if node and old and node != old:
-                        self.changed.append((key, old, node))
-                    if node and not old:
-                        self.binds[key] = self.binds.get(key, 0) + 1
-                        self.bound_at.setdefault(key, now)
-                        self.node[key] = node
+                    self._event(ev, now)
         except Exception as e:  # noqa: BLE001 - reported by the phase
             self.error = repr(e)
+
+    def _event(self, ev, now):
+        md = ev.object["metadata"]
+        key = f"{md['namespace']}/{md['name']}"
+        self.added.setdefault(key, now)
+        node = (ev.object.get("spec") or {}).get("nodeName")
+        old = self.node.get(key)
+        if node and old and node != old:
+            self.changed.append((key, old, node))
+        if node and not old:
+            self.binds[key] = self.binds.get(key, 0) + 1
+            self.bound_at.setdefault(key, now)
+            self.node[key] = node
+        return key
 
     def bound(self, prefix=""):
         return sum(1 for k in list(self.bound_at) if k.startswith(prefix))
 
     def wait_bound(self, want, prefix, what, alive,
                    timeout=BINARY_STEP_S):
-        """Wait until `want` pods under `prefix` are bound; `alive()`
-        fails the phase when a child it expects to run has exited."""
+        """Wait until `want` pods under `prefix` are bound."""
+        return self.wait_until(
+            lambda: self.bound(prefix) >= want,
+            lambda: f"{what}: {self.bound(prefix)} of {want} bound", alive,
+            timeout)
+
+    def wait_until(self, done, what, alive, timeout=None, poll=0.005):
+        """Wait until done() holds, asking every `poll` s, at most
+        `timeout` s (step_s by default); `what` (or what(), when it is
+        callable) names the wait in a failure, and `alive()` fails the
+        phase when a child it expects to run has exited.  Returns the
+        time done() first held."""
+        timeout = self.step_s if timeout is None else timeout
         deadline = time.monotonic() + timeout
-        while self.bound(prefix) < want:
+        while not done():
             alive()
-            check(self.error is None, f"32: the pods watch failed: "
-                                      f"{self.error}")
+            check(self.error is None, f"{self.phase}: the pods watch "
+                                      f"failed: {self.error}")
             check(time.monotonic() < deadline,
-                  f"32: {what}: {self.bound(prefix)} of {want} bound "
+                  f"{self.phase}: {what() if callable(what) else what} "
                   f"after {timeout} s")
-            time.sleep(0.005)
+            time.sleep(poll)
         return time.monotonic()
 
     def close(self):
@@ -3840,6 +3877,39 @@ def check_binary_caps(client, want, label):
     return len(used)
 
 
+def apiserver_child(tmp, tokens, name, root):
+    """The port's apiserver as a process on a free port (phases 32 and
+    35): RBAC over a token file of the lines `tokens`, the default
+    admission chain less the harness's list, a WAL under `tmp`.  Returns
+    its ChildLog, not yet listening, and its URL."""
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        _HARNESS_DISABLED_ADMISSION)
+    token_file = Path(tmp) / "tokens.csv"
+    token_file.write_text("".join(f"{line}\n" for line in tokens))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    api = ChildLog(
+        [sys.executable, "-u", "-m", "kubernetes_tpu_torch.cmd.apiserver",
+         "--secure-port", str(port), "--token-file", str(token_file),
+         "--authorization-mode", "RBAC", "--enable-default-admission",
+         "--disable-admission-plugins",
+         ",".join(_HARNESS_DISABLED_ADMISSION), "--data-dir",
+         str(Path(tmp) / "wal")], name, root)
+    return api, f"http://127.0.0.1:{port}"
+
+
+def alive_check(children, killed):
+    """A check that every child ChildLog runs, bar those in `killed`."""
+    def alive():
+        for child in children:
+            rc = child.proc.poll()
+            check(rc is None or child in killed,
+                  f"{child.name} exited {rc}; its last lines: "
+                  f"{[line[:300] for _t, line in child.lines[-8:]]}")
+    return alive
+
+
 def binary_phase(smi, nodes=BINARY_NODES, warm=BINARY_WARM,
                  flood=BINARY_FLOOD, kill_at=BINARY_KILL_AT,
                  batch=BINARY_BATCH, device="cuda"):
@@ -3869,8 +3939,7 @@ def binary_phase(smi, nodes=BINARY_NODES, warm=BINARY_WARM,
     from kubernetes_tpu_torch.client.http_client import HTTPClient
     from kubernetes_tpu_torch.perf import caps_for_nodes
     from kubernetes_tpu_torch.perf.scheduler_perf import (
-        _HARNESS_DISABLED_ADMISSION, _bulk_create, _default_node,
-        _default_pod)
+        _bulk_create, _default_node, _default_pod)
 
     root = str(Path(__file__).resolve().parent)
     n_cap = caps_for_nodes(nodes).n_cap
@@ -3878,30 +3947,13 @@ def binary_phase(smi, nodes=BINARY_NODES, warm=BINARY_WARM,
     with Phase("32 the scheduler's binary"), \
             tempfile.TemporaryDirectory(prefix="phase32-") as tmp:
         try:
-            tokens = Path(tmp) / "tokens.csv"
-            tokens.write_text(f"{BINARY_ADMIN},phase32,system:masters\n"
-                              f"{BINARY_SCHED},system:kube-scheduler\n")
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", 0))
-                port = s.getsockname()[1]
-            url = f"http://127.0.0.1:{port}"
-            api = ChildLog(
-                [sys.executable, "-u", "-m",
-                 "kubernetes_tpu_torch.cmd.apiserver", "--secure-port",
-                 str(port), "--token-file", str(tokens),
-                 "--authorization-mode", "RBAC",
-                 "--enable-default-admission", "--disable-admission-plugins",
-                 ",".join(_HARNESS_DISABLED_ADMISSION), "--data-dir",
-                 str(Path(tmp) / "wal")], "32 apiserver", root)
+            api, url = apiserver_child(
+                tmp, (f"{BINARY_ADMIN},phase32,system:masters",
+                      f"{BINARY_SCHED},system:kube-scheduler"),
+                "32 apiserver", root)
             children.append(api)
             killed = set()
-
-            def alive():
-                for child in children:
-                    rc = child.proc.poll()
-                    check(rc is None or child in killed,
-                          f"{child.name} exited {rc}; its last lines: "
-                          f"{[line[:300] for _t, line in child.lines[-8:]]}")
+            alive = alive_check(children, killed)
             api.wait_line("apiserver listening on", "the apiserver start")
             admin = HTTPClient.from_url(url, token=BINARY_ADMIN)
             t0 = time.monotonic()
@@ -4849,6 +4901,453 @@ def replica_phase(smi, **kw):
     return n["A"] + n["B"], err
 
 
+# phase 35: the node agent on the card.  5,000 hollow nodes (phase 32's
+# cluster) do not register within 60 s; at 1,000 and 2,000 no pod count of
+# N/2 or more is Running within 60 s, 250 pods at 1,000 nodes take 27-34
+# s, and the binary outlives SIGTERM by 10 s at every pod count tried
+# (ROADMAP R14(f)); at 500 nodes and 250 pods the phase runs in 30 s
+# (H100 80GB HBM3 at 700 W; PERF.md section 4)
+KUBELET_NODES = 500       # hollow nodes in one kubelet binary
+KUBELET_PODS = 250        # pods, created in one bulk write
+KUBELET_STEP_S = 60.0     # every wait of phase 35, s
+KUBELET_TERM_S = 10.0     # SIGTERM to exit, s
+KUBELET_ADMIN = "phase35-admin"
+KUBELET_SCHED = "phase35-scheduler"
+KUBELET_FULL = "full-0"   # the full kubelet's node
+KUBELET_RUN_S = "1.5"     # the crashing container's life, s
+
+
+class PodWatch(BindWatch):
+    """BindWatch plus each pod's status as the watch sees it: its latest
+    status, the phases it went through, the first time it was Running
+    with Ready=True and every container running (and on which node), the
+    hostIPs each node's pods reported, and the sequence of container
+    states of each pod."""
+
+    phase = "35"
+    step_s = KUBELET_STEP_S
+
+    def __init__(self, client):
+        self.status, self.ready_at, self.ready_node = {}, {}, {}
+        self.host_ips, self.states, self.uid = {}, {}, {}
+        self.phases = {}
+        super().__init__(client)
+
+    def _event(self, ev, now):
+        key = super()._event(ev, now)
+        st = ev.object.get("status") or {}
+        self.uid[key] = ev.object["metadata"].get("uid")
+        self.status[key] = st
+        if st.get("phase"):
+            self.phases.setdefault(key, set()).add(st["phase"])
+        cs = st.get("containerStatuses") or []
+        states = tuple(c.get("state") for c in cs)
+        seen = self.states.setdefault(key, [])
+        if states and (not seen or seen[-1] != states):
+            seen.append(states)
+        node = (ev.object.get("spec") or {}).get("nodeName")
+        if node and st.get("hostIP"):
+            self.host_ips.setdefault(node, set()).add(st["hostIP"])
+        if pod_ready(st) and key not in self.ready_at:
+            self.ready_at[key] = now
+            self.ready_node[key] = node
+        return key
+
+    def ready(self, prefix=""):
+        return sum(1 for k in list(self.ready_at) if k.startswith(prefix))
+
+
+def pod_ready(status):
+    """Running, Ready=True, and every container reported running."""
+    cs = status.get("containerStatuses") or []
+    return (status.get("phase") == "Running" and bool(cs)
+            and all(c.get("state") == "CONTAINER_RUNNING" for c in cs)
+            and any(c.get("type") == "Ready" and c.get("status") == "True"
+                    for c in status.get("conditions") or ()))
+
+
+def restored_status(status):
+    """What a restarted full kubelet reports for a running pod it
+    restored from its checkpoint (ROADMAP R14(d);
+    tests/test_torch_kubelet.py pins it in both packages): Running,
+    Ready=False, no containerStatuses."""
+    return (status.get("phase") == "Running"
+            and status.get("containerStatuses") == []
+            and any(c.get("type") == "Ready" and c.get("status") == "False"
+                    for c in status.get("conditions") or ()))
+
+
+def process_cpu_s(pid):
+    """User + system CPU seconds of a live process, from /proc."""
+    fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def process_rss_mib(pid):
+    """Resident memory of a live process (VmRSS, MiB) and its threads."""
+    status = dict(line.split(":", 1) for line in
+                  Path(f"/proc/{pid}/status").read_text().splitlines()
+                  if ":" in line)
+    return (int(status["VmRSS"].split()[0]) / 1024,
+            int(status["Threads"]))
+
+
+def lease_times(client):
+    """Every node Lease's renewTime, by name."""
+    from kubernetes_tpu_torch.kubelet.hollow import LEASE_NS
+    items, _ = client.list("leases", LEASE_NS)
+    return {o["metadata"]["name"]: (o.get("spec") or {}).get("renewTime")
+            for o in items}
+
+
+def full_pods():
+    """Phase 35(ii)'s two pods, each selecting the full kubelet's node:
+    one with a readiness probe, one whose container exits with code 1
+    after KUBELET_RUN_S under restartPolicy Always.  The second has a
+    liveness probe: in the reference's logic PLEG reports the pod Failed
+    once its one container has exited, before any sync restarts it, and
+    the liveness worker (which holds the pod as it was added) is the path
+    that restarts the container, with its backoff (ROADMAP R14(e))."""
+    from kubernetes_tpu_torch.testing import make_pod
+    out = []
+    for name in ("probed", "crashy"):
+        pod = make_pod(name).req(cpu="100m", mem="128Mi").build()
+        pod["spec"]["nodeSelector"] = {HOST: KUBELET_FULL}
+        pod["spec"]["restartPolicy"] = "Always"
+        if name == "probed":
+            pod["spec"]["containers"][0]["readinessProbe"] = {
+                "periodSeconds": 0.2}
+        else:
+            pod["spec"]["containers"][0]["livenessProbe"] = {
+                "periodSeconds": 0.2}
+            pod["metadata"]["annotations"] = {
+                "hollow/run-seconds": KUBELET_RUN_S,
+                "hollow/exit-code": "1"}
+        out.append(pod)
+    return out
+
+
+def kubelet_run(smi, nodes=KUBELET_NODES, pods=KUBELET_PODS,
+                batch=BINARY_BATCH, device="cuda"):
+    """Phase 35's run: the node agent under the scheduler binary.  The
+    port's apiserver runs as a process (RBAC, a token file, the default
+    admission chain less the harness's list, a WAL); the port's
+    scheduler binary runs behind it on
+    the card (--tpu-batch --batch-size 4096 --node-capacity
+    caps_for_nodes(nodes + 1).n_cap, under system:kube-scheduler's token,
+    through this script's --binary-child entry, which counts its claims
+    launches and escapes); and one kubelet binary,
+    python -m kubernetes_tpu_torch.cmd.kubelet --hollow-nodes N, runs N
+    hollow nodes.  The kubelet binary holds an admin token: one identity
+    serves all N nodes, which the node authorizer (one identity a node)
+    cannot allow.
+
+    (i) The hollow flood: the N nodes register, each with its Lease in
+    kube-node-lease; P pods are created in one bulk write; every pod must
+    be bound exactly once within caps, never moved, and reach Running
+    with Ready=True and its containerStatuses on the node it was bound
+    to (each node's pods report one hostIP), as a watch sees it.  Every
+    node's Lease renewTime must advance at least once (the hollow
+    heartbeat is 10 s).
+    (ii) The full kubelet: a second kubelet binary, --full --node-name
+    full-0 --root-dir DIR; two pods select full-0 and the scheduler binds
+    both on the card.  The probed pod must turn Ready.  The other's one
+    container exits with code 1 every KUBELET_RUN_S: its pod must read
+    Failed (ROADMAP R14(e)) and its liveness probe must have the
+    container restarted with the crash backoff (the kubelet's log: 0.25
+    s, then 0.5 s).  Once the checkpoint holds both pods the binary is
+    SIGKILLed and restarted on the same root dir; a pod that was running
+    must then read Running, Ready=False, no containerStatuses (R14(d)),
+    and a terminal one keep its status.
+
+    SIGTERM ends each binary with 0 within 10 s.  The sizes: a hollow
+    kubelet rewrites a running pod's status on every event of the pod,
+    its own writes' included, PLEG once more each second, and every
+    node's handler sees every pod event (ROADMAP R14(a)), which sets how
+    many nodes and pods one binary holds (PERF.md section 4).  Returns
+    the scheduler's counts (as --binary-child prints them), the times
+    from the flood's write to the last bind and to the last pod Ready,
+    the registration's, the crash backoff and R14(d)'s restored and
+    terminal pods."""
+    import tempfile
+
+    from kubernetes_tpu_torch.client.http_client import HTTPClient
+    from kubernetes_tpu_torch.kubelet.checkpoint import CheckpointManager
+    from kubernetes_tpu_torch.perf import caps_for_nodes
+    from kubernetes_tpu_torch.perf.scheduler_perf import (
+        _bulk_create, _default_pod)
+
+    root = str(Path(__file__).resolve().parent)
+    me = str(Path(__file__).resolve())
+    n_cap = caps_for_nodes(nodes + 1).n_cap
+    children, watch = [], None
+    with tempfile.TemporaryDirectory(prefix="phase35-") as tmp:
+        try:
+            t_run0 = time.monotonic()
+            api, url = apiserver_child(
+                tmp, (f"{KUBELET_ADMIN},phase35,system:masters",
+                      f"{KUBELET_SCHED},system:kube-scheduler"),
+                "35 apiserver", root)
+            children.append(api)
+            killed = set()
+            alive = alive_check(children, killed)
+            api.wait_line("apiserver listening on", "the apiserver start",
+                          timeout=KUBELET_STEP_S)
+            admin = HTTPClient.from_url(url, token=KUBELET_ADMIN)
+            watch = PodWatch(admin)
+            used0, _apps = device_memory()
+            kubelet_argv = [sys.executable, "-u", "-m",
+                            "kubernetes_tpu_torch.cmd.kubelet", "--server",
+                            url, "--token", KUBELET_ADMIN]
+            # the scheduler and the hollow kubelet start together: the
+            # scheduler's informers take the nodes as they register
+            t0 = time.monotonic()
+            sched = ChildLog(
+                [sys.executable, "-u", me, "--binary-child", "--server", url,
+                 "--token", KUBELET_SCHED, "--tpu-batch", "--batch-size",
+                 str(batch), "--node-capacity", str(n_cap), "--device",
+                 device], "35 scheduler binary", root)
+            children.append(sched)
+            hollow = ChildLog(kubelet_argv + ["--hollow-nodes", str(nodes)],
+                              "35 hollow kubelet", root)
+            children.append(hollow)
+            t_reg, _ = hollow.wait_line(
+                rf"kubemark: {nodes} hollow nodes registered",
+                "the hollow nodes' registration", timeout=KUBELET_STEP_S)
+            reg_s = t_reg - t0
+            want = {f"hollow-{i}" for i in range(nodes)}
+            got_nodes = {n["metadata"]["name"]
+                         for n in admin.list("nodes")[0]}
+            check(want <= got_nodes,
+                  f"35: {len(want - got_nodes)} hollow nodes missing")
+            leases0 = lease_times(admin)
+            check(want <= set(leases0),
+                  f"35: {len(want - set(leases0))} Leases missing")
+            t_s, _ = sched.wait_line(
+                r"scheduler running \(tpu-batch profile\)",
+                "the scheduler binary's start", timeout=KUBELET_STEP_S)
+            print(f"   {nodes} hollow nodes and their Leases registered "
+                  f"{reg_s:.3f} s after the kubelet binary started; the "
+                  f"scheduler binary running at {t_s - t0:.3f} s (n_cap "
+                  f"{n_cap}, batch {batch}) [{smi}]", flush=True)
+
+            t_flood = time.monotonic()
+            _bulk_create(admin, "pods", pods, 0, _default_pod,
+                         {"podNamePrefix": "pod-"})
+            t_sent = time.monotonic()
+            t_bound = watch.wait_bound(pods, "default/pod-", "the flood",
+                                       alive, timeout=KUBELET_STEP_S)
+            t_run = watch.wait_until(
+                lambda: watch.ready("default/pod-") >= pods,
+                lambda: f"{pods} pods Running and Ready (Ready: "
+                        f"{watch.ready('default/pod-')})", alive)
+            check(not watch.changed, f"35: nodeName changed: "
+                                     f"{watch.changed[:5]}")
+            check(len(watch.binds) == pods
+                  and set(watch.binds.values()) == {1},
+                  f"35: {len(watch.binds)} pods bound, bind counts "
+                  f"{sorted(set(watch.binds.values()))}")
+            wrong = [k for k in watch.ready_at
+                     if watch.ready_node[k] != watch.node[k]]
+            check(not wrong, f"35: Running on another node than bound: "
+                             f"{wrong[:5]}")
+            many = {n: ips for n, ips in watch.host_ips.items()
+                    if len(ips) != 1}
+            check(not many, f"35: nodes with several hostIPs: "
+                            f"{list(many.items())[:5]}")
+            used = check_binary_caps(admin, pods, "35")
+            lat = sorted((watch.ready_at[k] - watch.added[k]) * 1e3
+                         for k in watch.ready_at)
+            print(f"   (i) {pods} pods in one bulk write "
+                  f"{t_sent - t_flood:.3f} s; all bound "
+                  f"{t_bound - t_flood:.3f} s, all Running and Ready "
+                  f"{t_run - t_flood:.3f} s after the write began; pod "
+                  f"created to Ready p50 {lat[len(lat) // 2]:.2f} ms p99 "
+                  f"{lat[min(len(lat) - 1, int(len(lat) * 0.99))]:.2f} ms; "
+                  f"pods on {used} nodes [{smi}]", flush=True)
+
+            # (ii) the full kubelet
+            full_root = Path(tmp) / KUBELET_FULL
+            full_argv = kubelet_argv + ["--full", "--node-name",
+                                        KUBELET_FULL, "--root-dir",
+                                        str(full_root)]
+            t_full = time.monotonic()
+            full = ChildLog(full_argv, "35 full kubelet", root)
+            children.append(full)
+            full.wait_line(rf"kubelet \(full\) running as node "
+                           rf"{KUBELET_FULL}", "the full kubelet's start",
+                           timeout=KUBELET_STEP_S)
+            for pod in full_pods():
+                admin.create("pods", pod)
+            watch.wait_until(lambda: watch.ready_node.get("default/probed")
+                             == KUBELET_FULL, "the probed pod Ready on "
+                             f"{KUBELET_FULL}", alive)
+            watch.wait_until(lambda: "default/crashy" in watch.node,
+                             "the crashing pod bound", alive)
+            check(watch.node["default/crashy"] == KUBELET_FULL,
+                  f"35: the crashing pod on {watch.node['default/crashy']}")
+
+            def restarts():
+                return [float(hit[1]) for _t, line in full.lines[:]
+                        for hit in [re.search(r"restarted container "
+                                              r"crashy/c0 \(backoff "
+                                              r"([0-9.]+)s\)", line)]
+                        if hit]
+            t_2 = watch.wait_until(lambda: len(restarts()) >= 2,
+                                   "two restarts of the crashing container",
+                                   alive, poll=0.05)
+            backoff = tuple(restarts()[:2])
+            check(backoff == (0.25, 0.5),
+                  f"35: the crashing container's backoff {backoff}")
+            # R14(e): a Failed report precedes the first restart
+            watch.wait_until(lambda: "Failed" in watch.phases.get(
+                "default/crashy", ()), "the crashing pod read Failed", alive)
+            crash_states = watch.states.get("default/crashy", [])
+            uids = {watch.uid["default/probed"], watch.uid["default/crashy"]}
+            ckpt = CheckpointManager(str(full_root))
+
+            def checkpointed():
+                try:
+                    return uids <= set(ckpt.get_checkpoint("pod_state"))
+                except (KeyError, ValueError):
+                    return False
+            watch.wait_until(checkpointed, "the checkpoint of both pods",
+                             alive, poll=0.1)
+            killed.add(full)
+            full.proc.kill()
+            full.proc.wait()
+            full._reader.join(timeout=5)
+            t_kill = time.monotonic()
+            # the statuses as the killed kubelet left them: a terminal one
+            # stays as it is (no sync or relist touches a terminal pod),
+            # a running one turns R14(d)'s after the restart
+            before = {k: admin.get("pods", "default", k.split("/")[1])
+                      .get("status") or {} for k in
+                      ("default/probed", "default/crashy")}
+            terminal = {k for k, st in before.items()
+                        if st.get("phase") in ("Succeeded", "Failed")}
+            check("default/probed" not in terminal,
+                  f"35: the probed pod read {before['default/probed']}")
+            full2 = ChildLog(full_argv, "35 full kubelet, restarted", root)
+            children.append(full2)
+            full2.wait_line(rf"kubelet \(full\) running as node "
+                            rf"{KUBELET_FULL}", "the restart",
+                            timeout=KUBELET_STEP_S)
+            t_r = watch.wait_until(
+                lambda: all(restored_status(watch.status[k])
+                            for k in before if k not in terminal),
+                "R14(d)'s statuses after the restart", alive)
+            after = {k: admin.get("pods", "default", k.split("/")[1])
+                     .get("status") or {} for k in before}
+            for k in terminal:
+                check(after[k] == before[k],
+                      f"35: the restart rewrote {k}'s terminal status: "
+                      f"{after[k]}")
+            print(f"   (ii) the full kubelet: probed pod Ready "
+                  f"{watch.ready_at['default/probed'] - t_full:.3f} s after "
+                  f"the binary started; the crashing container restarted "
+                  f"with backoff {backoff[0]} s then {backoff[1]} s "
+                  f"({t_2 - t_full:.3f} s in), its pod's phases "
+                  f"{sorted(watch.phases['default/crashy'])} (Failed: "
+                  f"R14(e)), its container states "
+                  f"{[s[0] for s in crash_states][:6]}; SIGKILL and "
+                  f"restart on the same root dir: "
+                  f"{sorted(set(before) - terminal)} read Running, "
+                  f"Ready=False, containerStatuses [] "
+                  f"{t_r - t_kill:.3f} s after the kill (R14(d)), "
+                  f"{sorted(terminal)} kept their terminal status; hostIP "
+                  f"{before['default/probed'].get('hostIP')} before, "
+                  f"{after['default/probed'].get('hostIP')} after (R14(b)) "
+                  f"[{smi}]", flush=True)
+
+            # every node's Lease renewed at least once
+            stale = set(want)
+
+            def renewed():
+                now = lease_times(admin)
+                for name in list(stale):
+                    if (now.get(name) or 0) > (leases0[name] or 0):
+                        stale.discard(name)
+                return not stale
+            t_l = watch.wait_until(renewed, "every hollow node's Lease "
+                                   "renewed", alive, poll=0.5)
+            print(f"   every Lease's renewTime advanced by "
+                  f"{t_l - t_reg:.3f} s after the registration", flush=True)
+
+            used1, apps1 = device_memory()
+            cpu = {c.name: process_cpu_s(c.proc.pid)
+                   for c in (hollow, full2, sched, api)}
+            rss = {c.name: process_rss_mib(c.proc.pid)
+                   for c in (hollow, api)}
+            wall = time.monotonic() - t0
+            killed.update(children)   # from here on exits are expected
+            term = {}
+            since = len(sched.lines)
+            for child in (hollow, full2, sched):
+                child.proc.send_signal(signal.SIGTERM)
+                t_term = time.monotonic()
+                try:
+                    rc = child.proc.wait(timeout=KUBELET_TERM_S)
+                except subprocess.TimeoutExpired:
+                    raise SystemExit(f"CHECK FAILED: 35: {child.name} "
+                                     f"outlived SIGTERM by "
+                                     f"{KUBELET_TERM_S} s") from None
+                term[child.name] = time.monotonic() - t_term
+                child._reader.join(timeout=5)
+                check(rc == 0, f"35: {child.name} exited {rc}")
+            _t, hit = sched.wait_line(re.escape(CHILD_TAG) + "(.*)",
+                                      "its launch count", since)
+            got = json.loads(hit[1])
+            print(f"   the kubelet processes' CPU over their "
+                  f"{wall:.3f} s: {', '.join(f'{k} {v:.3f} s' for k, v in cpu.items())}; "
+                  f"resident MiB and threads "
+                  f"{', '.join(f'{k} {v[0]:.0f} / {v[1]}' for k, v in rss.items())}; "
+                  f"SIGTERM to exit "
+                  f"{', '.join(f'{k} {v:.3f} s' for k, v in term.items())} "
+                  f"[{smi}]", flush=True)
+            print(f"   device memory (nvidia-smi memory.used, MiB): "
+                  f"{used0:.0f} before the binaries, {used1:.0f} with the "
+                  f"scheduler warm; compute apps (pid, MiB) {apps1!r} "
+                  f"[{smi}]", flush=True)
+            print(f"   scheduler binary: claims launches "
+                  f"{got['launches']['claims']}, escapes {got['escaped']} "
+                  f"{got['by_reason']}, batches {got['batches']} (plain "
+                  f"{got['plain']}, waves {got['waves']}) on "
+                  f"{got.get('device')} [{smi}]", flush=True)
+            api.proc.send_signal(signal.SIGTERM)
+            check(api.proc.wait(timeout=30) == 0,
+                  f"35: the apiserver exited {api.proc.returncode}")
+            print(f"   35: registration {reg_s:.3f} s, bind "
+                  f"{t_bound - t_flood:.3f} s, Running "
+                  f"{t_run - t_flood:.3f} s; the run "
+                  f"{time.monotonic() - t_run0:.3f} s [{smi}]", flush=True)
+            return {"scheduler": got, "registration_s": reg_s,
+                    "bind_s": t_bound - t_flood, "running_s": t_run - t_flood,
+                    "backoff": backoff, "restored": sorted(set(before)
+                                                           - terminal),
+                    "terminal": sorted(terminal), "crashy_phases":
+                    sorted(watch.phases["default/crashy"])}
+        finally:
+            if watch is not None:
+                watch.close()
+            for child in reversed(children):
+                child.stop()
+
+
+def kubelet_phase(smi, **kw):
+    """Phase 35: kubelet_run at its defaults with the scheduler binary on
+    the card, and on top of its checks: the binary launched the claims
+    kernel and sent no pod to the per-pod path.  Returns its claims
+    launches."""
+    with Phase("35 the node agent on the card"):
+        got = kubelet_run(smi, **kw)["scheduler"]
+        check(got["launches"]["claims"] > 0,
+              "35: the scheduler never launched the claims kernel")
+        check(got["escaped"] == 0 and not got["by_reason"],
+              f"35: the scheduler sent pods to the per-pod path: {got}")
+    return got["launches"]["claims"]
+
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -4914,11 +5413,11 @@ def parse_args(argv):
                          "and dry-run wrappers to time beside this one's")
     ap.add_argument("--only", choices=("seam", "sharded", "snapshot",
                                        "http", "scaleout", "binary", "proc",
-                                       "replica"),
+                                       "replica", "kubelet"),
                     help="phases 1-2 and then only these (seam: 22-25, "
                          "sharded: 26-27, snapshot: 28-29, http: 30, "
                          "scaleout: 31, binary: 32, proc: 33, replica: "
-                         "34); prints no result line")
+                         "34, kubelet: 35); prints no result line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -5241,6 +5740,10 @@ def main(argv=None) -> int:
         replica_phase(smi)
         print("partial run (--only replica): no result line")
         return 0
+    if opts.only == "kubelet":
+        kubelet_phase(smi)
+        print("partial run (--only kubelet): no result line")
+        return 0
 
     with Phase("3 kernel vs plain version"):
         # (P, N, seed, options): random cases, ragged P and N, identical
@@ -5449,6 +5952,8 @@ def main(argv=None) -> int:
     proc_launches, proc_err = proc_phase(smi)
     # store replication: a scheduler failing over to a promoted follower
     replica_launches, replica_err = replica_phase(smi)
+    # the node agent: hollow nodes running the pods the binary binds
+    kubelet_launches = kubelet_phase(smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     # K10 has no hand kernel: its numbers ride a line of their own
@@ -5465,7 +5970,8 @@ def main(argv=None) -> int:
                            for name in SEAM_LOOP_ROWS)
                      + shard_launches + dry_launches
                      + sum(http_launches.values()) + scaleout_launches
-                     + binary_launches + proc_launches + replica_launches),
+                     + binary_launches + proc_launches + replica_launches
+                     + kubelet_launches),
         "max_abs_err": max(errs + [shard_err, scaleout_err, proc_err,
                                    replica_err]),
         "ms": ms,

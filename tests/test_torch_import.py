@@ -212,6 +212,79 @@ def test_the_scan_covers_the_binary():
         assert f"kubernetes_tpu_torch/{name}.py" in scanned, name
 
 
+KUBELET = (*(f"kubelet/{m}" for m in (
+    "__init__", "qos", "checkpoint", "cri", "images", "pod_workers",
+    "probes", "status_manager", "eviction", "cm", "streams", "server",
+    "hollow", "kubelet")), "cmd/kubelet")
+
+
+def test_the_scan_covers_the_kubelet():
+    scanned = {str(p.relative_to(ROOT)) for p in
+               (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
+    for name in KUBELET:
+        assert f"kubernetes_tpu_torch/{name}.py" in scanned, name
+
+
+_BLOCKED_KUBELET = r"""
+import sys, tempfile, time
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu", "yaml"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import kubernetes_tpu_torch.cmd.kubelet
+from kubernetes_tpu_torch.api import meta
+from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
+from kubernetes_tpu_torch.kubelet import KubeletServer, start_hollow_nodes
+from kubernetes_tpu_torch.kubelet.cm import ContainerManager
+from kubernetes_tpu_torch.kubelet.kubelet import Kubelet
+from kubernetes_tpu_torch.store import kv
+
+client = LocalClient(kv.MemoryStore())
+factory = SharedInformerFactory(client)
+factory.start()
+factory.wait_for_cache_sync()
+server = KubeletServer().start()
+kubelets = start_hollow_nodes(client, factory, 2, kubelet_server=server,
+                              heartbeat_interval=3600)
+kubelets.append(Kubelet(client, factory, "full-0",
+                        root_dir=tempfile.mkdtemp(),
+                        heartbeat_interval=3600).start())
+ContainerManager().admit_pod({"metadata": {"uid": "u"}, "spec": {}})
+for node in ("hollow-1", "full-0"):
+    pod = meta.new_object("Pod", "p-" + node, "default")
+    pod["spec"] = {"nodeName": node, "containers": [{"name": "c0"}]}
+    client.create("pods", pod)
+for _ in range(500):
+    phases = [(p.get("status") or {}).get("phase")
+              for p in client.list("pods")[0]]
+    if phases == ["Running", "Running"]:
+        break
+    time.sleep(0.01)
+assert phases == ["Running", "Running"], phases
+for k in kubelets:
+    k.stop()
+server.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu", "yaml"))
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_kubelet_runs_with_jax_blocked():
+    """The node agent imports and runs hollow nodes, a full kubelet and
+    the container manager with jax, the JAX package and PyYAML
+    unimportable (the card machine has no jax)."""
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_KUBELET], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("OK"), proc.stdout
+
+
 def test_default_device_without_gpu_raises():
     torch = pytest.importorskip("torch")
     if torch.cuda.is_available():
