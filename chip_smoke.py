@@ -335,6 +335,27 @@ Phases (each prints its wall time; any failed check exits non-zero):
      0, SIGTERM ending every binary with 0 within 10 s; registration,
      bind and Running times, each binary's CPU and memory and the card's
      memory printed.
+ 36. the all-in-one cluster (controllers/, cmd/cluster.py): one process,
+     `chip_smoke.py --cluster-child --secure-port 0 --nodes 500
+     --tpu-batch --batch-size 4096` (cmd.cluster.main unchanged, its
+     claims launches counted from the end of the backend's warmup, its
+     first live wave kept), holding the apiserver, the scheduler on the
+     card, the controller manager, the Endpoints controller and 500
+     hollow nodes, driven over HTTPClient: the nodes and Leases register
+     and the controllers the manager disabled are printed; a Service and
+     a Deployment of 250 pods (100m, 128Mi) roll out (one ReplicaSet
+     named by the recomputed pod-template-hash, every pod bound once
+     within caps and Running and Ready on its node, the Endpoints and the
+     EndpointSlices, named by the recomputed group id, on exactly their
+     IPs); the template changes and a second ReplicaSet takes over while
+     the first drains to 0 (ROADMAP R15: at most twice the pods alive);
+     5 s of steady state give the store's writes per second by resource
+     (R14(a)); a Background delete collects both ReplicaSets and every
+     pod; SIGTERM ends the process with 0 within 10 s.  The step times,
+     created-to-Ready p50/p99, the pods created for each ReplicaSet
+     (R16), the process's CPU seconds, resident memory and threads are
+     printed; the claims launches must be above 0 with 0 escapes, and
+     the recorded wave must equal the plain version.
 Phases 5 and 6 are the plain main path through TorchBatchBackend.assign,
 8-10 the same path under the scheduler loop, (a)-(d) the full variant's,
 f the preemption path at the seam and 11-12 under the loop, 13-19 the
@@ -355,14 +376,15 @@ must have launched in 22, the preempt kernel in 25.  The last two lines
 are a JSON line of per-kernel numbers (launches: claims in phases 6, 9,
 22's Scheduling100k, 26's sharded assigns, 27's Scheduling100k and 29's
 dry run, 30's three rows, 31's passes, 32's two binaries, 33's
-children, 34's two schedulers and 35's scheduler binary; in 30 the
+children, 34's two schedulers, 35's scheduler binary and 36's
+cluster; in 30 the
 counts are zeroed just before each row and read in its `after` hook, in 31 when each pass starts and when its row (or the
 churn's barrier) is read, in 32 in each binary's process when its warmup
 ends, and read from the last count it printed: the survivor's as it
 exits, the killed leader's after the last batch it retired; in 33
 likewise in each child: a drained child's as it exits, a killed one's
 after its last batch; in 34 for each scheduler from the end of its
-backend's warmup to its stop, in 35 as in 32); preempt_dry_run in f,
+backend's warmup to its stop, in 35 and 36 as in 32); preempt_dry_run in f,
 11, 12 and 25) and the device line. Without a CUDA device the script exits 2 and prints no
 result.
 
@@ -378,14 +400,16 @@ after checking that both return the same answers.
 snapshot phases 1-2, 28 and 29, --only http phases 1-2 and 30, --only
 scaleout phases 1-2 and 31, --only binary phases 1-2 and 32, --only
 proc phases 1-2 and 33, --only replica phases 1-2 and 34, --only
-kubelet phases 1-2 and 35; --until 4 stops after phase 4
+kubelet phases 1-2 and 35, --only cluster phases 1-2 and 36; --until 4
+stops after phase 4
 (--build-dir DIR builds the kernels there); --slice-runs N runs phases
 1-4 in N fresh processes, each building the kernels cold into a
 directory of its own, two at a time, with a process keeping the card busy
 beside the second half (ROADMAP Q4).  None of them prints a result line.
 --binary-child ARGS is phase 32's (and 35's) entry for one scheduler
 binary, --proc-child ARGS phase 33's for one child of the process supervisor
-(procrun's --child, its counts printed as --binary-child prints them).
+(procrun's --child, its counts printed as --binary-child prints them),
+--cluster-child ARGS phase 36's for the all-in-one cluster.
 """
 
 import argparse
@@ -448,9 +472,18 @@ def check(ok: bool, what: str) -> None:
 
 
 def time_cuda(fn, n: int, warmup: int = 2) -> float:
-    """Median ms of n launches, each between its own pair of CUDA events."""
+    """Median ms of n launches, each between its own pair of CUDA events
+    (on a machine without CUDA, as the CPU tests run a child's checks:
+    the host's clock around each call)."""
     for _ in range(warmup):
         fn()
+    if not torch.cuda.is_available():
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
@@ -471,7 +504,8 @@ def check_claims(kernels, args, noise, label, pod_ids=None):
     got, best = kernels.claims(*args, noise=noise, pod_ids=pod_ids)
     want, want_best = kernels.claims_reference(*args, noise=noise,
                                                pod_ids=pod_ids)
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     check(bool(((got == -1) == (want == -1)).all()),
           f"{label} {noise}: pods with no feasible node differ")
     placed = got >= 0
@@ -4180,7 +4214,6 @@ def proc_child(argv):
     times both and prints PROC_WAVE_TAG and a JSON object (shape, live
     pods, noise, max |best err|, ms, plain ms, bound ms and what bounds
     it)."""
-    from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler import procrun
 
     record = os.environ.get(PROC_RECORD_ENV) == "1"
@@ -4196,22 +4229,30 @@ def proc_child(argv):
     finish()
     print(PROC_TAG + json.dumps(counts()), flush=True)
     if record and "wave" in rec.kept:
-        *wave, noise, pod_ids = rec.kept.pop("wave")
-        args = tuple(wave)
-        P, N, _R = args[0]["shape"]
-        label = f"33(iii) child wave {P}x{N}"
-        err, *answer = check_claims(kernels, args, noise, label, pod_ids)
-        ms = time_cuda(lambda: kernels.claims(
-            *args, noise=noise, pod_ids=pod_ids), 20)
-        plain_ms = time_cuda(lambda: kernels.claims_reference(
-            *args, noise=noise, pod_ids=pod_ids), 3, warmup=1)
-        b = claims_bounds(args, noise, answer)
-        print(PROC_WAVE_TAG + json.dumps({
-            "shape": [P, N], "live": int(args[1].sum()), "noise": noise,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b["required"][0], "bound_by": b["required"][1]}),
-            flush=True)
+        print(PROC_WAVE_TAG + json.dumps(recorded_wave(rec, "33(iii)")),
+              flush=True)
     return rc
+
+
+def recorded_wave(rec, label):
+    """The claims kernel held against its plain version on the wave a
+    child's ClaimsRecorder kept (check_claims: murmur exact, sin within
+    1e-4 at a feasible choice), both timed: shape, live pods, noise, max
+    |best err|, ms, plain ms, bound ms and what bounds it."""
+    from kubernetes_tpu_torch.ops import kernels
+    *wave, noise, pod_ids = rec.kept.pop("wave")
+    args = tuple(wave)
+    P, N, _R = args[0]["shape"]
+    err, *answer = check_claims(kernels, args, noise,
+                                f"{label} child wave {P}x{N}", pod_ids)
+    ms = time_cuda(lambda: kernels.claims(
+        *args, noise=noise, pod_ids=pod_ids), 20)
+    plain_ms = time_cuda(lambda: kernels.claims_reference(
+        *args, noise=noise, pod_ids=pod_ids), 3, warmup=1)
+    b = claims_bounds(args, noise, answer)
+    return {"shape": [P, N], "live": int(args[1].sum()), "noise": noise,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["required"][0], "bound_by": b["required"][1]}
 
 
 def smoke_proc_cluster():
@@ -5348,6 +5389,468 @@ def kubelet_phase(smi, **kw):
     return got["launches"]["claims"]
 
 
+# phase 36: the all-in-one cluster (cmd/cluster.py) in one process: the
+# apiserver, the scheduler on the card, the controller manager, the
+# Endpoints controller and CLUSTER_NODES hollow nodes, with a Deployment
+# of CLUSTER_REPLICAS kubemark-sized pods rolled out, updated and deleted
+CLUSTER_NODES = 500       # hollow nodes, in the cluster's own process
+CLUSTER_REPLICAS = 250    # the Deployment's replicas
+CLUSTER_BATCH = 4096
+CLUSTER_STEP_S = 60.0     # every wait of phase 36, s
+CLUSTER_TERM_S = 10.0     # SIGTERM to exit, s
+CLUSTER_STEADY_S = 5.0    # the steady state whose writes are counted, s
+CLUSTER_SLICE_MAX = 100   # endpoints an EndpointSlice holds
+CLUSTER_TAG = "cluster-child: "
+CLUSTER_BATCH_TAG = "cluster-child batch: "
+CLUSTER_WAVE_TAG = "cluster-child wave: "
+CLUSTER_WATCHED = ("pods", "nodes", "leases", "endpoints", "endpointslices",
+                   "replicasets", "deployments", "services", "events")
+
+
+def cluster_child(argv):
+    """--cluster-child ARGS: kubernetes_tpu_torch.cmd.cluster.main(ARGS),
+    unchanged, instrumented by instrument_child: its counts after every
+    batch (CLUSTER_BATCH_TAG) and, once main returns, after CLUSTER_TAG;
+    then the first claims wave with a live pod after the warmup, held
+    against the plain version and timed (CLUSTER_WAVE_TAG).  Before the
+    check it stops the informers main leaves running: their pod events
+    would keep the stopped hollow kubelets rewriting statuses (ROADMAP
+    R14(g)) beside it."""
+    from kubernetes_tpu_torch.client.informer import SharedInformerFactory
+    from kubernetes_tpu_torch.cmd import cluster as cmd
+
+    counts, finish, rec = instrument_child(CLUSTER_BATCH_TAG, record=True)
+    factories, init = [], SharedInformerFactory.__init__
+
+    def kept(self, *a, **kw):
+        init(self, *a, **kw)
+        factories.append(self)
+    SharedInformerFactory.__init__ = kept
+    with rec:
+        cmd.main(argv)
+    finish()
+    print(CLUSTER_TAG + json.dumps(counts()), flush=True)
+    for factory in factories:
+        factory.stop()
+    if "wave" in rec.kept:
+        print(CLUSTER_WAVE_TAG + json.dumps(recorded_wave(rec, "36")),
+              flush=True)
+    return 0
+
+
+class ClusterWatch(PodWatch):
+    """PodWatch plus the pods that were deleted and the most pods that
+    lived at once."""
+
+    phase = "36"
+    step_s = CLUSTER_STEP_S
+
+    def __init__(self, client):
+        self.deleted, self.peak = set(), 0
+        super().__init__(client)
+
+    def _event(self, ev, now):
+        key = super()._event(ev, now)
+        if ev.type == "DELETED":
+            self.deleted.add(key)
+        self.peak = max(self.peak, len(self.added) - len(self.deleted))
+        return key
+
+    def created(self, prefix):
+        return [k for k in list(self.added) if k.startswith(prefix)]
+
+    def live(self, prefix):
+        return [k for k in self.created(prefix) if k not in self.deleted]
+
+
+def web_deployment(replicas, image):
+    """The phase's Deployment: kubemark-sized pods (100m, 128Mi)."""
+    return {"apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": "web", "namespace": "default"},
+            "spec": {"replicas": replicas,
+                     "selector": {"matchLabels": {"app": "web"}},
+                     "template": {
+                         "metadata": {"labels": {"app": "web"}},
+                         "spec": {"containers": [{
+                             "name": "c0", "image": image,
+                             "resources": {"requests": {
+                                 "cpu": "100m", "memory": "128Mi"}}}]}}}}
+
+
+WEB_SERVICE = {"apiVersion": "v1", "kind": "Service",
+               "metadata": {"name": "web", "namespace": "default"},
+               "spec": {"selector": {"app": "web"},
+                        "ports": [{"name": "http", "port": 80,
+                                   "protocol": "TCP"}]}}
+
+
+def template_hash(template):
+    """pod-template-hash, recomputed here: the first ten hex digits of
+    the SHA-1 of the template's sorted-key JSON."""
+    import hashlib
+    canon = json.dumps(template, sort_keys=True)
+    return hashlib.sha1(canon.encode()).hexdigest()[:10]
+
+
+def slice_group_id(ports):
+    """The EndpointSlice name's port-group id, recomputed here: the SHA-256
+    of the repr of the group's (name, port, protocol) tuples."""
+    import hashlib
+    key = tuple((p["name"], p["port"], p["protocol"]) for p in ports)
+    return hashlib.sha256(repr(key).encode()).hexdigest()[:8]
+
+
+def normalized_state(client):
+    """What the cluster holds of the phase's objects, with what a run
+    chooses at random or by the clock taken out: the Deployment's spec
+    and status, each ReplicaSet's name, labels, replicas and status, the
+    pods by name up to their random suffix with their phase, the
+    Endpoints' and EndpointSlices' address counts by readiness, and the
+    slices' names.  Pod placement, IPs and node names are left out (they
+    follow the random pod names and the process's hash seed)."""
+    out = {"deployments": {}, "replicasets": {}, "pods": {},
+           "endpoints": {}, "endpointslices": {}}
+    for d in client.list("deployments", "default")[0]:
+        st = d.get("status") or {}
+        out["deployments"][d["metadata"]["name"]] = {
+            "replicas": d["spec"].get("replicas"),
+            "status": {k: st.get(k) for k in (
+                "replicas", "readyReplicas", "updatedReplicas",
+                "availableReplicas")}}
+    for rs in client.list("replicasets", "default")[0]:
+        out["replicasets"][rs["metadata"]["name"]] = {
+            "labels": rs["metadata"].get("labels"),
+            "replicas": rs["spec"].get("replicas"),
+            "status": {k: (rs.get("status") or {}).get(k) for k in (
+                "replicas", "readyReplicas")}}
+    for p in client.list("pods", "default")[0]:
+        name = re.sub(r"-[0-9a-f]{5}-[0-9a-f]{5}$", "-*",
+                      p["metadata"]["name"])
+        phase = (p.get("status") or {}).get("phase")
+        out["pods"][f"{name} {phase}"] = \
+            out["pods"].get(f"{name} {phase}", 0) + 1
+    for ep in client.list("endpoints", "default")[0]:
+        out["endpoints"][ep["metadata"]["name"]] = sorted(
+            len(s.get("addresses") or ()) for s in ep.get("subsets") or ())
+    for sl in client.list("endpointslices", "default")[0]:
+        eps = sl.get("endpoints") or ()
+        out["endpointslices"][sl["metadata"]["name"]] = {
+            "ready": sum(1 for e in eps if e["conditions"]["ready"]),
+            "endpoints": len(eps), "ports": sl.get("ports")}
+    return out
+
+
+def cluster_run(smi, nodes=CLUSTER_NODES, replicas=CLUSTER_REPLICAS,
+                batch=CLUSTER_BATCH, device="cuda", argv=None,
+                term_s=CLUSTER_TERM_S):
+    """Phase 36's run: the port's all-in-one cluster, python -m
+    kubernetes_tpu_torch.cmd.cluster --secure-port 0 --nodes N --tpu-batch
+    --batch-size B --device D, as one process through this script's
+    --cluster-child entry (which counts its claims launches and escapes
+    and checks its first live wave), driven over the port's HTTPClient.
+    `argv` replaces the command before --secure-port (the tests run the
+    JAX package's binary through it).
+
+    (1) The cluster comes up: N hollow nodes and their Leases register;
+    the controllers the manager started and disabled are read from its
+    log.  (2) A Service and a Deployment of R replicas (100m, 128Mi) in
+    one namespace: one ReplicaSet named web-<pod-template-hash> (the hash
+    recomputed here), R pods bound exactly once within caps, each Running
+    and Ready on the node it was bound to, the Service's Endpoints and
+    EndpointSlices (their group id recomputed here) listing exactly the
+    R pods' IPs.  (3) The pod template changes: a second ReplicaSet
+    reaches R Ready pods, the first drains to 0 and its pods go, and the
+    Endpoints and slices follow; the most pods alive at once is printed
+    (ROADMAP R15: the new ReplicaSet surges the whole count).  (4)
+    CLUSTER_STEADY_S s of steady state: the store's writes, in all (its
+    resourceVersion) and by resource (a watch each), per second (ROADMAP
+    R14(a) as the controllers amplify it).  (5) The Deployment is deleted
+    with propagationPolicy Background: the garbage collector removes both
+    ReplicaSets and every pod.  (6) SIGTERM: the process exits 0 within
+    CLUSTER_TERM_S s.
+
+    Returns the child's counts (as --cluster-child prints them; None for
+    another binary), its recorded wave, the step times and the normalized
+    state after (3) and after (5)."""
+    from kubernetes_tpu_torch.client.http_client import HTTPClient
+
+    root = str(Path(__file__).resolve().parent)
+    me = str(Path(__file__).resolve())
+    ours = argv is None
+    if ours:
+        argv = [sys.executable, "-u", me, "--cluster-child"]
+    times, child, watch = {}, None, None
+    try:
+        t_run0 = time.monotonic()
+        # port 0: the apiserver binds a free port and the "cluster up"
+        # line names it
+        child = ChildLog(
+            argv + ["--secure-port", "0", "--nodes", str(nodes),
+                    "--tpu-batch", "--batch-size", str(batch),
+                    *(["--device", device] if ours else [])],
+            "36 cluster", root)
+        killed = set()
+        alive = alive_check([child], killed)
+        # (1) up: the line comes once every hollow node has started
+        t_up, hit = child.wait_line(r"cluster up: apiserver=(\S+)",
+                                    "the cluster's start",
+                                    timeout=CLUSTER_STEP_S)
+        times["up"] = t_up - t_run0
+        admin = HTTPClient.from_url(hit[1])
+        want_nodes = {f"hollow-{i}" for i in range(nodes)}
+        watch = ClusterWatch(admin)
+
+        def registered():
+            got = {n["metadata"]["name"] for n in admin.list("nodes")[0]}
+            return want_nodes <= got and want_nodes <= set(
+                lease_times(admin))
+        t_reg = watch.wait_until(registered, f"{nodes} nodes and their "
+                                 f"Leases registered", alive, poll=0.1)
+        times["registered"] = t_reg - t_run0
+        started = sorted({hit[1] for _t, line in child.lines[:]
+                          for hit in [re.search(
+                              r"starting controller (\S+)", line)]
+                          if hit})
+        disabled = sorted({hit[1] for _t, line in child.lines[:]
+                           for hit in [re.search(
+                               r"controller (\S+) disabled", line)]
+                           if hit})
+        print(f"   (1) the cluster up {times['up']:.3f} s after the "
+              f"process started, {nodes} nodes and Leases registered "
+              f"at {times['registered']:.3f} s; the manager started "
+              f"{len(started)} controllers, disabled {disabled or 'none'} "
+              f"[{smi}]", flush=True)
+
+        # (2) the rollout
+        admin.create("services", WEB_SERVICE)
+        t2 = time.monotonic()
+        admin.create("deployments", web_deployment(replicas, "img:v1"))
+        rs1 = check_rollout(admin, watch, alive, replicas, "(2)")
+        times["rollout"] = time.monotonic() - t2
+        used = check_binary_caps(admin, replicas, "36 (2)")
+        lat = sorted((watch.ready_at[k] - watch.added[k]) * 1e3
+                     for k in watch.ready_at)
+        made = {rs1: len(watch.created(f"default/{rs1}-"))}
+        print(f"   (2) Deployment of {replicas}: ReplicaSet {rs1}, "
+              f"{replicas} pods bound once within caps on {used} "
+              f"nodes, Running and Ready, in the Endpoints and the "
+              f"EndpointSlices {times['rollout']:.3f} s after the "
+              f"create ({made[rs1]} pods created for it, ROADMAP "
+              f"R16); created to Ready p50 "
+              f"{lat[len(lat) // 2]:.2f} ms p99 "
+              f"{lat[min(len(lat) - 1, int(len(lat) * 0.99))]:.2f} ms "
+              f"[{smi}]", flush=True)
+
+        # (3) the update
+        def new_image(o):
+            o["spec"]["template"]["spec"]["containers"][0]["image"] = \
+                "img:v2"
+            return o
+        t3 = time.monotonic()
+        cur = admin.get("deployments", "default", "web")
+        admin.update("deployments", new_image(cur))
+        rs2 = check_rollout(admin, watch, alive, replicas, "(3)",
+                            old=rs1)
+        times["update"] = time.monotonic() - t3
+        check_binary_caps(admin, replicas, "36 (3)")
+        updated = normalized_state(admin)
+        made[rs2] = len(watch.created(f"default/{rs2}-"))
+        print(f"   (3) template changed: ReplicaSet {rs2} at "
+              f"{replicas} Ready pods ({made[rs2]} created for it, "
+              f"R16), {rs1} drained to 0 and its pods "
+              f"gone, the Endpoints and slices on the new pods "
+              f"{times['update']:.3f} s after the update; at most "
+              f"{watch.peak} pods alive at once (ROADMAP R15) [{smi}]",
+              flush=True)
+
+        # (4) the steady state's writes
+        writes = steady_writes(admin)
+        total = writes.pop("total")
+        made = {rs: len(watch.created(f"default/{rs}-")) for rs in made}
+        print(f"   (4) steady state over {CLUSTER_STEADY_S} s: "
+              f"{total / CLUSTER_STEADY_S:.1f} store writes/s; by "
+              f"resource /s "
+              f"{ {k: v / CLUSTER_STEADY_S for k, v in writes.items()} } "
+              f"(R14(a)); pods created by ReplicaSet so far {made} (R16) "
+              f"[{smi}]", flush=True)
+
+        # (5) the delete
+        t5 = time.monotonic()
+        admin.delete("deployments", "default", "web",
+                     propagation_policy="Background")
+
+        def collected():
+            return not admin.list("replicasets", "default")[0] and \
+                not admin.list("pods", "default")[0]
+        watch.wait_until(collected, "both ReplicaSets and every pod "
+                         "collected", alive, poll=0.05)
+        times["delete"] = time.monotonic() - t5
+        watch.wait_until(
+            lambda: not admin.get("endpoints", "default", "web")
+            .get("subsets"), "the Endpoints emptied", alive, poll=0.05)
+        deleted = normalized_state(admin)
+        check(not watch.changed, f"36: nodeName changed: "
+                                 f"{watch.changed[:5]}")
+        check(set(watch.binds.values()) <= {1},
+              f"36: bind counts {sorted(set(watch.binds.values()))}")
+        made = {rs: len(watch.created(f"default/{rs}-")) for rs in made}
+        print(f"   (5) Background delete: both ReplicaSets and "
+              f"{len(watch.binds)} pods collected "
+              f"{times['delete']:.3f} s after the delete; pods created "
+              f"in the run by ReplicaSet {made} (R16) [{smi}]",
+              flush=True)
+
+        # (6) SIGTERM
+        cpu = process_cpu_s(child.proc.pid)
+        rss, threads = process_rss_mib(child.proc.pid)
+        wall = time.monotonic() - t_run0
+        killed.add(child)
+        since = len(child.lines)
+        child.proc.send_signal(signal.SIGTERM)
+        t_term = time.monotonic()
+        try:
+            rc = child.proc.wait(timeout=term_s)
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"CHECK FAILED: 36: the cluster outlived "
+                             f"SIGTERM by {term_s} s") from None
+        times["term"] = time.monotonic() - t_term
+        child._reader.join(timeout=5)
+        check(rc == 0, f"36: the cluster exited {rc}; its last lines "
+                       f"{[line[:300] for _t, line in child.lines[-8:]]}")
+        got = wave = None
+        main_s = ""
+        if ours:
+            t_main, hit = child.wait_line(re.escape(CLUSTER_TAG) + "(.*)",
+                                          "its launch count", since)
+            got = json.loads(hit[1])
+            main_s = f" (main returned at {t_main - t_term:.3f} s)"
+            hit = child.find(re.escape(CLUSTER_WAVE_TAG) + "(.*)", since)
+            check(hit is not None, "36: the cluster recorded no wave")
+            wave = json.loads(hit[1][1])
+        print(f"   (6) SIGTERM to exit {times['term']:.3f} s{main_s}; the "
+              f"process over its {wall:.3f} s: CPU {cpu:.3f} s, "
+              f"resident {rss:.0f} MiB, {threads} threads [{smi}]",
+              flush=True)
+        print(f"   36: up {times['up']:.3f} s, registered "
+              f"{times['registered']:.3f} s, rollout "
+              f"{times['rollout']:.3f} s, update {times['update']:.3f} "
+              f"s, delete {times['delete']:.3f} s; the run "
+              f"{time.monotonic() - t_run0:.3f} s [{smi}]", flush=True)
+        return {"cluster": got, "wave": wave, "times": times,
+                "started": started, "disabled": disabled,
+                "peak": watch.peak, "made": made, "updated": updated,
+                "deleted": deleted, "writes": writes, "total": total}
+    finally:
+        if watch is not None:
+            watch.close()
+        if child is not None:
+            child.stop()
+
+
+def check_rollout(admin, watch, alive, replicas, step, old=None):
+    """Wait until the Deployment's ReplicaSet for its current template
+    (web-<hash>, the hash recomputed here) holds `replicas` Ready pods,
+    each Running on the node it was bound to, `old` (the previous
+    ReplicaSet) is scaled to 0 with its pods gone, and the Service's
+    Endpoints and EndpointSlices list exactly the new pods' IPs.  Returns
+    the ReplicaSet's name."""
+    dep = admin.get("deployments", "default", "web")
+    thash = template_hash(dep["spec"]["template"])
+    rs = f"web-{thash}"
+    prefix = f"default/{rs}-"
+    watch.wait_until(lambda: len(watch.ready_at.keys() & set(
+        watch.live(prefix))) >= replicas,
+        lambda: f"36 {step}: {replicas} pods of {rs} Ready (Ready: "
+                f"{len(watch.ready_at.keys() & set(watch.live(prefix)))})",
+        alive)
+    got = admin.get("replicasets", "default", rs)
+    check(got["metadata"]["labels"].get("pod-template-hash") == thash,
+          f"36 {step}: {rs}'s labels {got['metadata']['labels']}")
+    if old is not None:
+        left = f"default/{old}-"
+        watch.wait_until(
+            lambda: not watch.live(left) and admin.get(
+                "replicasets", "default", old)["spec"]["replicas"] == 0,
+            lambda: f"36 {step}: {old} drained ({len(watch.live(left))} "
+                    f"pods left)", alive)
+    live = watch.live(prefix)
+    check(len(live) == replicas, f"36 {step}: {len(live)} pods of {rs}")
+    wrong = [k for k in live if watch.ready_node[k] != watch.node[k]]
+    check(not wrong, f"36 {step}: Running on another node than bound: "
+                     f"{wrong[:5]}")
+    ips = {watch.status[k].get("podIP") for k in live}
+    check(len(ips) == replicas, f"36 {step}: {len(ips)} pod IPs")
+    gid = slice_group_id(WEB_SERVICE["spec"]["ports"])
+
+    def listed():
+        ep = admin.get("endpoints", "default", "web")
+        in_ep = {a["ip"] for s in ep.get("subsets") or ()
+                 for a in s.get("addresses") or ()}
+        slices = admin.list("endpointslices", "default")[0]
+        in_sl = {e["addresses"][0] for sl in slices
+                 for e in sl.get("endpoints") or ()
+                 if e["conditions"]["ready"]}
+        names = {sl["metadata"]["name"] for sl in slices}
+        return (in_ep == ips and in_sl == ips and names == {
+            f"web-{gid}-{i}"
+            for i in range(-(-replicas // CLUSTER_SLICE_MAX))})
+    watch.wait_until(listed, f"36 {step}: the Endpoints and EndpointSlices "
+                     f"(web-{gid}-*) on {rs}'s {replicas} pod IPs", alive,
+                     poll=0.05)
+    return rs
+
+
+def steady_writes(admin):
+    """The store's writes over CLUSTER_STEADY_S s: in all (the
+    resourceVersion's advance) and by resource (a watch on each of
+    CLUSTER_WATCHED from the starting resourceVersion)."""
+    _items, rv0 = admin.list("namespaces")
+    watches = {res: admin.watch(res, since_rv=rv0)
+               for res in CLUSTER_WATCHED}
+    counts = dict.fromkeys(CLUSTER_WATCHED, 0)
+    t_end = time.monotonic() + CLUSTER_STEADY_S
+    try:
+        while time.monotonic() < t_end:
+            for res, w in watches.items():
+                counts[res] += len(w.next_batch(timeout=0.01))
+        _items, rv1 = admin.list("namespaces")
+        for res, w in watches.items():   # what arrived up to rv1
+            for ev in w.next_batch(timeout=0.2):
+                counts[res] += int(
+                    ev.object["metadata"]["resourceVersion"]) <= rv1
+    finally:
+        for w in watches.values():
+            w.stop()
+    return {**counts, "total": rv1 - rv0}
+
+
+def cluster_phase(smi, **kw):
+    """Phase 36: cluster_run at its defaults with the scheduler on the
+    card, and on top of its checks: it launched the claims kernel, sent
+    no pod to the per-pod path, and its first live wave equals the plain
+    version.  Returns its claims launches and the wave's max |best err|."""
+    with Phase("36 the all-in-one cluster on the card"):
+        got = cluster_run(smi, **kw)
+        counts, wave = got["cluster"], got["wave"]
+        check(counts["launches"]["claims"] > 0,
+              "36: the cluster never launched the claims kernel")
+        check(counts["escaped"] == 0 and not counts["by_reason"],
+              f"36: the scheduler sent pods to the per-pod path: {counts}")
+        print(f"   36 cluster: claims launches "
+              f"{counts['launches']['claims']}, escapes {counts['escaped']} "
+              f"{counts['by_reason']}, batches {counts['batches']} (plain "
+              f"{counts['plain']}, waves {counts['waves']}) on "
+              f"{counts.get('device')}, reserved "
+              f"{counts.get('reserved_mib', 0.0):.1f} MiB (peak "
+              f"{counts.get('peak_reserved_mib', 0.0):.1f}); first wave "
+              f"{wave['shape']} ({wave['live']} live pods, {wave['noise']}) "
+              f"max |best err| {wave['max_abs_err']}, {wave['ms']:.4f} "
+              f"ms/launch, plain version {wave['plain_ms']:.4f} ms, bound "
+              f"{wave['bound_ms']:.4f} ms ({wave['bound_by']}) [{smi}]",
+              flush=True)
+    return counts["launches"]["claims"], wave["max_abs_err"]
+
+
 def busy_card(seconds):
     """Keep the card busy for `seconds`: back-to-back f32 matmuls."""
     a = torch.randn(4096, 4096, device="cuda")
@@ -5413,11 +5916,12 @@ def parse_args(argv):
                          "and dry-run wrappers to time beside this one's")
     ap.add_argument("--only", choices=("seam", "sharded", "snapshot",
                                        "http", "scaleout", "binary", "proc",
-                                       "replica", "kubelet"),
+                                       "replica", "kubelet", "cluster"),
                     help="phases 1-2 and then only these (seam: 22-25, "
                          "sharded: 26-27, snapshot: 28-29, http: 30, "
                          "scaleout: 31, binary: 32, proc: 33, replica: "
-                         "34, kubelet: 35); prints no result line")
+                         "34, kubelet: 35, cluster: 36); prints no result "
+                         "line")
     ap.add_argument("--slice-runs", type=int, default=0, metavar="N",
                     help="phases 1-4 in N fresh processes with cold builds, "
                          "a busy card beside the second half (ROADMAP Q4); "
@@ -5643,6 +6147,8 @@ def main(argv=None) -> int:
         return binary_child(argv[1:])
     if argv[:1] == ["--proc-child"]:
         return proc_child(argv[1:])
+    if argv[:1] == ["--cluster-child"]:
+        return cluster_child(argv[1:])
     opts = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5743,6 +6249,10 @@ def main(argv=None) -> int:
     if opts.only == "kubelet":
         kubelet_phase(smi)
         print("partial run (--only kubelet): no result line")
+        return 0
+    if opts.only == "cluster":
+        cluster_phase(smi)
+        print("partial run (--only cluster): no result line")
         return 0
 
     with Phase("3 kernel vs plain version"):
@@ -5954,6 +6464,8 @@ def main(argv=None) -> int:
     replica_launches, replica_err = replica_phase(smi)
     # the node agent: hollow nodes running the pods the binary binds
     kubelet_launches = kubelet_phase(smi)
+    # the all-in-one cluster: a Deployment rolled out, updated and deleted
+    cluster_launches, cluster_err = cluster_phase(smi)
 
     print(f"total wall {time.monotonic() - t_all:.3f} s")
     # K10 has no hand kernel: its numbers ride a line of their own
@@ -5971,9 +6483,9 @@ def main(argv=None) -> int:
                      + shard_launches + dry_launches
                      + sum(http_launches.values()) + scaleout_launches
                      + binary_launches + proc_launches + replica_launches
-                     + kubelet_launches),
+                     + kubelet_launches + cluster_launches),
         "max_abs_err": max(errs + [shard_err, scaleout_err, proc_err,
-                                   replica_err]),
+                                   replica_err, cluster_err]),
         "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {

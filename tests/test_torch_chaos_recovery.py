@@ -1,9 +1,9 @@
 """Crash-only recovery in the port: a scheduler that dies mid-flight is
-replaced by a fresh one that rebuilds from the store, and HTTP watch
-clients relist once the apiserver's serving layer restarts.  The port's
-counterparts of tests/test_chaos_recovery.py's TestSchedulerCrashRecovery
-and TestApiserverRestart (its controller case stays with controllers/,
-which the port does not hold).
+replaced by a fresh one that rebuilds from the store, a restarted
+controller manager reconverges a ReplicaSet changed while it was down,
+and HTTP watch clients relist once the apiserver's serving layer
+restarts.  The port's counterparts of tests/test_chaos_recovery.py's
+three classes.
 """
 
 import time
@@ -11,6 +11,7 @@ import time
 from kubernetes_tpu_torch.api import meta
 from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
 from kubernetes_tpu_torch.client.clientset import NODES, PODS
+from kubernetes_tpu_torch.controllers import ControllerManager
 from kubernetes_tpu_torch.scheduler import (
     Profile, Scheduler, new_default_framework,
 )
@@ -74,6 +75,52 @@ class TestSchedulerCrashRecovery:
             assert not diff["nodes"]["missing"] and not diff["pods"]["missing"]
         finally:
             sched2.stop()
+            factory2.stop()
+
+
+class TestControllerCrashRecovery:
+    def test_controller_manager_restart_reconverges(self):
+        store = kv.MemoryStore()
+        client = LocalClient(store)
+        factory = SharedInformerFactory(client)
+        mgr = ControllerManager(client, factory,
+                                controllers=("replicaset",))
+        factory.start()
+        factory.wait_for_cache_sync()
+        mgr.run()
+
+        rs = meta.new_object("ReplicaSet", "cr-rs", "default")
+        rs["spec"] = {"replicas": 3,
+                      "selector": {"matchLabels": {"app": "cr"}},
+                      "template": {"metadata": {"labels": {"app": "cr"}},
+                                   "spec": {"containers": [
+                                       {"name": "c0", "image": "img"}]}}}
+        client.create("replicasets", rs)
+        assert wait_for(lambda: len(client.list(PODS, "default")[0]) == 3)
+        mgr.stop()
+        factory.stop()
+
+        # scale up while the controller is down; delete a pod too
+        def scale(o):
+            o["spec"]["replicas"] = 5
+            return o
+        client.guaranteed_update("replicasets", "default", "cr-rs", scale)
+        victim = client.list(PODS, "default")[0][0]
+        client.delete(PODS, "default", meta.name(victim))
+        assert len(client.list(PODS, "default")[0]) == 2
+
+        factory2 = SharedInformerFactory(client)
+        mgr2 = ControllerManager(client, factory2,
+                                 controllers=("replicaset",))
+        factory2.start()
+        factory2.wait_for_cache_sync()
+        mgr2.run()
+        try:
+            assert wait_for(lambda: len([
+                p for p in client.list(PODS, "default")[0]
+                if meta.deletion_timestamp(p) is None]) == 5)
+        finally:
+            mgr2.stop()
             factory2.stop()
 
 

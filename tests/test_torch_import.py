@@ -292,3 +292,74 @@ def test_default_device_without_gpu_raises():
     from kubernetes_tpu_torch.ops.backend import TorchBatchBackend
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchBatchBackend()
+
+
+CONTROLLERS = (*(f"controllers/{p.stem}" for p in sorted(
+    (ROOT / "kubernetes_tpu" / "controllers").glob("*.py"))), "cmd/cluster")
+
+
+def test_the_scan_covers_the_controllers():
+    scanned = {str(p.relative_to(ROOT)) for p in
+               (ROOT / "kubernetes_tpu_torch").rglob("*.py")}
+    assert len(CONTROLLERS) == 32
+    for name in CONTROLLERS:
+        assert f"kubernetes_tpu_torch/{name}.py" in scanned, name
+
+
+_BLOCKED_CONTROLLERS = r"""
+import importlib, pkgutil, sys, time
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu", "yaml"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import kubernetes_tpu_torch.cmd.cluster
+import kubernetes_tpu_torch.controllers as controllers
+for mod in pkgutil.iter_modules(controllers.__path__):
+    importlib.import_module("kubernetes_tpu_torch.controllers." + mod.name)
+from kubernetes_tpu_torch.client import LocalClient, SharedInformerFactory
+from kubernetes_tpu_torch.controllers import ControllerManager
+from kubernetes_tpu_torch.controllers.endpoints import EndpointsController
+from kubernetes_tpu_torch.store import kv
+
+client = LocalClient(kv.MemoryStore())
+factory = SharedInformerFactory(client)
+mgr = ControllerManager(client, factory)
+endpoints = EndpointsController(client, factory)
+factory.start()
+factory.wait_for_cache_sync()
+mgr.run()
+endpoints.run()
+rs = {"apiVersion": "apps/v1", "kind": "ReplicaSet",
+      "metadata": {"name": "r", "namespace": "default"},
+      "spec": {"replicas": 2, "selector": {"matchLabels": {"app": "r"}},
+               "template": {"metadata": {"labels": {"app": "r"}},
+                            "spec": {"containers": [{"name": "c0"}]}}}}
+client.create("replicasets", rs)
+for _ in range(500):
+    if len(client.list("pods")[0]) == 2:
+        break
+    time.sleep(0.01)
+assert len(client.list("pods")[0]) == 2
+endpoints.stop()
+mgr.stop()
+factory.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu", "yaml"))
+assert not bad, bad
+print("OK", len(mgr.controllers))
+"""
+
+
+def test_controllers_run_with_jax_blocked():
+    """The controller manager, every controller module and the cluster
+    binary import, and a ReplicaSet gets its pods, with jax, the JAX
+    package and PyYAML unimportable (the card machine has no jax)."""
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_CONTROLLERS],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("OK"), proc.stdout

@@ -43,7 +43,6 @@ Every wait has its own bound; heartbeats are an hour apart unless a test
 reads them, and every process test stops its children in a finalizer.
 """
 
-import ast
 import importlib
 import io
 import json
@@ -63,7 +62,7 @@ import pytest
 pytest.importorskip("jax")
 
 import chip_smoke  # noqa: E402
-from torch_cases import PORT_PKG as PORT, Stack  # noqa: E402
+from torch_cases import PORT_PKG as PORT, Stack, code_of  # noqa: E402
 from torch_cases import wait_for as bounded_wait  # noqa: E402
 
 from kubernetes_tpu_torch.api import meta  # noqa: E402
@@ -118,20 +117,6 @@ def deadline():
 
 MODULES = [*(f"kubelet/{p.stem}" for p in
              sorted((ROOT / JAX / "kubelet").glob("*.py"))), "cmd/kubelet"]
-
-
-def code_of(path):
-    """The module's AST with every docstring taken out."""
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
-                             ast.AsyncFunctionDef)):
-            body = node.body
-            if (body and isinstance(body[0], ast.Expr)
-                    and isinstance(body[0].value, ast.Constant)
-                    and isinstance(body[0].value.value, str)):
-                node.body = body[1:]
-    return ast.dump(tree)
 
 
 @pytest.mark.parametrize("name", MODULES)

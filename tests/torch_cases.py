@@ -860,6 +860,21 @@ LOOP_CAPS = dict(n_cap=64, l_cap=64, kl_cap=32, t_cap=8, pt_cap=8, s_cap=2,
                  sg_cap=8, asg_cap=8)
 
 
+def code_of(path):
+    """The module's AST with every docstring taken out."""
+    import ast
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:]
+    return ast.dump(tree)
+
+
 def wait_for(predicate, timeout=30.0, interval=0.01):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
